@@ -1,0 +1,24 @@
+"""of_spmm_tpu_torch: the PyTorch / CUDA port of of_spmm_tpu.
+
+A second package beside the JAX one, for one NVIDIA H100. Its modules
+mirror the JAX package's layout; every TPU kernel on a ported path becomes
+a kernel written by hand for Hopper (``csrc/*.cu``), with a plain PyTorch
+version beside it. The port imports neither JAX nor the JAX package.
+
+Ported so far: GCN inference on the binned and tiered SpMM layouts.
+
+    from of_spmm_tpu_torch.data import load_graph, random_features
+    from of_spmm_tpu_torch.models import GCN, normalized_adjacency
+    from of_spmm_tpu_torch.ops import make_operator
+"""
+
+from of_spmm_tpu_torch.sparse.formats import COO, CSR
+from of_spmm_tpu_torch.sparse.binned import BinnedEll, EllBucket, bin_rows
+from of_spmm_tpu_torch import ops
+from of_spmm_tpu_torch import sparse
+from of_spmm_tpu_torch import utils
+
+__version__ = "0.1.0"
+
+__all__ = ["COO", "CSR", "BinnedEll", "EllBucket", "bin_rows", "ops", "sparse",
+           "utils", "__version__"]

@@ -1,0 +1,11 @@
+from of_spmm_tpu_torch.data.cache import cache_path, cache_root, cached
+from of_spmm_tpu_torch.data.graphs import (
+    NAMED_CONFIGS,
+    GraphConfig,
+    load_graph,
+    random_features,
+    synthetic_edges,
+)
+
+__all__ = ["cached", "cache_root", "cache_path", "NAMED_CONFIGS", "GraphConfig",
+           "load_graph", "random_features", "synthetic_edges"]

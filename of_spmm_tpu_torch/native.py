@@ -1,0 +1,177 @@
+"""ctypes bindings for the native plan builder (csrc/planner.cpp).
+
+Compiled on first use with g++ -O3 -fopenmp into a cache directory keyed
+by the source hash; every entry point has a numpy fallback, so the package
+works without a toolchain. Only the three sorts the port's plan path uses
+are bound here: COO -> CSR, symmetrize + dedup, and CSR transpose.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from typing import Optional, Tuple
+
+import numpy as np
+
+_SRC = os.path.join(os.path.dirname(__file__), "csrc", "planner.cpp")
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+_TRIED = False
+
+
+def _cache_dir() -> str:
+    return os.environ.get(
+        "OFS_TORCH_NATIVE_CACHE", os.path.expanduser("~/.cache/ofs_torch_native")
+    )
+
+
+def _build() -> Optional[str]:
+    try:
+        with open(_SRC, "rb") as f:
+            src = f.read()
+    except OSError:
+        return None
+    h = hashlib.sha256(src).hexdigest()[:16]
+    out = os.path.join(_cache_dir(), f"planner-{h}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(_cache_dir(), exist_ok=True)
+    tmp = out + f".tmp{os.getpid()}.so"
+    cmd = [
+        "g++", "-O3", "-shared", "-fPIC", "-fopenmp", "-std=c++17",
+        "-march=native", _SRC, "-o", tmp,
+    ]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError):
+        try:  # retry without -march/-fopenmp (portability)
+            cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
+            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+        except (OSError, subprocess.SubprocessError):
+            return None
+    os.replace(tmp, out)
+    return out
+
+
+def _lib() -> Optional[ctypes.CDLL]:
+    global _LIB, _TRIED
+    with _LOCK:
+        if _LIB is not None or _TRIED:
+            return _LIB
+        _TRIED = True
+        path = _build()
+        if path is None:
+            return None
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            return None
+        i64, i32p, f32p, i64p = (
+            ctypes.c_int64,
+            np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
+            np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        )
+        lib.coo_to_csr.argtypes = [i64, i64, i32p, i32p, ctypes.c_void_p,
+                                   i64p, i32p, f32p]
+        lib.coo_to_csr.restype = ctypes.c_int
+        lib.symmetrize_dedup.argtypes = [i64, i64, i32p, i32p,
+                                         ctypes.c_void_p, ctypes.c_void_p,
+                                         np.ctypeslib.ndpointer(np.int64)]
+        lib.symmetrize_dedup.restype = ctypes.c_int
+        lib.csr_transpose.argtypes = [i64, i64, i64, i64p, i32p,
+                                      ctypes.c_void_p, i64p, i32p, f32p]
+        lib.csr_transpose.restype = ctypes.c_int
+        _LIB = lib
+        return _LIB
+
+
+def available() -> bool:
+    return _lib() is not None
+
+
+def coo_to_csr(
+    rows: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray],
+    n_rows: int,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(indptr int64, cols int32 sorted per row, vals f32). Parallel native
+    counting sort; numpy lexsort fallback."""
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    cols = np.ascontiguousarray(cols, dtype=np.int32)
+    nnz = rows.shape[0]
+    lib = _lib()
+    if lib is not None:
+        indptr = np.zeros(n_rows + 1, dtype=np.int64)
+        out_cols = np.empty(nnz, dtype=np.int32)
+        out_vals = np.empty(nnz, dtype=np.float32)
+        vp = (
+            np.ascontiguousarray(vals, dtype=np.float32).ctypes.data
+            if vals is not None else None
+        )
+        rc = lib.coo_to_csr(n_rows, nnz, rows, cols, vp, indptr,
+                            out_cols, out_vals)
+        if rc == 0:
+            return indptr, out_cols, out_vals
+    v = (np.ones(nnz, np.float32) if vals is None
+         else np.asarray(vals, np.float32))
+    order = np.lexsort((cols, rows))
+    counts = np.bincount(rows, minlength=n_rows)
+    indptr = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return indptr, cols[order], v[order]
+
+
+def symmetrize_dedup(
+    src: np.ndarray, dst: np.ndarray, n: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """unique(E ∪ E^T) sorted by (src, dst)."""
+    src = np.ascontiguousarray(src, dtype=np.int32)
+    dst = np.ascontiguousarray(dst, dtype=np.int32)
+    lib = _lib()
+    if lib is not None:
+        cnt = np.zeros(1, dtype=np.int64)
+        if lib.symmetrize_dedup(n, src.shape[0], src, dst, None, None, cnt) == 0:
+            out_s = np.empty(int(cnt[0]), dtype=np.int32)
+            out_d = np.empty(int(cnt[0]), dtype=np.int32)
+            rc = lib.symmetrize_dedup(
+                n, src.shape[0], src, dst,
+                out_s.ctypes.data, out_d.ctypes.data, cnt,
+            )
+            if rc == 0:
+                return out_s, out_d
+    s2 = np.concatenate([src, dst]).astype(np.int64)
+    d2 = np.concatenate([dst, src]).astype(np.int64)
+    key = np.unique(s2 * n + d2)
+    return (key // n).astype(np.int32), (key % n).astype(np.int32)
+
+
+def csr_transpose(
+    indptr: np.ndarray, cols: np.ndarray, vals: Optional[np.ndarray],
+    shape: Tuple[int, int],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """CSR of A^T from CSR of A (native counting pass; numpy fallback)."""
+    n_rows, n_cols = shape
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int32)
+    nnz = cols.shape[0]
+    lib = _lib()
+    if lib is not None:
+        out_indptr = np.zeros(n_cols + 1, dtype=np.int64)
+        out_cols = np.empty(nnz, dtype=np.int32)
+        out_vals = np.empty(nnz, dtype=np.float32)
+        vp = (
+            np.ascontiguousarray(vals, dtype=np.float32).ctypes.data
+            if vals is not None else None
+        )
+        rc = lib.csr_transpose(n_rows, n_cols, nnz, indptr, cols, vp,
+                               out_indptr, out_cols, out_vals)
+        if rc == 0:
+            return out_indptr, out_cols, out_vals
+    rows = np.repeat(np.arange(n_rows, dtype=np.int32), np.diff(indptr))
+    v = (np.ones(nnz, np.float32) if vals is None
+         else np.asarray(vals, np.float32))
+    return coo_to_csr(cols, rows, v, n_cols)

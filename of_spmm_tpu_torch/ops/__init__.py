@@ -1,0 +1,22 @@
+"""Op layer: reference oracles, CUDA kernels, the SpMM operator."""
+
+from of_spmm_tpu_torch.ops import reference
+from of_spmm_tpu_torch.ops.autograd import (
+    SpmmOperator,
+    make_operator,
+    place_operator,
+    spmm,
+    spmm_internal,
+)
+from of_spmm_tpu_torch.ops.cuda.spmm import bucket_spmm, gather_rows
+
+__all__ = [
+    "reference",
+    "SpmmOperator",
+    "make_operator",
+    "place_operator",
+    "spmm",
+    "spmm_internal",
+    "bucket_spmm",
+    "gather_rows",
+]

@@ -1,0 +1,254 @@
+"""The SpMM operator: plan object, placement and the forward SpMM.
+
+``make_operator`` builds the plan of A (and of A^T, aliased when A is
+symmetric) on the host and places it on a device; ``spmm`` runs Y = A @ X
+through it. ``impl`` picks the engine: ``"cuda"`` the hand-written kernels
+(ops/cuda/spmm.py), ``"torch"`` the plain reference (ops/reference.py),
+``"auto"`` the kernels for tensors on the card and the reference for
+tensors on the CPU.
+
+This slice is forward only. The differentiable gather <-> segment_sum
+pair and the transpose-plan backward come with the next slice; until
+then ``spmm`` refuses an input that requires grad while grad mode is on,
+rather than return a result whose gradient would be silently missing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from of_spmm_tpu_torch.ops import reference as ref
+from of_spmm_tpu_torch.ops.cuda.spmm import bucket_spmm, gather_rows
+from of_spmm_tpu_torch.sparse.binned import BinnedEll, bin_rows, bin_rows_relabeled
+from of_spmm_tpu_torch.sparse.formats import COO, CSR
+from of_spmm_tpu_torch.sparse.tiled import DEFAULT_TIER_SIZE, TieredEll, bin_rows_tiered
+from of_spmm_tpu_torch.utils.config import FLAGS
+from of_spmm_tpu_torch.utils.device import resolve_device
+
+# layouts of the JAX package that wait for a later slice, and where the
+# roadmap lists them
+_NOT_PORTED = {
+    "panels": "ROADMAP.md Queue 1 item 6 (panel engine)",
+    "fused": "ROADMAP.md Queue 1 item 10 (remaining engine families)",
+    "ranges": "ROADMAP.md Queue 1 item 10 (remaining engine families)",
+    "expansion": "ROADMAP.md Queue 1 item 10 (remaining engine families)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmmOperator:
+    """A sparse matrix prepared for repeated SpMM.
+
+    Holds the forward plan (``binned``: a BinnedEll or TieredEll) and the
+    transpose plan built once at plan time. ``op @ x`` computes A @ x in
+    node space.
+    """
+
+    binned: Any  # BinnedEll | TieredEll
+    binned_t: Any
+    shape: Tuple[int, int]
+    # relabeling (square binned plans): the plans live in an internal row
+    # order chosen for a slice-concat finish; None = identity.
+    old_from_new: Any = None  # x_int = x[old_from_new]
+    new_from_old: Any = None  # y = y_int[new_from_old]
+
+    @property
+    def relabeled(self) -> bool:
+        return self.old_from_new is not None
+
+    @property
+    def transpose_aliased(self) -> bool:
+        """True when the transpose plan shares the forward plan's arrays
+        (symmetric matrices)."""
+        if self.binned_t is self.binned:
+            return True
+        a = next(_arrays(self.binned), None)
+        b = next(_arrays(self.binned_t), None)
+        return a is not None and a is b
+
+    def to_internal(self, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Map node-space data into the operator's internal row order."""
+        if self.old_from_new is None:
+            return a
+        return a.index_select(axis, self.old_from_new)
+
+    def from_internal(self, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Map internal-order results back to node space."""
+        if self.new_from_old is None:
+            return a
+        return a.index_select(axis, self.new_from_old)
+
+    @property
+    def T(self) -> "SpmmOperator":
+        return SpmmOperator(
+            binned=self.binned_t, binned_t=self.binned,
+            shape=(self.shape[1], self.shape[0]),
+            old_from_new=self.old_from_new, new_from_old=self.new_from_old,
+        )
+
+    def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        return spmm(self, x)
+
+
+def _arrays(obj):
+    """The array leaves of a plan, depth first."""
+    if isinstance(obj, (np.ndarray, torch.Tensor)):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _arrays(getattr(obj, f.name))
+    elif isinstance(obj, tuple):
+        for o in obj:
+            yield from _arrays(o)
+
+
+def _is_symmetric(csr: CSR) -> bool:
+    """Exact pattern and value symmetry (host-side, plan time)."""
+    t = csr.transpose()
+    if t.nnz != csr.nnz:
+        return False
+    return (
+        np.array_equal(np.asarray(t.indptr), np.asarray(csr.indptr))
+        and np.array_equal(t.cols, csr.cols)
+        and np.array_equal(t.vals, csr.vals)
+    )
+
+
+def make_operator(
+    a: CSR | COO,
+    ladder="auto",
+    relabel: Optional[bool] = None,
+    layout: str = "auto",
+    tier_size: Optional[int] = None,
+    device=None,
+) -> SpmmOperator:
+    """Build the plan of A and A^T on the host and place it on ``device``.
+
+    ``layout``: "binned" (row-binned ELL; square matrices are relabeled so
+    the finish is a slice-concat), "tiered" (column-tiered ELL,
+    sparse/tiled.py), or "auto" (tiered iff n_cols > tier_size, as in the
+    JAX package). ``device=None`` means the card, and raises when there is
+    none.
+    """
+    device = resolve_device(device)
+    if layout in _NOT_PORTED:
+        raise NotImplementedError(
+            f"layout {layout!r} is not ported yet: {_NOT_PORTED[layout]}")
+    if layout not in ("auto", "binned", "tiered"):
+        raise ValueError(f"layout must be auto|binned|tiered, got {layout!r}")
+    csr = CSR.from_coo(a) if isinstance(a, COO) else a
+    max_width = int(FLAGS.get("OFS_MAX_ELL_WIDTH"))
+    ts = tier_size or DEFAULT_TIER_SIZE
+    if layout == "auto":
+        layout = "tiered" if csr.shape[1] > ts else "binned"
+    square = csr.shape[0] == csr.shape[1]
+    ofn = nfo = None
+
+    if layout == "tiered":
+        plan = bin_rows_tiered(csr, tier_size=ts, ladder=ladder, max_width=max_width)
+        if square and _is_symmetric(csr):
+            plan_t = plan
+        else:
+            plan_t = bin_rows_tiered(csr.transpose(), tier_size=ts, ladder=ladder,
+                                     max_width=max_width)
+    else:
+        if relabel is None:
+            relabel = square
+        if relabel and not square:
+            raise ValueError("relabel=True requires a square matrix")
+        if relabel:
+            plan, ofn, nfo = bin_rows_relabeled(csr, ladder=ladder, max_width=max_width)
+            if _is_symmetric(csr):
+                plan_t = plan
+            else:
+                # transpose of the relabeled matrix, so the spaces line up
+                rows = np.repeat(np.arange(csr.shape[0]), np.diff(csr.indptr))
+                relabeled_t = CSR.from_coo(
+                    COO.from_arrays(nfo[csr.cols], nfo[rows], csr.vals, csr.shape))
+                plan_t = bin_rows(relabeled_t, ladder=ladder, max_width=max_width)
+        else:
+            plan = bin_rows(csr, ladder=ladder, max_width=max_width)
+            plan_t = bin_rows(csr.transpose(), ladder=ladder, max_width=max_width)
+    return place_operator(SpmmOperator(
+        binned=plan, binned_t=plan_t, shape=csr.shape, old_from_new=ofn, new_from_old=nfo,
+    ), device)
+
+
+def place_operator(op: SpmmOperator, device) -> SpmmOperator:
+    """Move every array of an operator to ``device`` as a torch tensor,
+    preserving sharing: an aliased transpose plan (symmetric matrices)
+    and any array referenced twice are copied once."""
+    device = torch.device(device)
+    memo: dict = {}
+
+    def place(obj):
+        key = id(obj)
+        if key in memo:
+            return memo[key]
+        if isinstance(obj, (np.ndarray, torch.Tensor)):
+            res = torch.as_tensor(obj, device=device)
+        elif dataclasses.is_dataclass(obj):
+            res = dataclasses.replace(
+                obj, **{f.name: place(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+        elif isinstance(obj, tuple):
+            res = tuple(place(o) for o in obj)
+        else:
+            res = obj
+        memo[key] = res
+        return res
+
+    return place(op)
+
+
+def _select_impl(impl: str, x: torch.Tensor) -> str:
+    if impl == "auto":
+        impl = "cuda" if x.is_cuda else "torch"
+    if impl not in ("torch", "cuda"):
+        raise ValueError(f"unknown spmm impl {impl!r} (want auto|torch|cuda)")
+    return impl
+
+
+def _spmm_binned_kernels(binned: BinnedEll, x: torch.Tensor) -> torch.Tensor:
+    """Every bucket through the bucket kernel, then the plan's finish (its
+    gather through the gather kernel)."""
+    if not binned.buckets:
+        return torch.zeros((binned.n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    xa = x.to(torch.float32).contiguous()
+    contribs = [bucket_spmm(b.cols, b.vals, xa) for b in binned.buckets]
+    out = ref.combine_contribs(binned, contribs, torch.float32, gather_fn=gather_rows)
+    return out.to(x.dtype)
+
+
+def _spmm_impl(plan, x: torch.Tensor, impl: str) -> torch.Tensor:
+    if isinstance(plan, TieredEll):
+        if impl == "cuda":
+            return ref.spmm_tiered(plan, x, bucket_fn=bucket_spmm, gather_fn=gather_rows)
+        return ref.spmm_tiered(plan, x)
+    if impl == "cuda":
+        return _spmm_binned_kernels(plan, x)
+    return ref.spmm_binned(plan, x)
+
+
+def spmm_internal(op: SpmmOperator, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Y = A @ X in the operator's internal row order (no conversions).
+
+    For relabeled operators the caller supplies x = op.to_internal(x0) and
+    maps results back with op.from_internal; models do this once per
+    forward instead of once per SpMM.
+    """
+    if x.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "spmm has no backward yet (ROADMAP.md Queue 1, next slice); run "
+            "inference under torch.no_grad() or torch.inference_mode()")
+    return _spmm_impl(op.binned, x, _select_impl(impl, x))
+
+
+def spmm(op: SpmmOperator, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """Y = A @ X in node space."""
+    if op.relabeled:
+        return op.from_internal(spmm_internal(op, op.to_internal(x), impl))
+    return spmm_internal(op, x, impl)

@@ -1,0 +1,12 @@
+from of_spmm_tpu_torch.sparse.formats import COO, CSR
+from of_spmm_tpu_torch.sparse.binned import (
+    DEFAULT_LADDER,
+    BinnedEll,
+    EllBucket,
+    bin_rows,
+    bin_rows_relabeled,
+)
+from of_spmm_tpu_torch.sparse.tiled import DEFAULT_TIER_SIZE, TieredEll, bin_rows_tiered
+
+__all__ = ["COO", "CSR", "BinnedEll", "EllBucket", "bin_rows", "bin_rows_relabeled",
+           "DEFAULT_LADDER", "TieredEll", "bin_rows_tiered", "DEFAULT_TIER_SIZE"]

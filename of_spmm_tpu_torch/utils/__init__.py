@@ -1,0 +1,15 @@
+from of_spmm_tpu_torch.utils.config import FLAGS
+from of_spmm_tpu_torch.utils.device import resolve_device
+from of_spmm_tpu_torch.utils.roofline import (
+    PEAK_FP32_FLOPS,
+    PEAK_HBM_BYTES_PER_S,
+    SpmmTraffic,
+    detect_peak_bw,
+    detect_peak_fp32,
+    spmm_report,
+    time_cuda,
+)
+
+__all__ = ["FLAGS", "resolve_device", "PEAK_HBM_BYTES_PER_S", "PEAK_FP32_FLOPS",
+           "SpmmTraffic", "detect_peak_bw", "detect_peak_fp32", "spmm_report",
+           "time_cuda"]

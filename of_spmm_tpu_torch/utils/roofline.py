@@ -1,0 +1,167 @@
+"""Roofline model and CUDA-event timing for the sparse kernels.
+
+SpMM moves far more bytes than it computes on, so its speed of light is
+bytes over the card's HBM bandwidth. Two traffic models bound one
+Y = A @ X:
+
+- ``total_bytes`` (per-nnz gather model): every nonzero reads its X row
+  from memory, plus structure and output. This is the model the JAX
+  package reports against.
+- ``compulsory_bytes``: X is read once, plus structure and output. On a
+  card whose L2 holds much of X (50 MB on the H100), repeated row reads
+  hit the cache, so this is the tighter bound.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+from typing import Callable, Dict, Optional
+
+import torch
+
+# Peak HBM bandwidth (bytes/s), keyed by a substring of the name that
+# torch.cuda.get_device_name() reports. NVIDIA H100 data sheet: SXM5 80 GB
+# HBM3 3.35 TB/s, PCIe 80 GB HBM2e 2.0 TB/s, NVL 94 GB HBM3 3.9 TB/s.
+PEAK_HBM_BYTES_PER_S: Dict[str, float] = {
+    "H100 80GB HBM3": 3.35e12,
+    "H100 SXM": 3.35e12,
+    "H100 PCIe": 2.0e12,
+    "H100 NVL": 3.9e12,
+}
+
+# Peak float32 rate outside the tensor cores (FLOP/s), same data sheet.
+PEAK_FP32_FLOPS: Dict[str, float] = {
+    "H100 80GB HBM3": 67e12,
+    "H100 SXM": 67e12,
+    "H100 PCIe": 51e12,
+    "H100 NVL": 60e12,
+}
+
+# untimed calls before each measurement (build, caches, allocator)
+WARMUP_CALLS = 3
+
+
+def _lookup(table: Dict[str, float], device_name: str) -> float:
+    for key, value in table.items():
+        if key in device_name:
+            return value
+    raise KeyError(f"no published peak for device {device_name!r}; known: {sorted(table)}")
+
+
+def _card_name(device_name: Optional[str]) -> str:
+    if device_name is not None:
+        return device_name
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: a roofline needs the card")
+    return torch.cuda.get_device_name(0)
+
+
+def detect_peak_bw(device_name: Optional[str] = None) -> float:
+    """HBM bytes/s of the named card (default: the current one). Raises
+    when there is no card or its name is not in the table: a CPU has no
+    device roofline."""
+    return _lookup(PEAK_HBM_BYTES_PER_S, _card_name(device_name))
+
+
+def detect_peak_fp32(device_name: Optional[str] = None) -> float:
+    """float32 FLOP/s outside the tensor cores of the named card."""
+    return _lookup(PEAK_FP32_FLOPS, _card_name(device_name))
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmmTraffic:
+    """Minimum HBM traffic of one Y = A @ X (bytes)."""
+
+    nnz: int
+    n_rows: int
+    n_cols: int
+    d: int
+    bytes_val: int = 4
+    bytes_idx: int = 4
+
+    @property
+    def gather_bytes(self) -> int:
+        return self.nnz * self.d * self.bytes_val  # one X row per nonzero
+
+    @property
+    def structure_bytes(self) -> int:
+        return self.nnz * (self.bytes_val + self.bytes_idx)  # vals + cols
+
+    @property
+    def output_bytes(self) -> int:
+        return self.n_rows * self.d * self.bytes_val
+
+    @property
+    def total_bytes(self) -> int:
+        return self.gather_bytes + self.structure_bytes + self.output_bytes
+
+    @property
+    def compulsory_bytes(self) -> int:
+        x_once = self.n_cols * self.d * self.bytes_val
+        return x_once + self.structure_bytes + self.output_bytes
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.nnz * self.d
+
+
+def spmm_report(ms: float, traffic: SpmmTraffic, peak_bw: float) -> Dict[str, float]:
+    """Rates and roofline fractions of one measured SpMM (``ms`` on the card)."""
+    s = ms * 1e-3
+    return {
+        "ms": ms,
+        "gflops": traffic.flops / s / 1e9,
+        "nnz_per_s": traffic.nnz / s,
+        "roofline_fraction_gather": (traffic.total_bytes / s) / peak_bw,
+        "roofline_fraction_compulsory": (traffic.compulsory_bytes / s) / peak_bw,
+        "bound_ms_gather": traffic.total_bytes / peak_bw * 1e3,
+        "bound_ms_compulsory": traffic.compulsory_bytes / peak_bw * 1e3,
+        "peak_bw_gb_s": peak_bw / 1e9,
+    }
+
+
+def time_cuda(fn: Callable[[], object], iters: int = 20) -> float:
+    """Median milliseconds of ``fn()`` on the card, each call between two
+    CUDA events on the current stream.
+
+    The stream first spins (``torch.cuda._sleep``) long enough for the
+    host to enqueue every timed call, so the events measure the device's
+    time for the work and not the host's time to issue it; ``wall_ms``
+    measures what a caller that launches and waits sees.
+    """
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_cuda measures the card; no CUDA device")
+    enqueue_s = 0.0
+    for _ in range(WARMUP_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enqueue_s = max(enqueue_s, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    # spin for twice the host's enqueue time of all calls, at <= 2 GHz
+    torch.cuda._sleep(int(2e9 * (2 * enqueue_s * iters + 0.01)))
+    for a, b in zip(starts, ends):
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in zip(starts, ends))
+
+
+def wall_ms(fn: Callable[[], object], iters: int = 20) -> float:
+    """Median host milliseconds of ``fn()`` followed by a synchronize: the
+    latency a caller sees, host overhead included."""
+    for _ in range(WARMUP_CALLS):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)

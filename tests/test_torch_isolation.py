@@ -1,0 +1,50 @@
+"""The port stands alone: importing every module of of_spmm_tpu_torch
+loads neither JAX nor the JAX package, and its entry points run on the
+card unless the caller names another device."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from of_spmm_tpu_torch.models import GCN
+from of_spmm_tpu_torch.ops import make_operator
+from of_spmm_tpu_torch.sparse.formats import CSR
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import of_spmm_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "of_spmm_tpu" or m.startswith("of_spmm_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, capture_output=True,
+                         text=True, timeout=120, env={**os.environ, "PYTHONPATH": _REPO})
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 15 and bad == "[]", out.stdout
+
+
+def test_entry_points_default_to_the_card():
+    csr = CSR.from_dense(np.eye(3, dtype=np.float32))
+    if torch.cuda.is_available():
+        op = make_operator(csr)
+        assert op.binned.buckets[0].cols.is_cuda
+        assert next(GCN((2, 2)).parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_operator(csr)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GCN((2, 2))
