@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py        # from the root of a checkout, on a machine with the card
 
-Builds the port's CUDA kernels from the checkout's sources, holds each
-against its plain PyTorch version on the card, then runs the main path:
-GCN inference at the width of OGB's published GCN baseline for arxiv
-(3 layers, hidden 256) on synthetic ogbn-arxiv, through
-load_graph -> normalized_adjacency -> make_operator -> GCN.forward. A
-last phase times one SpMM on products-small.
+Builds the port's CUDA kernels from the checkout's sources (one nvcc per
+source, started together), holds each against its plain PyTorch version
+on the card, then runs the main path on both of the port's engines: GCN
+inference at the width of OGB's published GCN baseline for arxiv (3
+layers, hidden 256) on synthetic ogbn-arxiv, through
+load_graph -> normalized_adjacency -> make_operator -> GCN.forward, first
+on the default (tiered) layout and then on layout="panels". Each engine
+also times one SpMM on products-small.
 
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary and the card's name and power limit as
@@ -26,6 +28,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -33,16 +36,27 @@ import torch
 from of_spmm_tpu_torch import native
 from of_spmm_tpu_torch.data import load_graph, random_features
 from of_spmm_tpu_torch.models import GCN, normalized_adjacency
-from of_spmm_tpu_torch.ops import make_operator, spmm_internal
+from of_spmm_tpu_torch.ops import make_operator, place_operator, spmm_internal
+from of_spmm_tpu_torch.ops.autograd import SpmmOperator
+from of_spmm_tpu_torch.ops.cuda import panels as pkernels
 from of_spmm_tpu_torch.ops.cuda import spmm as kernels
+from of_spmm_tpu_torch.sparse.formats import COO, CSR
+from of_spmm_tpu_torch.sparse.panels import (
+    C_SBIG, C_TFIRST, C_TILE, PanelPlan, attach_windows, build_panels_plan, ensure_masks)
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
 from of_spmm_tpu_torch.utils.roofline import (
-    SpmmTraffic, detect_peak_bw, detect_peak_fp32, spmm_report, time_cuda, wall_ms)
+    PanelTraffic, SpmmTraffic, detect_peak_bw, detect_peak_fp32, spmm_report, time_cuda,
+    wall_ms)
 
-KERNEL_SOURCE = "of_spmm_tpu_torch/csrc/spmm.cu"
+SOURCES = {
+    "bucket_spmm": "of_spmm_tpu_torch/csrc/spmm.cu",
+    "gather_rows": "of_spmm_tpu_torch/csrc/spmm.cu",
+    "panel_spmm": "of_spmm_tpu_torch/csrc/panels.cu",
+}
 REPLACES = {
     "bucket_spmm": "of_spmm_tpu/ops/pallas/spmm.py:46",
     "gather_rows": "of_spmm_tpu/ops/pallas/spmm.py:146",
+    "panel_spmm": "of_spmm_tpu/ops/pallas/panels.py:49",
 }
 BUCKET_WIDTHS = (3, 5, 9, 17, 33, 64, 153, 256)
 FEATURE_WIDTHS = (128, 256, 60)
@@ -59,6 +73,22 @@ x = torch.zeros((16, 8), device="cuda")
 cols = torch.zeros((4, 3), dtype=torch.int32, device="cuda")
 cols[2, 1] = 16
 kernels.bucket_spmm(cols, torch.ones((4, 3), device="cuda"), x)
+torch.cuda.synchronize()
+print("no error")
+"""
+
+# A panel plan whose take table names rows past the end of x: the panel
+# kernel must stop with a device-side assertion (child process, as above).
+BAD_WINDOW_PROBE = """
+import numpy as np, torch
+from of_spmm_tpu_torch.ops import make_operator, spmm_internal
+from of_spmm_tpu_torch.sparse.formats import CSR
+rng = np.random.default_rng(0)
+dense = ((rng.random((256, 1024)) < 0.05) * rng.standard_normal((256, 1024))).astype(np.float32)
+op = make_operator(CSR.from_dense(dense), layout="panels")  # per-edge: every row scattered
+for seg in op.binned.segments:
+    seg.stage_take.fill_(1 << 30)
+spmm_internal(op, torch.zeros((1024, 8), device="cuda"))
 torch.cuda.synchronize()
 print("no error")
 """
@@ -111,8 +141,9 @@ def _bound(nbytes: int, nops: int, peak_bw: float, peak_fp32: float):
 
 def kernel_figures(plan, n_cols: int, d: int, gen, peak_bw: float, peak_fp32: float) -> dict:
     """Each kernel over all its launches in one SpMM of a tiered plan at
-    width d: its time, its plain version's, the one PyTorch call that
-    computes the same function, and the bound of that work.
+    width d: its launches (counted over one such SpMM), its time, its
+    plain version's, the one PyTorch call that computes the same function,
+    and the bound of that work.
 
     The bucket phase's function is X -> the concatenation of every
     bucket's partial rows; its library call is torch.sparse.mm with one
@@ -134,6 +165,9 @@ def kernel_figures(plan, n_cols: int, d: int, gen, peak_bw: float, peak_fp32: fl
             r0 += b.n_ell_rows
 
     with torch.inference_mode():
+        kernels.reset_launch_counts()
+        run_buckets(kernels.bucket_spmm)
+        bucket_launches = kernels.LAUNCHES["bucket_spmm"]
         bucket_ms = time_cuda(lambda: run_buckets(kernels.bucket_spmm), iters=20)
         bucket_plain_ms = time_cuda(lambda: run_buckets(kernels.bucket_spmm_torch), iters=5)
         rows_l, cols_l, vals_l = [], [], []
@@ -159,6 +193,10 @@ def kernel_figures(plan, n_cols: int, d: int, gen, peak_bw: float, peak_fp32: fl
         run_buckets(kernels.bucket_spmm)
         fin = plan.finish
         gidx = [fin.pos] + ([fin.extra_idx] if fin.extra_idx.shape[0] else [])
+        kernels.reset_launch_counts()
+        for i in gidx:
+            kernels.gather_rows(cat, i)
+        gather_launches = kernels.LAUNCHES["gather_rows"]
         gather_ms = time_cuda(lambda: [kernels.gather_rows(cat, i) for i in gidx], iters=20)
         gather_plain_ms = time_cuda(lambda: [kernels.gather_rows_torch(cat, i) for i in gidx],
                                     iters=20)
@@ -173,14 +211,149 @@ def kernel_figures(plan, n_cols: int, d: int, gen, peak_bw: float, peak_fp32: fl
     g_bound, g_by = _bound(gather_bytes, 0, peak_bw, peak_fp32)
     return {
         "d": d, "scope": "all launches of one SpMM",
-        "bucket_spmm": {"launches": len(buckets), "ms": bucket_ms, "plain_ms": bucket_plain_ms,
+        "bucket_spmm": {"launches": bucket_launches, "ms": bucket_ms, "plain_ms": bucket_plain_ms,
                         "library": "torch.sparse.mm", "library_ms": bucket_lib_ms,
                         "library_rel_err": bucket_lib_err, "bytes": bucket_bytes,
                         "flops": bucket_ops, "bound_ms": b_bound, "bound_by": b_by},
-        "gather_rows": {"launches": len(gidx), "ms": gather_ms, "plain_ms": gather_plain_ms,
+        "gather_rows": {"launches": gather_launches, "ms": gather_ms, "plain_ms": gather_plain_ms,
                         "library": "torch.index_select", "library_ms": gather_lib_ms,
                         "bytes": gather_bytes, "bound_ms": g_bound, "bound_by": g_by},
     }
+
+
+def expect_device_assert(code: str, what: str) -> None:
+    """Run ``code`` in a child process; it must stop with a device-side
+    assertion (which leaves the child's CUDA context unusable)."""
+    probe = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                           timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if probe.returncode == 0 or "device-side assert" not in probe.stdout + probe.stderr:
+        raise AssertionError(f"{what} did not stop with a device-side assertion "
+                             f"(rc {probe.returncode}):\n"
+                             f"{probe.stdout[-2000:]}{probe.stderr[-2000:]}")
+
+
+def rank1_graph(n: int, m: int, rng, per_row: float = 0.0, band: int = 0,
+                hubs: int = 0) -> CSR:
+    """A seeded pattern (random entries, a band of ``band`` entries per row
+    around the diagonal, ``hubs`` columns each row meets with probability
+    0.6) with symmetric-normalized, hence rank-1, values."""
+    rows, cols = [], []
+    if per_row:
+        k = rng.poisson(per_row, n)
+        rows.append(np.repeat(np.arange(n), k))
+        cols.append(rng.integers(0, m, int(k.sum())))
+    if band:
+        r = np.repeat(np.arange(n), band)
+        rows.append(r)
+        cols.append(np.clip(r * m // n - 64 + rng.integers(0, 128, r.shape[0]), 0, m - 1))
+    if hubs:
+        hub = rng.choice(m, hubs, replace=False)
+        r, h = np.nonzero(rng.random((n, hubs)) < 0.6)
+        rows.append(r)
+        cols.append(hub[h])
+    key = np.unique(np.concatenate(rows).astype(np.int64) * m
+                    + np.concatenate(cols).astype(np.int64))
+    r, c = key // m, key % m
+    dr = np.bincount(r, minlength=n).astype(np.float64)
+    dc = np.bincount(c, minlength=m).astype(np.float64)
+    vals = (dr[r] ** -0.5 * dc[c] ** -0.5).astype(np.float32)
+    return CSR.from_coo(COO.from_arrays(r.astype(np.int32), c.astype(np.int32), vals, (n, m)))
+
+
+def panel_cases(rng):
+    """Placed panel plans that cover, between them, every shape the kernel
+    meets: hot rows, several ranges (one at the clamped top end of X),
+    several segments, direct rows, tiles split into scattered pieces, big
+    (SCQ) scattered chunks, and the per-edge mode. Yields (name, plan);
+    raises if a plan lacks what it is here for."""
+    dev = torch.device("cuda", 0)
+
+    def placed(csr, **kw):
+        plan = build_panels_plan(csr, **kw)
+        return place_operator(SpmmOperator(binned=plan, binned_t=plan, shape=csr.shape),
+                              dev).binned
+
+    m = 6000
+    plan = placed(rank1_graph(6000, m, rng, per_row=3, band=24, hubs=40), T=512,
+                  hot_budget=512, hot_min_run=2, range_cap=1024, seg_steps=24, direct_quota=8)
+    top = (m - plan.RC) // 128 * 128
+    if not (plan.n_hot and plan.n_ranges > 2 and len(plan.segments) > 1 and plan.n_direct
+            and any(bool((s.rcopy[:, 0, :] == top).any()) for s in plan.segments)):
+        raise AssertionError("hot/ranges/segments/direct case lacks a feature")
+    yield "hot+ranges(top end)+segments+direct", plan
+    plan = placed(rank1_graph(512, 4096, rng, per_row=300), T=256, hot_budget=0,
+                  range_cap=256, s_cap=256)
+    first_steps = sum(int(((s.ctrl[:, 0, C_TILE] >= 0) & (s.ctrl[:, 0, C_TFIRST] == 1)).sum())
+                      for s in plan.segments)
+    if first_steps <= sum(s.n_tiles for s in plan.segments):
+        raise AssertionError("pieces case has no tile split into pieces")
+    yield "scattered pieces", plan
+    plan = placed(rank1_graph(512, 32768, rng, per_row=600), T=256, hot_budget=0,
+                  range_cap=256, s_cap=8192)
+    if not any(bool((s.ctrl[:, 0, C_SBIG] > 0).any()) for s in plan.segments):
+        raise AssertionError("big-chunk case stages no SCQ chunk")
+    yield "big scattered chunks", plan
+    n, mm, nnz = 3000, 4000, 60_000
+    coo = COO.from_arrays(rng.integers(0, n, nnz).astype(np.int32),
+                          rng.integers(0, mm, nnz).astype(np.int32),
+                          rng.standard_normal(nnz).astype(np.float32), (n, mm))
+    plan = make_operator(CSR.from_coo(coo), layout="panels").binned  # the per-edge fallback
+    if not plan.per_edge:
+        raise AssertionError("random-valued matrix did not plan per edge")
+    yield "per-edge values", plan
+
+
+def panel_figures(plan: PanelPlan, sp: torch.Tensor, x_rows: int, nnz: int, d: int, gen,
+                  peak_bw: float, peak_fp32: float) -> dict:
+    """panel_spmm over one SpMM (all its launches) at width d: its time,
+    its plain version's, torch.sparse.mm on the CSR of the same matrix
+    (``sp``), and the bound of that work (utils/roofline.py PanelTraffic).
+    ``launches`` is counted over one such SpMM."""
+    dev = torch.device("cuda", 0)
+    x = torch.randn((plan.shape[1], d), generator=gen).to(dev)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        y = pkernels.panel_spmm(plan, x)
+        launches = kernels.LAUNCHES["panel_spmm"]
+        lib_err = rel_err(torch.sparse.mm(sp, x), y)
+        ms = time_cuda(lambda: pkernels.panel_spmm(plan, x), iters=20)
+        plain_ms = time_cuda(lambda: pkernels.panel_spmm_torch(plan, x), iters=3)
+        lib_ms = time_cuda(lambda: torch.sparse.mm(sp, x), iters=20)
+    traffic = PanelTraffic.from_plan(plan, d, x_rows, nnz)
+    bound, by = _bound(traffic.bytes, traffic.flops, peak_bw, peak_fp32)
+    return {"d": d, "scope": "all launches of one SpMM", "launches": launches,
+            "ms": ms, "plain_ms": plain_ms, "library": "torch.sparse.mm", "library_ms": lib_ms,
+            "library_rel_err": lib_err, "bytes": traffic.bytes, "flops": traffic.flops,
+            "bound_ms": bound, "bound_by": by}
+
+
+def tile_load(plan: PanelPlan) -> dict:
+    """How the panel kernel's work falls on its blocks and warps: edges
+    (mask bits) per 128-row output tile (one block each), per warp's 8
+    rows and per row, counted on the host from a compact plan's edges."""
+    G = plan.T // 128
+    rows, tile0 = [], 0
+    for seg in plan.segments:
+        slot = np.repeat(np.arange(seg.mask_counts.shape[0]), seg.mask_counts.astype(np.int64))
+        tile = tile0 + seg.ctrl[slot // G, 0, C_TILE].astype(np.int64)
+        rows.append(tile * 128 + (seg.mask_edges.astype(np.int64) & 255))
+        tile0 += seg.n_tiles
+    per_row = np.bincount(np.concatenate(rows), minlength=tile0 * 128)
+    per_tile = per_row.reshape(tile0, 128).sum(1)
+    per_warp = per_row.reshape(tile0, 16, 8).sum(2)
+    return {"tiles": tile0, "tile_edges_mean": float(per_tile.mean()),
+            "tile_edges_p99": float(np.percentile(per_tile, 99)),
+            "tile_edges_max": int(per_tile.max()), "heaviest_tile": int(per_tile.argmax()),
+            "warp_edges_max": int(per_warp.max()), "row_edges_max": int(per_row.max())}
+
+
+def torch_csr(csr: CSR, dev) -> torch.Tensor:
+    """The CSR as a torch sparse CSR tensor on ``dev`` (for torch.sparse.mm,
+    the library yardstick; the port never calls it)."""
+    return torch.sparse_csr_tensor(torch.from_numpy(csr.indptr.astype(np.int64)),
+                                   torch.from_numpy(csr.cols.astype(np.int64)),
+                                   torch.from_numpy(csr.vals), csr.shape,
+                                   check_invariants=False).to(dev)
 
 
 def main() -> int:
@@ -202,20 +375,25 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
          peak_hbm_gb_s=peak_bw / 1e9, peak_fp32_tflops=peak_fp32 / 1e12)
 
-    # -- 2. build (the host planner's g++ build runs beside nvcc) -------------
+    # -- 2. build: one nvcc per source, started together, beside the host
+    #       planner's g++ build ------------------------------------------------
     t0 = time.perf_counter()
     planner = threading.Thread(target=native.available)
     planner.start()
-    built = kernels.build()
+    with ThreadPoolExecutor(2) as pool:
+        futures = {"spmm.cu": pool.submit(kernels.build), "panels.cu": pool.submit(pkernels.build)}
+        built = {src: f.result() for src, f in futures.items()}
     kernels._lib()
+    pkernels._lib()
     planner.join()
-    ptxas = [ln.strip() for ln in built["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", nvcc_seconds=round(built["seconds"], 2),
-         total_seconds=round(time.perf_counter() - t0, 2), library=built["path"],
-         native_planner=native.available(), ptxas=ptxas)
+    emit("build", total_seconds=round(time.perf_counter() - t0, 2),
+         native_planner=native.available(),
+         **{src: {"nvcc_seconds": round(b["seconds"], 2), "library": b["path"],
+                  "ptxas": [ln.strip() for ln in b["log"].splitlines()
+                            if "registers" in ln or "spill" in ln]}
+            for src, b in built.items()})
 
-    max_err = {"bucket_spmm": 0.0, "gather_rows": 0.0}
+    max_err = {"bucket_spmm": 0.0, "gather_rows": 0.0, "panel_spmm": 0.0}
 
     # -- 3. kernels against their plain versions -------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -241,13 +419,7 @@ def main() -> int:
         torch.cuda.synchronize()
         if not torch.equal(got, want) or got[-4:].any():
             raise AssertionError(f"gather_rows d={d}: not bit-exact or sentinel rows not zero")
-    probe = subprocess.run([sys.executable, "-c", BAD_COLUMN_PROBE], capture_output=True,
-                           text=True, timeout=120,
-                           cwd=os.path.dirname(os.path.abspath(__file__)))
-    if probe.returncode == 0 or "device-side assert" not in probe.stdout + probe.stderr:
-        raise AssertionError("bucket_spmm with a column outside x did not stop with a "
-                             f"device-side assertion (rc {probe.returncode}):\n"
-                             f"{probe.stdout[-2000:]}{probe.stderr[-2000:]}")
+    expect_device_assert(BAD_COLUMN_PROBE, "bucket_spmm with a column outside x")
     emit("kernels", bucket_spmm={"widths": BUCKET_WIDTHS, "d": FEATURE_WIDTHS,
                                  "row_offset": off, "rows": R,
                                  "max_abs_err": max_err["bucket_spmm"],
@@ -279,7 +451,8 @@ def main() -> int:
         logits = model(op, x)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        expected = {"bucket_spmm": 3 * n_buckets, "gather_rows": 3 * (1 + (n_extra > 0))}
+        expected = {"bucket_spmm": 3 * n_buckets, "gather_rows": 3 * (1 + (n_extra > 0)),
+                    "panel_spmm": 0}
         if launches != expected:
             raise AssertionError(f"main path launches {launches}, expected {expected}")
         want = model(op, x, impl="torch")
@@ -383,10 +556,7 @@ def main() -> int:
         p_ms = time_cuda(lambda: spmm_internal(pop, px), iters=20)
         p_plain_ms = time_cuda(lambda: spmm_internal(pop, px, impl="torch"), iters=3)
     pcoo = pa.to_coo()
-    p_sparse = torch.sparse_csr_tensor(torch.from_numpy(pa.indptr.astype(np.int64)),
-                                       torch.from_numpy(pa.cols.astype(np.int64)),
-                                       torch.from_numpy(pa.vals), pa.shape,
-                                       check_invariants=False).to(dev)
+    p_sparse = torch_csr(pa, dev)
     p_lib_err = rel_err(torch.sparse.mm(p_sparse, px), py_plain)
     p_lib_ms = time_cuda(lambda: torch.sparse.mm(p_sparse, px), iters=20)
     rep = spmm_report(p_ms, SpmmTraffic(pcoo.nnz, pcfg.n_nodes, pcfg.n_nodes, 128), peak_bw)
@@ -400,17 +570,153 @@ def main() -> int:
     emit("kernel_times", graph="products-small",
          **kernel_figures(pop.binned, pcfg.n_nodes, 128, gen, peak_bw, peak_fp32))
 
-    # -- 6. the kernels, 7. the card, 8. the result --------------------------
-    # launches: one GCN forward (three SpMMs); the times and the bound: all
-    # launches of one SpMM at d=128, launches_per_spmm of them
+    # -- 6. the panel kernel against its plain version -------------------------
+    rng = np.random.default_rng(0)
+    cases = []
+    with torch.inference_mode():
+        for case, pcase in panel_cases(rng):
+            for d in FEATURE_WIDTHS:
+                xd = torch.randn((pcase.shape[1], d), generator=gen).to(dev)
+                got = pkernels.panel_spmm(pcase, xd)
+                want = pkernels.panel_spmm_torch(pcase, xd)
+                torch.cuda.synchronize()
+                e = check_close(got, want, f"panel_spmm {case} d={d}")
+                max_err["panel_spmm"] = max(max_err["panel_spmm"], e)
+            cases.append({"case": case, "shape": list(pcase.shape), "T": pcase.T,
+                          "hot": pcase.n_hot, "ranges": pcase.n_ranges,
+                          "segments": len(pcase.segments), "direct": pcase.n_direct,
+                          "S_buf": pcase.S_buf, "per_edge": pcase.per_edge})
+            del pcase
+    expect_device_assert(BAD_WINDOW_PROBE, "panel_spmm with a window row outside x")
+    emit("panel_kernel", d=FEATURE_WIDTHS, cases=cases, max_abs_err=max_err["panel_spmm"],
+         tolerance="|k-p| <= 1e-5 + 1e-4|p|",
+         bad_window_row="panel_spmm stopped with a device-side assertion")
+
+    # -- 7. main path on the panel engine: GCN inference on ogbn-arxiv ---------
+    # plan, window provenance, mask expansion and the whole placement
+    # (both of those and the copies) timed apart, then the user's entry
+    # point drives it
+    t0 = time.perf_counter()
+    pan_plan = build_panels_plan(a_hat)
+    t_pplan = time.perf_counter() - t0
+    load = tile_load(pan_plan)
+    t0 = time.perf_counter()
+    windowed = attach_windows(pan_plan)
+    t_pwin = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ensure_masks(windowed, dev)
+    torch.cuda.synchronize()
+    t_pexp = time.perf_counter() - t0
+    del windowed
+    t0 = time.perf_counter()
+    place_operator(SpmmOperator(binned=pan_plan, binned_t=pan_plan, shape=a_hat.shape), dev)
+    torch.cuda.synchronize()
+    t_pplace = time.perf_counter() - t0
+    del pan_plan
+    t0 = time.perf_counter()
+    pan_op = make_operator(a_hat, layout="panels")
+    torch.cuda.synchronize()
+    t_pop = time.perf_counter() - t0
+    pp = pan_op.binned
+    if not isinstance(pp, PanelPlan) or not pan_op.transpose_aliased or pp.per_edge:
+        raise AssertionError("ogbn-arxiv should plan as an aliased rank-1 panel operator")
+    n_seg = len(pp.segments)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        plogits = model(pan_op, x)
+        torch.cuda.synchronize()
+        pan_launches = dict(kernels.LAUNCHES)
+        expected = {"bucket_spmm": 0, "gather_rows": 0, "panel_spmm": 3 * n_seg}
+        if pan_launches != expected:
+            raise AssertionError(f"panel main path launches {pan_launches}, expected {expected}")
+        pwant = model(pan_op, x, impl="torch")
+        torch.cuda.synchronize()
+    if plogits.shape != (cfg.n_nodes, GCN_DIMS[-1]) or not torch.isfinite(plogits).all():
+        raise AssertionError(f"panel logits {tuple(plogits.shape)} not finite or wrong shape")
+    p_vs_plain, p_vs_tiered = rel_err(plogits, pwant), rel_err(plogits, logits)
+    if p_vs_plain > MAIN_PATH_REL_TOL or p_vs_tiered > MAIN_PATH_REL_TOL:
+        raise AssertionError(f"panel GCN logits: rel err {p_vs_plain} vs impl=torch, "
+                             f"{p_vs_tiered} vs the tiered CUDA path")
+    with torch.inference_mode():
+        # the kernel at the shapes the main path gives it
+        for d in sorted(set(GCN_DIMS[:-1])):
+            xd = torch.randn((cfg.n_nodes, d), generator=gen).to(dev)
+            e = check_close(pkernels.panel_spmm(pp, xd), pkernels.panel_spmm_torch(pp, xd),
+                            f"arxiv panel_spmm d={d}")
+            max_err["panel_spmm"] = max(max_err["panel_spmm"], e)
+        torch.cuda.synchronize()
+        pfwd_ms = time_cuda(lambda: model(pan_op, x), iters=20)
+        pfwd_wall_ms = wall_ms(lambda: model(pan_op, x), iters=20)
+        pspmm_rows = []
+        for layer, d in enumerate(GCN_DIMS[:-1]):
+            h = torch.randn((cfg.n_nodes, d), generator=gen).to(dev)
+            ms = time_cuda(lambda: spmm_internal(pan_op, h), iters=20)
+            rep = spmm_report(ms, SpmmTraffic(a_hat.nnz, cfg.n_nodes, cfg.n_nodes, d), peak_bw)
+            pspmm_rows.append({"layer": layer, "d": d,
+                               **{k: round(v, 4) for k, v in rep.items()}})
+    x_rows = int(np.unique(a_hat.cols).size)
+    pan_fig = panel_figures(pp, torch_csr(a_hat, dev), x_rows, a_hat.nnz, 128, gen,
+                            peak_bw, peak_fp32)
+    emit("panels_main_path", graph="ogbn-arxiv (synthetic, symmetrized, self-loops)",
+         n_nodes=cfg.n_nodes, nnz=a_hat.nnz, dims=GCN_DIMS, layout="panels", T=pp.T,
+         hot_rows=pp.n_hot, RC=pp.RC, ranges=pp.n_ranges, segments=n_seg,
+         steps=sum(s.n_steps for s in pp.segments),
+         group_slots_real=PanelTraffic.from_plan(pp, 128, x_rows, a_hat.nnz).real_slots,
+         group_slots_total=sum(int(s.masks.shape[0]) for s in pp.segments),
+         mask_bytes=sum(int(s.masks.numel()) * 4 for s in pp.segments),
+         plan_seconds=round(t_pplan, 4), windows_seconds=round(t_pwin, 4),
+         mask_expansion_seconds=round(t_pexp, 4), placement_seconds=round(t_pplace, 4),
+         make_operator_seconds=round(t_pop, 4), tile_load=load,
+         launches_per_forward=pan_launches,
+         logits_rel_err_vs_torch=p_vs_plain, logits_rel_err_vs_tiered=p_vs_tiered,
+         forward_ms=round(pfwd_ms, 4), forward_wall_ms=round(pfwd_wall_ms, 4),
+         tiered_forward_ms=round(fwd_ms, 4), tiered_forward_wall_ms=round(fwd_wall_ms, 4),
+         spmm=pspmm_rows)
+    emit("panel_kernel_times", graph="ogbn-arxiv", **pan_fig)
+
+    # -- 8. panel engine at scale: one SpMM on products-small -----------------
+    t0 = time.perf_counter()
+    pan_pop = make_operator(pa, layout="panels")
+    torch.cuda.synchronize()
+    t_pop = time.perf_counter() - t0
+    ppp = pan_pop.binned
+    with torch.inference_mode():
+        y = spmm_internal(pan_pop, px)
+        y_plain = spmm_internal(pan_pop, px, impl="torch")
+        y_lib = torch.sparse.mm(p_sparse, px)
+        torch.cuda.synchronize()
+    pp_err, pp_lib_err = rel_err(y, y_plain), rel_err(y, y_lib)
+    if pp_err > MAIN_PATH_REL_TOL or pp_lib_err > MAIN_PATH_REL_TOL or not torch.isfinite(y).all():
+        raise AssertionError(f"products-small panel SpMM: rel err {pp_err} vs impl=torch, "
+                             f"{pp_lib_err} vs torch.sparse.mm")
+    ps_fig = panel_figures(ppp, p_sparse, int(np.unique(pa.cols).size), pa.nnz, 128, gen,
+                           peak_bw, peak_fp32)
+    emit("panels_scale", graph="products-small (synthetic, symmetrized, self-loops)",
+         n_nodes=pcfg.n_nodes, nnz=pa.nnz, layout="panels", T=ppp.T,
+         hot_rows=ppp.n_hot, ranges=ppp.n_ranges, segments=len(ppp.segments),
+         steps=sum(s.n_steps for s in ppp.segments),
+         group_slots_total=sum(int(s.masks.shape[0]) for s in ppp.segments),
+         make_operator_seconds=round(t_pop, 2), rel_err_vs_torch=pp_err,
+         rel_err_vs_torch_sparse_mm=pp_lib_err, tiered_spmm_ms=p_ms, **ps_fig)
+
+    # -- 9. the kernels, 10. the card, 11. the result ------------------------
+    # launches: one GCN forward (three SpMMs) on the kernel's engine; the
+    # times and the bound: all launches of one SpMM at d=128,
+    # launches_per_spmm of them
+    figs = {"bucket_spmm": {**a_fig["bucket_spmm"], "d": a_fig["d"]},
+            "gather_rows": {**a_fig["gather_rows"], "d": a_fig["d"]},
+            "panel_spmm": pan_fig}
+    scopes = {"bucket_spmm": ("one GCN forward on ogbn-arxiv (tiered)", launches),
+              "gather_rows": ("one GCN forward on ogbn-arxiv (tiered)", launches),
+              "panel_spmm": ("one GCN forward on ogbn-arxiv (layout='panels')", pan_launches)}
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES[k],
-         "launches": launches[k], "launches_scope": "one GCN forward on ogbn-arxiv",
+        {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
+         "launches": scopes[k][1][k], "launches_scope": scopes[k][0],
          "max_abs_err": max_err[k],
-         **{f: a_fig[k][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-         "launches_per_spmm": a_fig[k]["launches"],
-         "times_scope": f"one SpMM on ogbn-arxiv at d={a_fig['d']}"}
-        for k in ("bucket_spmm", "gather_rows")]}), flush=True)
+         **{f: figs[k][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "launches_per_spmm": figs[k]["launches"],
+         "times_scope": f"one SpMM on ogbn-arxiv at d={figs[k]['d']}"}
+        for k in ("bucket_spmm", "gather_rows", "panel_spmm")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

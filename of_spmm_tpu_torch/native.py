@@ -2,8 +2,9 @@
 
 Compiled on first use with g++ -O3 -fopenmp into a cache directory keyed
 by the source hash; every entry point has a numpy fallback, so the package
-works without a toolchain. Only the three sorts the port's plan path uses
-are bound here: COO -> CSR, symmetrize + dedup, and CSR transpose.
+works without a toolchain. Only what the port's plan paths use is bound
+here: COO -> CSR, symmetrize + dedup, CSR transpose, and the panel
+plan's per-tile column sort (expansion_pass1).
 """
 
 from __future__ import annotations
@@ -86,6 +87,9 @@ def _lib() -> Optional[ctypes.CDLL]:
         lib.csr_transpose.argtypes = [i64, i64, i64, i64p, i32p,
                                       ctypes.c_void_p, i64p, i32p, f32p]
         lib.csr_transpose.restype = ctypes.c_int
+        lib.expansion_pass1.argtypes = [i64, i64, i64p, i32p, f32p, i64,
+                                        i32p, i32p, f32p, i32p, i64p]
+        lib.expansion_pass1.restype = ctypes.c_int
         _LIB = lib
         return _LIB
 
@@ -175,3 +179,30 @@ def csr_transpose(
     v = (np.ones(nnz, np.float32) if vals is None
          else np.asarray(vals, np.float32))
     return coo_to_csr(cols, rows, v, n_cols)
+
+
+def expansion_pass1(indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                    R: int):
+    """Per-tile column-sorted lanes + unique columns (the panel plan's
+    pass 1). Returns (lane_inv, lane_row, lane_val, uniq_cols, uniq_ptr)
+    with lanes tile-concatenated in sorted order, or None when the native
+    library is unavailable (build_panels_plan then sorts in numpy)."""
+    lib = _lib()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int32)
+    vals = np.ascontiguousarray(vals, dtype=np.float32)
+    n = indptr.shape[0] - 1
+    nnz = cols.shape[0]
+    n_tiles = max(-(-n // R), 1)
+    lane_inv = np.empty(nnz, dtype=np.int32)
+    lane_row = np.empty(nnz, dtype=np.int32)
+    lane_val = np.empty(nnz, dtype=np.float32)
+    uniq_cols = np.empty(max(nnz, 1), dtype=np.int32)
+    uniq_ptr = np.zeros(n_tiles + 1, dtype=np.int64)
+    rc = lib.expansion_pass1(n, nnz, indptr, cols, vals, R, lane_inv,
+                             lane_row, lane_val, uniq_cols, uniq_ptr)
+    if rc != 0:
+        return None
+    return lane_inv, lane_row, lane_val, uniq_cols, uniq_ptr

@@ -8,6 +8,7 @@ from of_spmm_tpu_torch.ops.autograd import (
     spmm,
     spmm_internal,
 )
+from of_spmm_tpu_torch.ops.cuda.panels import panel_spmm
 from of_spmm_tpu_torch.ops.cuda.spmm import bucket_spmm, gather_rows
 
 __all__ = [
@@ -19,4 +20,5 @@ __all__ = [
     "spmm_internal",
     "bucket_spmm",
     "gather_rows",
+    "panel_spmm",
 ]

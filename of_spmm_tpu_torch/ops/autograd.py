@@ -3,9 +3,10 @@
 ``make_operator`` builds the plan of A (and of A^T, aliased when A is
 symmetric) on the host and places it on a device; ``spmm`` runs Y = A @ X
 through it. ``impl`` picks the engine: ``"cuda"`` the hand-written kernels
-(ops/cuda/spmm.py), ``"torch"`` the plain reference (ops/reference.py),
-``"auto"`` the kernels for tensors on the card and the reference for
-tensors on the CPU.
+(ops/cuda/spmm.py for the binned and tiered layouts, ops/cuda/panels.py
+for the panel engine), ``"torch"`` the plain versions (ops/reference.py,
+``panel_spmm_torch``), ``"auto"`` the kernels for tensors on the card and
+the plain versions for tensors on the CPU.
 
 This slice is forward only. The differentiable gather <-> segment_sum
 pair and the transpose-plan backward come with the next slice; until
@@ -22,9 +23,11 @@ import numpy as np
 import torch
 
 from of_spmm_tpu_torch.ops import reference as ref
+from of_spmm_tpu_torch.ops.cuda.panels import panel_spmm, panel_spmm_torch
 from of_spmm_tpu_torch.ops.cuda.spmm import bucket_spmm, gather_rows
 from of_spmm_tpu_torch.sparse.binned import BinnedEll, bin_rows, bin_rows_relabeled
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
+from of_spmm_tpu_torch.sparse.panels import PanelPlan, attach_windows, build_panels_plan, ensure_masks
 from of_spmm_tpu_torch.sparse.tiled import DEFAULT_TIER_SIZE, TieredEll, bin_rows_tiered
 from of_spmm_tpu_torch.utils.config import FLAGS
 from of_spmm_tpu_torch.utils.device import resolve_device
@@ -32,7 +35,6 @@ from of_spmm_tpu_torch.utils.device import resolve_device
 # layouts of the JAX package that wait for a later slice, and where the
 # roadmap lists them
 _NOT_PORTED = {
-    "panels": "ROADMAP.md Queue 1 item 6 (panel engine)",
     "fused": "ROADMAP.md Queue 1 item 10 (remaining engine families)",
     "ranges": "ROADMAP.md Queue 1 item 10 (remaining engine families)",
     "expansion": "ROADMAP.md Queue 1 item 10 (remaining engine families)",
@@ -43,12 +45,12 @@ _NOT_PORTED = {
 class SpmmOperator:
     """A sparse matrix prepared for repeated SpMM.
 
-    Holds the forward plan (``binned``: a BinnedEll or TieredEll) and the
-    transpose plan built once at plan time. ``op @ x`` computes A @ x in
-    node space.
+    Holds the forward plan (``binned``: a BinnedEll, TieredEll or
+    PanelPlan) and the transpose plan built once at plan time. ``op @ x``
+    computes A @ x in node space.
     """
 
-    binned: Any  # BinnedEll | TieredEll
+    binned: Any  # BinnedEll | TieredEll | PanelPlan
     binned_t: Any
     shape: Tuple[int, int]
     # relabeling (square binned plans): the plans live in an internal row
@@ -125,22 +127,37 @@ def make_operator(
     layout: str = "auto",
     tier_size: Optional[int] = None,
     device=None,
+    reorder=None,
 ) -> SpmmOperator:
     """Build the plan of A and A^T on the host and place it on ``device``.
 
     ``layout``: "binned" (row-binned ELL; square matrices are relabeled so
     the finish is a slice-concat), "tiered" (column-tiered ELL,
-    sparse/tiled.py), or "auto" (tiered iff n_cols > tier_size, as in the
-    JAX package). ``device=None`` means the card, and raises when there is
-    none.
+    sparse/tiled.py), "panels" (the panel engine, sparse/panels.py: the
+    rank-1 plan, or the per-edge plan when the values do not factor), or
+    "auto" (tiered iff n_cols > tier_size, as in the JAX package).
+    ``device=None`` means the card, and raises when there is none.
+    ``reorder`` (the JAX package's locality relabeling) is not ported yet.
     """
     device = resolve_device(device)
+    if reorder:
+        raise NotImplementedError(
+            "make_operator(reorder=...) is not ported yet: ROADMAP.md Queue 1 item 7 "
+            "(locality reorder)")
     if layout in _NOT_PORTED:
         raise NotImplementedError(
             f"layout {layout!r} is not ported yet: {_NOT_PORTED[layout]}")
-    if layout not in ("auto", "binned", "tiered"):
-        raise ValueError(f"layout must be auto|binned|tiered, got {layout!r}")
+    if layout not in ("auto", "binned", "tiered", "panels"):
+        raise ValueError(f"layout must be auto|binned|tiered|panels, got {layout!r}")
     csr = CSR.from_coo(a) if isinstance(a, COO) else a
+    if layout == "panels":
+        plan = _build_panels(csr)
+        if csr.shape[0] == csr.shape[1] and _is_symmetric(csr):
+            plan_t = plan
+        else:
+            plan_t = _build_panels(csr.transpose())
+        return place_operator(SpmmOperator(binned=plan, binned_t=plan_t, shape=csr.shape),
+                              device)
     max_width = int(FLAGS.get("OFS_MAX_ELL_WIDTH"))
     ts = tier_size or DEFAULT_TIER_SIZE
     if layout == "auto":
@@ -178,12 +195,31 @@ def make_operator(
     ), device)
 
 
+def _build_panels(csr: CSR) -> PanelPlan:
+    """The rank-1 panel plan, or the per-edge plan when the values do not
+    factor (as the JAX package's make_operator falls back)."""
+    try:
+        return build_panels_plan(csr)
+    except ValueError:
+        return build_panels_plan(csr, per_edge=True)
+
+
 def place_operator(op: SpmmOperator, device) -> SpmmOperator:
     """Move every array of an operator to ``device`` as a torch tensor,
     preserving sharing: an aliased transpose plan (symmetric matrices)
-    and any array referenced twice are copied once."""
+    and any array referenced twice are copied once.
+
+    Panel plans first get their window provenance (attach_windows, on the
+    host) and expand their compact masks on ``device`` (one scatter-add)."""
     device = torch.device(device)
     memo: dict = {}
+    if isinstance(op.binned, PanelPlan):
+        ready = {}
+        for p in (op.binned, op.binned_t):
+            if id(p) not in ready:
+                ready[id(p)] = ensure_masks(attach_windows(p), device)
+        op = dataclasses.replace(op, binned=ready[id(op.binned)],
+                                 binned_t=ready[id(op.binned_t)])
 
     def place(obj):
         key = id(obj)
@@ -224,6 +260,11 @@ def _spmm_binned_kernels(binned: BinnedEll, x: torch.Tensor) -> torch.Tensor:
 
 
 def _spmm_impl(plan, x: torch.Tensor, impl: str) -> torch.Tensor:
+    if isinstance(plan, PanelPlan):
+        xa = x.to(torch.float32).contiguous()
+        if impl == "cuda":
+            return panel_spmm(plan, xa).to(x.dtype)
+        return panel_spmm_torch(plan, xa).to(x.dtype)
     if isinstance(plan, TieredEll):
         if impl == "cuda":
             return ref.spmm_tiered(plan, x, bucket_fn=bucket_spmm, gather_fn=gather_rows)

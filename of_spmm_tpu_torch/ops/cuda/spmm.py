@@ -8,132 +8,47 @@
 
 Both kernels live in ``csrc/spmm.cu`` (design notes there). They are
 compiled with ``nvcc -arch=sm_90a`` into a shared library at first use and
-bound with ctypes; the build goes to ``_build/`` beside the package,
-keyed by the source hash.
+bound with ctypes (ops/cuda/build.py); the build goes to ``_build/``
+beside the package, keyed by the source hash.
 
 Each wrapper dispatches on the device of the tensors it is given: on the
 CPU it runs the plain PyTorch version beside it (what the CPU tests
 check against the JAX package); on the card it launches the kernel or
-raises. It never falls back. ``LAUNCHES`` counts kernel launches per
-wrapper, so a run can show that its path went through the kernels.
+raises. It never falls back. ``LAUNCHES`` (ops/cuda/build.py) counts
+kernel launches per wrapper, so a run can show that its path went
+through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from typing import Dict, Optional
 
 import torch
 
+from of_spmm_tpu_torch.ops.cuda.build import (  # noqa: F401  (LAUNCHES, reset: re-exported)
+    LAUNCHES, raise_if, require, reset_launch_counts, same_device, stream)
+from of_spmm_tpu_torch.ops.cuda import build as _build
 from of_spmm_tpu_torch.utils.config import FLAGS
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_PKG, "csrc", "spmm.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-LAUNCHES: Dict[str, int] = {"bucket_spmm": 0, "gather_rows": 0}
-
-_LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+SOURCE = "spmm.cu"
 
 
 def build() -> Dict[str, object]:
-    """Compile csrc/spmm.cu into _build/ unless the library for this source
-    and these flags is there already. Returns the library path, the build
-    seconds (0 when it was there) and the compiler's report (registers,
-    spills). Raises if the compiler fails."""
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"spmm-{key}.so")
-    log_path = out[:-3] + ".log"
-    if os.path.exists(out):
-        log = ""
-        if os.path.exists(log_path):
-            with open(log_path) as f:
-                log = f.read()
-        return {"path": out, "seconds": 0.0, "log": log}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = out + f".tmp{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, _SRC, "-o", tmp]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    with open(log_path, "w") as f:
-        f.write(log)
-    os.replace(tmp, out)
-    return {"path": out, "seconds": seconds, "log": log}
+    """Compile csrc/spmm.cu into _build/ (ops/cuda/build.py)."""
+    return _build.build(SOURCE)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.ofs_bucket_spmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i32, p]
+    lib.ofs_bucket_spmm.restype = i32
+    lib.ofs_gather_rows.argtypes = [p, p, p, i64, i64, i64, i32, p]
+    lib.ofs_gather_rows.restype = i32
 
 
 def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(build()["path"])
-            p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            lib.ofs_bucket_spmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i32, p]
-            lib.ofs_bucket_spmm.restype = i32
-            lib.ofs_gather_rows.argtypes = [p, p, p, i64, i64, i64, i32, p]
-            lib.ofs_gather_rows.restype = i32
-            lib.ofs_error_string.argtypes = [i32]
-            lib.ofs_error_string.restype = ctypes.c_char_p
-            _LIB = lib
-        return _LIB
-
-
-def _raise_if(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.ofs_error_string(rc).decode()
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
-
-
-def _require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _same_device(*ts: torch.Tensor) -> torch.device:
-    dev = ts[0].device
-    for t in ts[1:]:
-        if t.device != dev:
-            raise ValueError(f"tensors on different devices: {dev} and {t.device}")
-    return dev
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    return _build.load(SOURCE, _bind)
 
 
 # ---------------------------------------------------------------------------
@@ -172,19 +87,19 @@ def bucket_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     and the kernel stops with a device-side assertion that the next
     synchronization raises.
     """
-    _require(cols, "cols", torch.int32, 2)
-    _require(vals, "vals", torch.float32, 2)
-    _require(x, "x", torch.float32, 2)
+    require(cols, "cols", torch.int32, 2)
+    require(vals, "vals", torch.float32, 2)
+    require(x, "x", torch.float32, 2)
     if vals.shape != cols.shape:
         raise ValueError(f"vals {tuple(vals.shape)} != cols {tuple(cols.shape)}")
     R, K = cols.shape
     d = x.shape[1]
-    dev = _same_device(cols, vals, x)
+    dev = same_device(cols, vals, x)
     if out is None:
         out = torch.empty((R, d), dtype=torch.float32, device=dev)
     else:
-        _require(out, "out", torch.float32, 2)
-        _same_device(x, out)
+        require(out, "out", torch.float32, 2)
+        same_device(x, out)
         if tuple(out.shape) != (R, d):
             raise ValueError(f"out must be {(R, d)}, got {tuple(out.shape)}")
     if dev.type == "cpu":
@@ -196,8 +111,8 @@ def bucket_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     lib = _lib()
     rc = lib.ofs_bucket_spmm(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
                              out.data_ptr(), R, K, d, int(row_offset),
-                             x.shape[0], dev.index or 0, _stream(dev))
-    _raise_if(lib, rc, "bucket_spmm")
+                             x.shape[0], dev.index or 0, stream(dev))
+    raise_if(lib, rc, "bucket_spmm")
     LAUNCHES["bucket_spmm"] += 1
     return out
 
@@ -224,15 +139,15 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
     """``out[i] = table[idx[i]]`` for float32 ``table`` (rows, d) and int32
     ``idx`` (M,); an index outside [0, rows) gives a zero row. On the card
     this launches the kernel; on the CPU it runs ``gather_rows_torch``."""
-    _require(table, "table", torch.float32, 2)
-    _require(idx, "idx", torch.int32, 1)
-    dev = _same_device(table, idx)
+    require(table, "table", torch.float32, 2)
+    require(idx, "idx", torch.int32, 1)
+    dev = same_device(table, idx)
     M, d = idx.shape[0], table.shape[1]
     if out is None:
         out = torch.empty((M, d), dtype=torch.float32, device=dev)
     else:
-        _require(out, "out", torch.float32, 2)
-        _same_device(table, out)
+        require(out, "out", torch.float32, 2)
+        same_device(table, out)
         if tuple(out.shape) != (M, d):
             raise ValueError(f"out must be {(M, d)}, got {tuple(out.shape)}")
     if dev.type == "cpu":
@@ -243,7 +158,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
         return out
     lib = _lib()
     rc = lib.ofs_gather_rows(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
-                             M, table.shape[0], d, dev.index or 0, _stream(dev))
-    _raise_if(lib, rc, "gather_rows")
+                             M, table.shape[0], d, dev.index or 0, stream(dev))
+    raise_if(lib, rc, "gather_rows")
     LAUNCHES["gather_rows"] += 1
     return out

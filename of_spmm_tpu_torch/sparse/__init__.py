@@ -7,6 +7,16 @@ from of_spmm_tpu_torch.sparse.binned import (
     bin_rows_relabeled,
 )
 from of_spmm_tpu_torch.sparse.tiled import DEFAULT_TIER_SIZE, TieredEll, bin_rows_tiered
+from of_spmm_tpu_torch.sparse.panels import (
+    PanelPlan,
+    PanelSegment,
+    PanelWindows,
+    attach_windows,
+    build_panels_plan,
+    ensure_masks,
+)
 
 __all__ = ["COO", "CSR", "BinnedEll", "EllBucket", "bin_rows", "bin_rows_relabeled",
-           "DEFAULT_LADDER", "TieredEll", "bin_rows_tiered", "DEFAULT_TIER_SIZE"]
+           "DEFAULT_LADDER", "TieredEll", "bin_rows_tiered", "DEFAULT_TIER_SIZE",
+           "PanelPlan", "PanelSegment", "PanelWindows", "attach_windows",
+           "build_panels_plan", "ensure_masks"]

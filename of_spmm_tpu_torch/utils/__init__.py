@@ -3,6 +3,7 @@ from of_spmm_tpu_torch.utils.device import resolve_device
 from of_spmm_tpu_torch.utils.roofline import (
     PEAK_FP32_FLOPS,
     PEAK_HBM_BYTES_PER_S,
+    PanelTraffic,
     SpmmTraffic,
     detect_peak_bw,
     detect_peak_fp32,
@@ -11,5 +12,5 @@ from of_spmm_tpu_torch.utils.roofline import (
 )
 
 __all__ = ["FLAGS", "resolve_device", "PEAK_HBM_BYTES_PER_S", "PEAK_FP32_FLOPS",
-           "SpmmTraffic", "detect_peak_bw", "detect_peak_fp32", "spmm_report",
+           "SpmmTraffic", "PanelTraffic", "detect_peak_bw", "detect_peak_fp32", "spmm_report",
            "time_cuda"]

@@ -103,3 +103,19 @@ FLAGS.define_int(
     "this many bytes write each bucket into one preallocated buffer instead "
     "of concatenating the per-bucket results (which holds both at once).",
 )
+FLAGS.define_int(
+    "OFS_FUSED_T",
+    0,
+    "Force the panel engine's lanes-per-step T (sparse/panels.py); the "
+    "JAX package's flag of the same name, with the same meaning, so one "
+    "environment gives equal plans in both. 0 = adaptive "
+    "(panels.default_panels_t).",
+)
+FLAGS.define_int(
+    "OFS_HBM_BYTES",
+    0,
+    "Device memory bytes for the panel plan's memory budget "
+    "(sparse/fused.py device_hbm_bytes); the JAX package's flag of the same "
+    "name. 0 = the card's total memory, or an H100's 80 GB on a host "
+    "without a card.",
+)

@@ -19,6 +19,7 @@ import statistics
 import time
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 # Peak HBM bandwidth (bytes/s), keyed by a substring of the name that
@@ -165,3 +166,50 @@ def wall_ms(fn: Callable[[], object], iters: int = 20) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+@dataclasses.dataclass(frozen=True)
+class PanelTraffic:
+    """Least HBM traffic of one panel SpMM (every segment of a PanelPlan)
+    at width ``d``: each array the kernel must read, once, and the output
+    once. ``from_plan`` counts it from a plan with its window provenance
+    attached (sparse/panels.py); ``x_rows`` is the number of distinct X
+    rows the matrix references (its distinct columns)."""
+
+    real_slots: int     # group slots with at least one edge: 2 KB of mask each
+    control_words: int  # ctrl (24 per step) + blk (G per step)
+    index_words: int    # provenance + hot_ids + stage_take (+ stage_scale) + scales
+    x_rows: int
+    n_rows: int
+    nnz: int
+    d: int
+
+    @classmethod
+    def from_plan(cls, plan, d: int, x_rows: int, nnz: int) -> "PanelTraffic":
+        G = plan.T // 128
+        real = control = index = 0
+        for seg in plan.segments:
+            ctrl = _np(seg.ctrl)[:, 0, :].astype(np.int64)
+            g1 = ctrl[:, 1]  # real groups + 1 (0: every slot)
+            real += int(np.where(g1 == 0, G, np.maximum(g1 - 1, 0))[ctrl[:, 0] >= 0].sum())
+            control += ctrl.shape[0] * (24 + G)
+            win = seg.windows
+            index += sum(int(_np(a).size) for a in (win.tile_steps, win.step_win,
+                                                      win.range_rows, win.direct_rows))
+            index += int(_np(seg.stage_take).size) * (1 if seg.stage_scale is None else 2)
+        index += plan.n_hot + plan.shape[0] + plan.shape[1]  # hot_ids, row/col scales
+        return cls(real, control, index, int(x_rows), plan.shape[0], int(nnz), int(d))
+
+    @property
+    def bytes(self) -> int:
+        return (self.real_slots * 4 * 128 * 4 + 4 * (self.control_words + self.index_words)
+                + self.x_rows * self.d * 4 + self.n_rows * self.d * 4)
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.nnz * self.d
+
+
+def _np(a):
+    """A plan array as numpy, wherever it lives."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a

@@ -24,6 +24,7 @@ from of_spmm_tpu.ops.autograd import spmm as jspmm
 from of_spmm_tpu.ops.pallas.spmm import _bucket_contrib, _pad_features, gather_rows_pallas
 from of_spmm_tpu.sparse.formats import CSR as JCSR
 from of_spmm_tpu_torch.ops import make_operator, spmm
+from of_spmm_tpu_torch.ops.cuda import build as cuda_build
 from of_spmm_tpu_torch.ops.cuda import spmm as kernels
 from of_spmm_tpu_torch.sparse.formats import CSR
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
@@ -179,7 +180,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
-        kernels._nvcc()
+        cuda_build._nvcc()
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +275,7 @@ def test_impl_selection_and_refusals():
         spmm(op, x, impl="pallas")
     with pytest.raises(NotImplementedError, match="backward"):
         spmm(op, x.clone().requires_grad_())
-    for layout in ("panels", "fused", "ranges", "expansion"):
+    for layout in ("fused", "ranges", "expansion"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_operator(CSR.from_dense(dense), layout=layout, device="cpu")
     before = dict(kernels.LAUNCHES)  # "auto" on CPU tensors picks the plain engine
