@@ -5,12 +5,12 @@
 
 Builds the port's CUDA kernels from the checkout's sources (one nvcc per
 source, started together), holds each against its plain PyTorch version
-on the card, then runs the main path on both of the port's engines: GCN
+on the card, then runs the main path on each of the port's engines: GCN
 inference at the width of OGB's published GCN baseline for arxiv (3
 layers, hidden 256) on synthetic ogbn-arxiv, through
 load_graph -> normalized_adjacency -> make_operator -> GCN.forward, first
-on the default (tiered) layout and then on layout="panels". Each engine
-also times one SpMM on products-small.
+on the default (tiered) layout and then on layout="panels", "fused" and
+"ranges". Each engine also times one SpMM on products-small.
 
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary and the card's name and power limit as
@@ -38,28 +38,40 @@ from of_spmm_tpu_torch.data import load_graph, random_features
 from of_spmm_tpu_torch.models import GCN, normalized_adjacency
 from of_spmm_tpu_torch.ops import make_operator, place_operator, spmm_internal
 from of_spmm_tpu_torch.ops.autograd import SpmmOperator
+from of_spmm_tpu_torch.ops.cuda import fused as fkernels
 from of_spmm_tpu_torch.ops.cuda import panels as pkernels
+from of_spmm_tpu_torch.ops.cuda import ranges as rkernels
 from of_spmm_tpu_torch.ops.cuda import spmm as kernels
+from of_spmm_tpu_torch.sparse import staged_windows
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
+from of_spmm_tpu_torch.sparse.fused import FusedPlan, build_fused_plan
 from of_spmm_tpu_torch.sparse.panels import (
     C_SBIG, C_TFIRST, C_TILE, PanelPlan, attach_windows, build_panels_plan, ensure_masks)
+from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
 from of_spmm_tpu_torch.utils.roofline import (
-    PanelTraffic, SpmmTraffic, detect_peak_bw, detect_peak_fp32, spmm_report, time_cuda,
-    wall_ms)
+    PanelTraffic, SpmmTraffic, StagedTraffic, detect_peak_bw, detect_peak_fp32, spmm_report,
+    time_cuda, wall_ms)
 
 SOURCES = {
     "bucket_spmm": "of_spmm_tpu_torch/csrc/spmm.cu",
     "gather_rows": "of_spmm_tpu_torch/csrc/spmm.cu",
     "panel_spmm": "of_spmm_tpu_torch/csrc/panels.cu",
+    "fused_spmm": "of_spmm_tpu_torch/csrc/fused.cu",
+    "ranges_spmm": "of_spmm_tpu_torch/csrc/ranges.cu",
 }
 REPLACES = {
     "bucket_spmm": "of_spmm_tpu/ops/pallas/spmm.py:46",
     "gather_rows": "of_spmm_tpu/ops/pallas/spmm.py:146",
     "panel_spmm": "of_spmm_tpu/ops/pallas/panels.py:49",
+    "fused_spmm": "of_spmm_tpu/ops/pallas/fused.py:49",
+    "ranges_spmm": "of_spmm_tpu/ops/pallas/ranges.py:46",
 }
+# the engines whose plan is a FusedPlan / RangesPlan: kernel module, plan type
+STAGED = {"fused": (fkernels, FusedPlan), "ranges": (rkernels, RangesPlan)}
 BUCKET_WIDTHS = (3, 5, 9, 17, 33, 64, 153, 256)
 FEATURE_WIDTHS = (128, 256, 60)
+STAGED_WIDTHS = (128, 256, 60, 7)  # the fused and ranges kernels: float4 and scalar paths
 GCN_DIMS = (128, 256, 256, 40)  # OGB's GCN baseline for ogbn-arxiv: 3 layers, hidden 256
 MAIN_PATH_REL_TOL = 1e-4
 
@@ -89,6 +101,24 @@ op = make_operator(CSR.from_dense(dense), layout="panels")  # per-edge: every ro
 for seg in op.binned.segments:
     seg.stage_take.fill_(1 << 30)
 spmm_internal(op, torch.zeros((1024, 8), device="cuda"))
+torch.cuda.synchronize()
+print("no error")
+"""
+
+# A ranges plan whose window provenance names rows past the end of x: the
+# kernel (shared with the fused engine) must stop with a device-side
+# assertion (child process, as above).
+BAD_STAGED_PROBE = """
+import numpy as np, torch
+from of_spmm_tpu_torch.ops import make_operator, spmm_internal
+from of_spmm_tpu_torch.sparse.formats import CSR
+rng = np.random.default_rng(0)
+dense = ((rng.random((4096, 8192)) < 0.001) * rng.standard_normal((4096, 8192))).astype(np.float32)
+op = make_operator(CSR.from_dense(dense), layout="ranges")  # thin blocks: scattered rows
+assert op.binned.n_scattered > 0
+for seg in op.binned.segments:
+    seg.windows.staged_rows.fill_(1 << 30)
+spmm_internal(op, torch.zeros((8192, 8), device="cuda"))
 torch.cuda.synchronize()
 print("no error")
 """
@@ -356,6 +386,241 @@ def torch_csr(csr: CSR, dev) -> torch.Tensor:
                                    check_invariants=False).to(dev)
 
 
+def staged_cases(engine: str, rng):
+    """Placed fused or ranges plans that cover, between them, what the
+    arxiv plan does not: one-hot lanes with general values, duplicate
+    edges, several segments, virtual tiles from a small s_cap; for fused
+    rows staging and window mode, for ranges scattered overflow pieces and
+    ranges at the clamped top end of X (one wider than x itself, which
+    reads the TPU wrapper's zero padding). Yields (name, plan); raises if a
+    plan lacks what it is here for."""
+    dev = torch.device("cuda", 0)
+    build = build_fused_plan if engine == "fused" else build_ranges_plan
+
+    def placed(csr, **kw):
+        plan = build(csr, **kw)
+        return place_operator(SpmmOperator(binned=plan, binned_t=plan, shape=csr.shape),
+                              dev).binned
+
+    def n_virtual(plan):
+        return sum(int(((s.ctrl[:, 0, 0] >= 0) & (s.ctrl[:, 0, 1] == 1)).sum())
+                   for s in plan.segments) - sum(s.n_tiles for s in plan.segments)
+
+    n, nnz = 3000, 60_000
+    rows = rng.integers(0, n, nnz).astype(np.int32)
+    cols = rng.integers(0, n, nnz).astype(np.int32)
+    rows, cols = np.concatenate([rows, rows[:5000]]), np.concatenate([cols, cols[:5000]])
+    vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    general = CSR.from_coo(COO.from_arrays(rows, cols, vals, (n, n)))  # duplicates summed
+    if engine == "fused":
+        plan = placed(general, T=512, hot_budget=256, hot_min_run=1, seg_steps=24)
+        if plan.multihot or len(plan.segments) < 2:
+            raise AssertionError("general case is multi-hot or has one segment")
+        yield "general values+duplicates+segments", plan
+        plan = placed(rank1_graph(4000, 4000, rng, per_row=6, hubs=40), T=256,
+                      hot_budget=256, hot_min_run=2, staging="rows", s_cap=256)
+        if not plan.multihot or plan.staging != "rows" or not n_virtual(plan):
+            raise AssertionError("rows case lacks multi-hot lanes or virtual tiles")
+        yield "rows staging+virtual tiles", plan
+        plan = placed(rank1_graph(4096, 4096, rng, per_row=4, band=16, hubs=24), R=256, T=512,
+                      hot_budget=128, hot_min_run=1, stage_tier=256, s_cap=512, window=True,
+                      seg_steps=40)
+        if not (plan.window and n_virtual(plan) and len(plan.segments) > 1):
+            raise AssertionError("window case lacks virtual tiles or segments")
+        yield "window mode+virtual tiles+segments", plan
+        return
+    m = 6000
+    plan = placed(rank1_graph(6000, m, rng, per_row=3, band=24, hubs=40), T=512,
+                  hot_budget=512, hot_min_run=2, range_cap=1024, seg_steps=24)
+    top = (m - plan.RC) // 128 * 128
+    if not (plan.n_hot and plan.n_ranges > 2 and len(plan.segments) > 1
+            and any(bool((s.rcopy[:, 0, :] == top).any()) for s in plan.segments)):
+        raise AssertionError("hot/ranges/segments case lacks a feature")
+    yield "hot+ranges(top end)+segments", plan
+    plan = placed(rank1_graph(512, 4096, rng, per_row=300), T=256, hot_budget=0,
+                  range_cap=256, s_cap=256)
+    if not n_virtual(plan):
+        raise AssertionError("pieces case has no tile split into pieces")
+    yield "scattered pieces", plan
+    plan = placed(general, T=256, hot_budget=0, range_cap=1024, seg_steps=40)
+    if plan.multihot or len(plan.segments) < 2:
+        raise AssertionError("general case is multi-hot or has one segment")
+    yield "general values+duplicates+segments", plan
+    plan = placed(rank1_graph(700, 100, rng, per_row=5), T=256)
+    if not plan.RC > plan.shape[1]:
+        raise AssertionError("narrow case has no range past the end of x")
+    yield "range wider than x", plan
+
+
+def staged_figures(engine: str, plan, sp: torch.Tensor, x_rows: int, nnz: int, d: int, gen,
+                   peak_bw: float, peak_fp32: float) -> dict:
+    """The fused or ranges kernel over one SpMM (all its launches) at width
+    d: its time, its plain version's, torch.sparse.mm on the CSR of the
+    same matrix (``sp``), and the bound of that work (utils/roofline.py
+    StagedTraffic). ``launches`` is counted over one such SpMM."""
+    kmod = STAGED[engine][0]
+    kernel, plain = getattr(kmod, f"{engine}_spmm"), getattr(kmod, f"{engine}_spmm_torch")
+    name = f"{engine}_spmm"
+    dev = torch.device("cuda", 0)
+    x = torch.randn((plan.shape[1], d), generator=gen).to(dev)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        y = kernel(plan, x)
+        launches = kernels.LAUNCHES[name]
+        lib_err = rel_err(torch.sparse.mm(sp, x), y)
+        ms = time_cuda(lambda: kernel(plan, x), iters=20)
+        plain_ms = time_cuda(lambda: plain(plan, x), iters=3)
+        lib_ms = time_cuda(lambda: torch.sparse.mm(sp, x), iters=20)
+    traffic = StagedTraffic.from_plan(plan, d, x_rows, nnz)
+    bound, by = _bound(traffic.bytes, traffic.flops, peak_bw, peak_fp32)
+    return {"d": d, "scope": "all launches of one SpMM", "launches": launches,
+            "ms": ms, "plain_ms": plain_ms, "library": "torch.sparse.mm", "library_ms": lib_ms,
+            "library_rel_err": lib_err, "bytes": traffic.bytes, "flops": traffic.flops,
+            "real_slots": traffic.real_slots, "bound_ms": bound, "bound_by": by}
+
+
+def selection_load(plan) -> dict:
+    """How the fused or ranges kernel's work falls on its blocks: window
+    row selections per lane group slot (one block each) and per control
+    step, counted on the host from the plan's real lanes."""
+    per_slot = []
+    sent = staged_windows.geometry(plan)[4]
+    for seg in plan.segments:
+        lrow, lidx = seg.lrow.cpu().numpy(), seg.lidx.cpu().numpy()
+        real = lrow < sent
+        if plan.multihot:
+            words = np.where(real[:, None, :], lidx, 0).astype(np.uint32)
+            n = np.unpackbits(words.view(np.uint8), axis=None).reshape(words.shape[0], -1).sum(1)
+        else:
+            n = real.sum(1)
+        per_slot.append(n)
+    per_slot = np.concatenate(per_slot).astype(np.int64)
+    per_step = per_slot.reshape(-1, plan.T // 128).sum(1)
+    live = per_slot > 0
+    return {"selections": int(per_slot.sum()), "real_slots": int(live.sum()),
+            "slot_selections_mean": float(per_slot[live].mean()),
+            "slot_selections_max": int(per_slot.max()),
+            "step_selections_mean": float(per_step[per_step > 0].mean()),
+            "step_selections_p99": float(np.percentile(per_step[per_step > 0], 99)),
+            "step_selections_max": int(per_step.max())}
+
+
+def plan_shape(plan) -> dict:
+    """The shape of a fused or ranges plan, for the phase lines."""
+    out = {"T": plan.T, "R": plan.R, "hot_rows": plan.n_hot, "multihot": plan.multihot,
+           "segments": len(plan.segments), "steps": sum(s.n_steps for s in plan.segments),
+           "S_buf": plan.S_buf, "lanes": plan.n_lanes}
+    if isinstance(plan, RangesPlan):
+        out.update(RC=plan.RC, ranges=plan.n_ranges, scattered_rows=plan.n_scattered)
+    else:
+        out.update(staging=plan.staging, staged_rows=plan.n_staged)
+    return out
+
+
+def staged_main_path(engine: str, a_hat: CSR, cfg, x: torch.Tensor, model: GCN,
+                     tiered_logits: torch.Tensor, gen, peak_bw: float, peak_fp32: float):
+    """GCN inference on arxiv through layout=engine: the plan, the window
+    replay and the placement timed apart, then the user's entry point
+    drives it; logits against impl="torch" and the tiered CUDA logits;
+    the kernel at the main path's widths against its plain version.
+    Returns (launches of one forward, max abs err, the phase's fields,
+    the kernel's figures at d = 128)."""
+    dev = torch.device("cuda", 0)
+    kmod, plan_type = STAGED[engine]
+    name = f"{engine}_spmm"
+    t0 = time.perf_counter()
+    plan = (build_fused_plan if engine == "fused" else build_ranges_plan)(a_hat)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    staged_windows.attach_windows(plan)
+    t_win = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    place_operator(SpmmOperator(binned=plan, binned_t=plan, shape=a_hat.shape), dev)
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    del plan
+    t0 = time.perf_counter()
+    op = make_operator(a_hat, layout=engine)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    sp = op.binned
+    if not isinstance(sp, plan_type) or not op.transpose_aliased or not sp.multihot:
+        raise AssertionError(f"ogbn-arxiv should plan as an aliased rank-1 {engine} operator")
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        logits = model(op, x)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        expected = {k: 0 for k in launches}
+        expected[name] = 3 * len(sp.segments)
+        if launches != expected:
+            raise AssertionError(f"{engine} main path launches {launches}, expected {expected}")
+        want = model(op, x, impl="torch")
+        torch.cuda.synchronize()
+    if logits.shape != (cfg.n_nodes, GCN_DIMS[-1]) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{engine} logits {tuple(logits.shape)} not finite or wrong shape")
+    vs_plain, vs_tiered = rel_err(logits, want), rel_err(logits, tiered_logits)
+    if vs_plain > MAIN_PATH_REL_TOL or vs_tiered > MAIN_PATH_REL_TOL:
+        raise AssertionError(f"{engine} GCN logits: rel err {vs_plain} vs impl=torch, "
+                             f"{vs_tiered} vs the tiered CUDA path")
+    err = 0.0
+    with torch.inference_mode():
+        for d in sorted(set(GCN_DIMS[:-1])):
+            xd = torch.randn((cfg.n_nodes, d), generator=gen).to(dev)
+            err = max(err, check_close(getattr(kmod, name)(sp, xd),
+                                       getattr(kmod, f"{name}_torch")(sp, xd),
+                                       f"arxiv {name} d={d}"))
+        torch.cuda.synchronize()
+        fwd_ms = time_cuda(lambda: model(op, x), iters=20)
+        fwd_wall_ms = wall_ms(lambda: model(op, x), iters=20)
+        spmm_rows = []
+        for layer, d in enumerate(GCN_DIMS[:-1]):
+            h = torch.randn((cfg.n_nodes, d), generator=gen).to(dev)
+            ms = time_cuda(lambda: spmm_internal(op, h), iters=20)
+            rep = spmm_report(ms, SpmmTraffic(a_hat.nnz, cfg.n_nodes, cfg.n_nodes, d), peak_bw)
+            spmm_rows.append({"layer": layer, "d": d, **{k: round(v, 4) for k, v in rep.items()}})
+    fig = staged_figures(engine, sp, torch_csr(a_hat, dev), int(np.unique(a_hat.cols).size),
+                         a_hat.nnz, 128, gen, peak_bw, peak_fp32)
+    fields = dict(graph="ogbn-arxiv (synthetic, symmetrized, self-loops)", n_nodes=cfg.n_nodes,
+                  nnz=a_hat.nnz, dims=GCN_DIMS, layout=engine, **plan_shape(sp),
+                  selection_load=selection_load(sp),
+                  plan_seconds=round(t_plan, 4), windows_seconds=round(t_win, 4),
+                  placement_seconds=round(t_place, 4), make_operator_seconds=round(t_op, 4),
+                  launches_per_forward=launches, logits_rel_err_vs_torch=vs_plain,
+                  logits_rel_err_vs_tiered=vs_tiered, forward_ms=round(fwd_ms, 4),
+                  forward_wall_ms=round(fwd_wall_ms, 4), spmm=spmm_rows)
+    return launches, err, fields, fig
+
+
+def staged_scale(engine: str, pa: CSR, px: torch.Tensor, p_sparse: torch.Tensor, gen,
+                 peak_bw: float, peak_fp32: float) -> dict:
+    """One SpMM at d = 128 on products-small through layout=engine, against
+    impl="torch" and torch.sparse.mm, with the kernel's figures."""
+    t0 = time.perf_counter()
+    op = make_operator(pa, layout=engine)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    plan = op.binned
+    if len(plan.segments) < 2:
+        raise AssertionError(f"products-small should plan {engine} in several segments")
+    with torch.inference_mode():
+        y = spmm_internal(op, px)
+        y_plain = spmm_internal(op, px, impl="torch")
+        y_lib = torch.sparse.mm(p_sparse, px)
+        torch.cuda.synchronize()
+    err, lib_err = rel_err(y, y_plain), rel_err(y, y_lib)
+    if err > MAIN_PATH_REL_TOL or lib_err > MAIN_PATH_REL_TOL or not torch.isfinite(y).all():
+        raise AssertionError(f"products-small {engine} SpMM: rel err {err} vs impl=torch, "
+                             f"{lib_err} vs torch.sparse.mm")
+    fig = staged_figures(engine, plan, p_sparse, int(np.unique(pa.cols).size), pa.nnz, 128,
+                         gen, peak_bw, peak_fp32)
+    return dict(graph="products-small (synthetic, symmetrized, self-loops)",
+                n_nodes=pa.shape[0], nnz=pa.nnz, layout=engine, **plan_shape(plan),
+                selection_load=selection_load(plan),
+                make_operator_seconds=round(t_op, 2), rel_err_vs_torch=err,
+                rel_err_vs_torch_sparse_mm=lib_err, **fig)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -380,11 +645,12 @@ def main() -> int:
     t0 = time.perf_counter()
     planner = threading.Thread(target=native.available)
     planner.start()
-    with ThreadPoolExecutor(2) as pool:
-        futures = {"spmm.cu": pool.submit(kernels.build), "panels.cu": pool.submit(pkernels.build)}
+    kmods = (kernels, pkernels, fkernels, rkernels)
+    with ThreadPoolExecutor(len(kmods)) as pool:
+        futures = {k.SOURCE: pool.submit(k.build) for k in kmods}
         built = {src: f.result() for src, f in futures.items()}
-    kernels._lib()
-    pkernels._lib()
+    for k in kmods:
+        k._lib()
     planner.join()
     emit("build", total_seconds=round(time.perf_counter() - t0, 2),
          native_planner=native.available(),
@@ -393,7 +659,7 @@ def main() -> int:
                             if "registers" in ln or "spill" in ln]}
             for src, b in built.items()})
 
-    max_err = {"bucket_spmm": 0.0, "gather_rows": 0.0, "panel_spmm": 0.0}
+    max_err = {k: 0.0 for k in SOURCES}
 
     # -- 3. kernels against their plain versions -------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -451,8 +717,8 @@ def main() -> int:
         logits = model(op, x)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
-        expected = {"bucket_spmm": 3 * n_buckets, "gather_rows": 3 * (1 + (n_extra > 0)),
-                    "panel_spmm": 0}
+        expected = {k: 0 for k in SOURCES}
+        expected.update(bucket_spmm=3 * n_buckets, gather_rows=3 * (1 + (n_extra > 0)))
         if launches != expected:
             raise AssertionError(f"main path launches {launches}, expected {expected}")
         want = model(op, x, impl="torch")
@@ -626,7 +892,8 @@ def main() -> int:
         plogits = model(pan_op, x)
         torch.cuda.synchronize()
         pan_launches = dict(kernels.LAUNCHES)
-        expected = {"bucket_spmm": 0, "gather_rows": 0, "panel_spmm": 3 * n_seg}
+        expected = {k: 0 for k in SOURCES}
+        expected["panel_spmm"] = 3 * n_seg
         if pan_launches != expected:
             raise AssertionError(f"panel main path launches {pan_launches}, expected {expected}")
         pwant = model(pan_op, x, impl="torch")
@@ -699,16 +966,54 @@ def main() -> int:
          make_operator_seconds=round(t_pop, 2), rel_err_vs_torch=pp_err,
          rel_err_vs_torch_sparse_mm=pp_lib_err, tiered_spmm_ms=p_ms, **ps_fig)
 
-    # -- 9. the kernels, 10. the card, 11. the result ------------------------
+    # -- 9.-14. the fused and ranges engines: their kernel against its plain
+    #           version on small plans of every shape, GCN inference on arxiv,
+    #           one products-small SpMM ------------------------------------------
+    staged_launches, staged_figs = {}, {}
+    for engine in STAGED:
+        kmod = STAGED[engine][0]
+        kname = f"{engine}_spmm"
+        cases = []
+        with torch.inference_mode():
+            for case, scase in staged_cases(engine, rng):
+                for d in STAGED_WIDTHS:
+                    xd = torch.randn((scase.shape[1], d), generator=gen).to(dev)
+                    got = getattr(kmod, kname)(scase, xd)
+                    want = getattr(kmod, f"{kname}_torch")(scase, xd)
+                    torch.cuda.synchronize()
+                    max_err[kname] = max(max_err[kname],
+                                         check_close(got, want, f"{kname} {case} d={d}"))
+                cases.append({"case": case, "shape": list(scase.shape), **plan_shape(scase)})
+                del scase
+        if engine == "ranges":
+            expect_device_assert(BAD_STAGED_PROBE, "ranges_spmm with a window row outside x")
+        emit(f"{engine}_kernel", d=STAGED_WIDTHS, cases=cases, max_abs_err=max_err[kname],
+             tolerance="|k-p| <= 1e-5 + 1e-4|p|",
+             **({"bad_window_row": "ranges_spmm stopped with a device-side assertion"}
+                if engine == "ranges" else {}))
+        launches_e, err, fields, fig = staged_main_path(engine, a_hat, cfg, x, model, logits,
+                                                        gen, peak_bw, peak_fp32)
+        max_err[kname] = max(max_err[kname], err)
+        staged_launches[kname] = launches_e
+        staged_figs[kname] = fig
+        emit(f"{engine}_main_path", **fields, tiered_forward_ms=round(fwd_ms, 4),
+             panels_forward_ms=round(pfwd_ms, 4))
+        emit(f"{engine}_kernel_times", graph="ogbn-arxiv", **fig)
+        scale = staged_scale(engine, pa, px, p_sparse, gen, peak_bw, peak_fp32)
+        emit(f"{engine}_scale", **scale, tiered_spmm_ms=p_ms, panels_spmm_ms=ps_fig["ms"])
+
+    # -- 15. the kernels, 16. the card, 17. the result ------------------------
     # launches: one GCN forward (three SpMMs) on the kernel's engine; the
     # times and the bound: all launches of one SpMM at d=128,
     # launches_per_spmm of them
     figs = {"bucket_spmm": {**a_fig["bucket_spmm"], "d": a_fig["d"]},
             "gather_rows": {**a_fig["gather_rows"], "d": a_fig["d"]},
-            "panel_spmm": pan_fig}
+            "panel_spmm": pan_fig, **staged_figs}
     scopes = {"bucket_spmm": ("one GCN forward on ogbn-arxiv (tiered)", launches),
               "gather_rows": ("one GCN forward on ogbn-arxiv (tiered)", launches),
-              "panel_spmm": ("one GCN forward on ogbn-arxiv (layout='panels')", pan_launches)}
+              "panel_spmm": ("one GCN forward on ogbn-arxiv (layout='panels')", pan_launches),
+              **{f"{e}_spmm": (f"one GCN forward on ogbn-arxiv (layout='{e}')",
+                               staged_launches[f"{e}_spmm"]) for e in STAGED}}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": scopes[k][1][k], "launches_scope": scopes[k][0],
@@ -716,7 +1021,7 @@ def main() -> int:
          **{f: figs[k][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "launches_per_spmm": figs[k]["launches"],
          "times_scope": f"one SpMM on ogbn-arxiv at d={figs[k]['d']}"}
-        for k in ("bucket_spmm", "gather_rows", "panel_spmm")]}), flush=True)
+        for k in SOURCES]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -8,7 +8,9 @@ from of_spmm_tpu_torch.ops.autograd import (
     spmm,
     spmm_internal,
 )
+from of_spmm_tpu_torch.ops.cuda.fused import fused_spmm
 from of_spmm_tpu_torch.ops.cuda.panels import panel_spmm
+from of_spmm_tpu_torch.ops.cuda.ranges import ranges_spmm
 from of_spmm_tpu_torch.ops.cuda.spmm import bucket_spmm, gather_rows
 
 __all__ = [
@@ -21,4 +23,6 @@ __all__ = [
     "bucket_spmm",
     "gather_rows",
     "panel_spmm",
+    "fused_spmm",
+    "ranges_spmm",
 ]

@@ -3,10 +3,12 @@
 ``make_operator`` builds the plan of A (and of A^T, aliased when A is
 symmetric) on the host and places it on a device; ``spmm`` runs Y = A @ X
 through it. ``impl`` picks the engine: ``"cuda"`` the hand-written kernels
-(ops/cuda/spmm.py for the binned and tiered layouts, ops/cuda/panels.py
-for the panel engine), ``"torch"`` the plain versions (ops/reference.py,
-``panel_spmm_torch``), ``"auto"`` the kernels for tensors on the card and
-the plain versions for tensors on the CPU.
+(ops/cuda/spmm.py for the binned and tiered layouts, ops/cuda/panels.py,
+ops/cuda/fused.py and ops/cuda/ranges.py for the panel, fused and ranges
+engines), ``"torch"`` the plain versions (ops/reference.py,
+``panel_spmm_torch``, ``fused_spmm_torch``, ``ranges_spmm_torch``),
+``"auto"`` the kernels for tensors on the card and the plain versions for
+tensors on the CPU.
 
 This slice is forward only. The differentiable gather <-> segment_sum
 pair and the transpose-plan backward come with the next slice; until
@@ -23,11 +25,16 @@ import numpy as np
 import torch
 
 from of_spmm_tpu_torch.ops import reference as ref
+from of_spmm_tpu_torch.ops.cuda.fused import fused_spmm, fused_spmm_torch
 from of_spmm_tpu_torch.ops.cuda.panels import panel_spmm, panel_spmm_torch
+from of_spmm_tpu_torch.ops.cuda.ranges import ranges_spmm, ranges_spmm_torch
 from of_spmm_tpu_torch.ops.cuda.spmm import bucket_spmm, gather_rows
 from of_spmm_tpu_torch.sparse.binned import BinnedEll, bin_rows, bin_rows_relabeled
+from of_spmm_tpu_torch.sparse import staged_windows
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
+from of_spmm_tpu_torch.sparse.fused import FusedPlan, build_fused_plan
 from of_spmm_tpu_torch.sparse.panels import PanelPlan, attach_windows, build_panels_plan, ensure_masks
+from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
 from of_spmm_tpu_torch.sparse.tiled import DEFAULT_TIER_SIZE, TieredEll, bin_rows_tiered
 from of_spmm_tpu_torch.utils.config import FLAGS
 from of_spmm_tpu_torch.utils.device import resolve_device
@@ -35,8 +42,6 @@ from of_spmm_tpu_torch.utils.device import resolve_device
 # layouts of the JAX package that wait for a later slice, and where the
 # roadmap lists them
 _NOT_PORTED = {
-    "fused": "ROADMAP.md Queue 1 item 10 (remaining engine families)",
-    "ranges": "ROADMAP.md Queue 1 item 10 (remaining engine families)",
     "expansion": "ROADMAP.md Queue 1 item 10 (remaining engine families)",
 }
 
@@ -45,12 +50,13 @@ _NOT_PORTED = {
 class SpmmOperator:
     """A sparse matrix prepared for repeated SpMM.
 
-    Holds the forward plan (``binned``: a BinnedEll, TieredEll or
-    PanelPlan) and the transpose plan built once at plan time. ``op @ x``
+    Holds the forward plan (``binned``: a BinnedEll, TieredEll,
+    PanelPlan, FusedPlan or RangesPlan) and the transpose plan built once
+    at plan time. ``op @ x``
     computes A @ x in node space.
     """
 
-    binned: Any  # BinnedEll | TieredEll | PanelPlan
+    binned: Any  # BinnedEll | TieredEll | PanelPlan | FusedPlan | RangesPlan
     binned_t: Any
     shape: Tuple[int, int]
     # relabeling (square binned plans): the plans live in an internal row
@@ -134,8 +140,10 @@ def make_operator(
     ``layout``: "binned" (row-binned ELL; square matrices are relabeled so
     the finish is a slice-concat), "tiered" (column-tiered ELL,
     sparse/tiled.py), "panels" (the panel engine, sparse/panels.py: the
-    rank-1 plan, or the per-edge plan when the values do not factor), or
-    "auto" (tiered iff n_cols > tier_size, as in the JAX package).
+    rank-1 plan, or the per-edge plan when the values do not factor),
+    "fused" (sparse/fused.py), "ranges" (sparse/ranges.py), or "auto"
+    (tiered iff n_cols > tier_size, as in the JAX package). Engine layouts
+    alias the transpose plan for symmetric matrices.
     ``device=None`` means the card, and raises when there is none.
     ``reorder`` (the JAX package's locality relabeling) is not ported yet.
     """
@@ -147,15 +155,17 @@ def make_operator(
     if layout in _NOT_PORTED:
         raise NotImplementedError(
             f"layout {layout!r} is not ported yet: {_NOT_PORTED[layout]}")
-    if layout not in ("auto", "binned", "tiered", "panels"):
-        raise ValueError(f"layout must be auto|binned|tiered|panels, got {layout!r}")
+    if layout not in ("auto", "binned", "tiered", *_ENGINES):
+        raise ValueError(f"layout must be auto|binned|tiered|panels|fused|ranges, "
+                         f"got {layout!r}")
     csr = CSR.from_coo(a) if isinstance(a, COO) else a
-    if layout == "panels":
-        plan = _build_panels(csr)
+    if layout in _ENGINES:
+        build = _ENGINES[layout]
+        plan = build(csr)
         if csr.shape[0] == csr.shape[1] and _is_symmetric(csr):
             plan_t = plan
         else:
-            plan_t = _build_panels(csr.transpose())
+            plan_t = build(csr.transpose())
         return place_operator(SpmmOperator(binned=plan, binned_t=plan_t, shape=csr.shape),
                               device)
     max_width = int(FLAGS.get("OFS_MAX_ELL_WIDTH"))
@@ -204,20 +214,27 @@ def _build_panels(csr: CSR) -> PanelPlan:
         return build_panels_plan(csr, per_edge=True)
 
 
+# layouts whose plan is the engine: the builder of each
+_ENGINES = {"panels": _build_panels, "fused": build_fused_plan, "ranges": build_ranges_plan}
+
+
 def place_operator(op: SpmmOperator, device) -> SpmmOperator:
     """Move every array of an operator to ``device`` as a torch tensor,
     preserving sharing: an aliased transpose plan (symmetric matrices)
     and any array referenced twice are copied once.
 
-    Panel plans first get their window provenance (attach_windows, on the
-    host) and expand their compact masks on ``device`` (one scatter-add)."""
+    Engine plans first get their window provenance on the host (panels:
+    sparse/panels.py attach_windows, which panel plans follow by expanding
+    their compact masks on ``device`` with one scatter-add; fused and
+    ranges: sparse/staged_windows.py attach_windows)."""
     device = torch.device(device)
     memo: dict = {}
-    if isinstance(op.binned, PanelPlan):
+    if isinstance(op.binned, (PanelPlan, FusedPlan, RangesPlan)):
         ready = {}
         for p in (op.binned, op.binned_t):
             if id(p) not in ready:
-                ready[id(p)] = ensure_masks(attach_windows(p), device)
+                ready[id(p)] = (ensure_masks(attach_windows(p), device)
+                                if isinstance(p, PanelPlan) else staged_windows.attach_windows(p))
         op = dataclasses.replace(op, binned=ready[id(op.binned)],
                                  binned_t=ready[id(op.binned_t)])
 
@@ -260,11 +277,12 @@ def _spmm_binned_kernels(binned: BinnedEll, x: torch.Tensor) -> torch.Tensor:
 
 
 def _spmm_impl(plan, x: torch.Tensor, impl: str) -> torch.Tensor:
-    if isinstance(plan, PanelPlan):
-        xa = x.to(torch.float32).contiguous()
-        if impl == "cuda":
-            return panel_spmm(plan, xa).to(x.dtype)
-        return panel_spmm_torch(plan, xa).to(x.dtype)
+    for plan_type, kernel, plain in ((PanelPlan, panel_spmm, panel_spmm_torch),
+                                     (FusedPlan, fused_spmm, fused_spmm_torch),
+                                     (RangesPlan, ranges_spmm, ranges_spmm_torch)):
+        if isinstance(plan, plan_type):
+            xa = x.to(torch.float32).contiguous()
+            return (kernel if impl == "cuda" else plain)(plan, xa).to(x.dtype)
     if isinstance(plan, TieredEll):
         if impl == "cuda":
             return ref.spmm_tiered(plan, x, bucket_fn=bucket_spmm, gather_fn=gather_rows)

@@ -3,9 +3,10 @@
 Each ``csrc/*.cu`` file is compiled with ``nvcc -arch=sm_90a`` into its
 own shared library with a plain C interface at first use, and bound with
 ctypes. Libraries go to ``_build/`` beside the package, keyed by the
-source's hash and the flags, so a changed source builds anew and an
-unchanged one loads at once. ``LAUNCHES`` counts kernel launches per
-wrapper, so a run can show that its path went through the kernels.
+source's hash, the shared headers' (``csrc/*.cuh``) and the flags, so a
+changed source or header builds anew and an unchanged one loads at once.
+``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
+its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES: Dict[str, int] = {"bucket_spmm": 0, "gather_rows": 0, "panel_spmm": 0}
+LAUNCHES: Dict[str, int] = {"bucket_spmm": 0, "gather_rows": 0, "panel_spmm": 0,
+                            "fused_spmm": 0, "ranges_spmm": 0}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -58,6 +60,10 @@ def build(source: str) -> Dict[str, object]:
     src_path = os.path.join(CSRC, source)
     with open(src_path, "rb") as f:
         src = f.read()
+    for header in sorted(os.listdir(CSRC)):
+        if header.endswith(".cuh"):
+            with open(os.path.join(CSRC, header), "rb") as f:
+                src += f.read()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}-{key}.so")
     log_path = out[:-3] + ".log"

@@ -1,0 +1,64 @@
+"""The ranges engine's CUDA kernel, its plain version and its launcher.
+
+``ranges_spmm(plan, x)`` computes Y = A @ X for a placed RangesPlan
+(sparse/ranges.py): one launch of the kernel in ``csrc/ranges.cu`` per plan
+segment. It replaces the TPU kernel
+``of_spmm_tpu/ops/pallas/ranges.py::_kernel`` together with its host
+wrapper's column scaling, staging tables and row scaling; design notes are
+in csrc/staged_spmm.cuh, which the fused and the ranges kernels share.
+
+The wrapper dispatches on the device of ``x``: on the CPU it runs
+``ranges_spmm_torch`` (what the CPU tests hold against the JAX package);
+on the card it launches the kernel or raises, and never falls back.
+Each launch adds one to ``LAUNCHES["ranges_spmm"]`` (ops/cuda/build.py).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+from of_spmm_tpu_torch.ops.cuda import build as _build
+from of_spmm_tpu_torch.ops.cuda.staged import bind, check_plan, launch_segments, staged_spmm_torch
+from of_spmm_tpu_torch.sparse.ranges import RangesPlan
+
+SOURCE = "ranges.cu"
+
+
+def build() -> Dict[str, object]:
+    """Compile csrc/ranges.cu into _build/ (ops/cuda/build.py)."""
+    return _build.build(SOURCE)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    bind(lib.ofs_ranges_spmm)
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load(SOURCE, _bind)
+
+
+def ranges_spmm_torch(plan: RangesPlan, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel on the same placed plan
+    (ops/cuda/staged.py staged_spmm_torch)."""
+    check_plan(plan, x, RangesPlan, "ranges_spmm_torch")
+    return staged_spmm_torch(plan, x)
+
+
+def ranges_spmm(plan: RangesPlan, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X (float32, (n, d)) for a placed RangesPlan of A and float32
+    ``x`` (m, d). On the card this launches the kernel once per segment;
+    on the CPU it runs ``ranges_spmm_torch``. A window row that resolves
+    outside x is an error on both: the plain version raises, and the
+    kernel stops with a device-side assertion that the next
+    synchronization raises."""
+    check_plan(plan, x, RangesPlan, "ranges_spmm")
+    dev = x.device
+    if dev.type == "cpu":
+        return staged_spmm_torch(plan, x)
+    if dev.type != "cuda":
+        raise ValueError(f"ranges_spmm runs on cuda or cpu tensors, got {dev}")
+    lib = _lib()
+    return launch_segments(plan, x, lib, lib.ofs_ranges_spmm, "ranges_spmm")

@@ -15,8 +15,13 @@ from of_spmm_tpu_torch.sparse.panels import (
     build_panels_plan,
     ensure_masks,
 )
+from of_spmm_tpu_torch.sparse.fused import FusedPlan, FusedSegment, build_fused_plan
+from of_spmm_tpu_torch.sparse.ranges import RangesPlan, RangesSegment, build_ranges_plan
+from of_spmm_tpu_torch.sparse.staged_windows import StagedWindows
 
 __all__ = ["COO", "CSR", "BinnedEll", "EllBucket", "bin_rows", "bin_rows_relabeled",
            "DEFAULT_LADDER", "TieredEll", "bin_rows_tiered", "DEFAULT_TIER_SIZE",
            "PanelPlan", "PanelSegment", "PanelWindows", "attach_windows",
-           "build_panels_plan", "ensure_masks"]
+           "build_panels_plan", "ensure_masks", "FusedPlan", "FusedSegment",
+           "build_fused_plan", "RangesPlan", "RangesSegment", "build_ranges_plan",
+           "StagedWindows"]

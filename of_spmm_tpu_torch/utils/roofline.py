@@ -213,3 +213,50 @@ class PanelTraffic:
 def _np(a):
     """A plan array as numpy, wherever it lives."""
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedTraffic:
+    """Least HBM traffic of one fused or ranges SpMM (every segment of a
+    FusedPlan or RangesPlan) at width ``d``: each array the kernel must
+    read, once, and the output once. ``from_plan`` counts it from a plan
+    with its window provenance attached (sparse/staged_windows.py);
+    ``x_rows`` is the number of distinct X rows the matrix references."""
+
+    real_slots: int     # group slots with at least one real lane
+    slot_words: int     # words per real slot: lrow, lidx (masks) and values
+    control_words: int  # ctrl (16 per step) + blk (G per step)
+    index_words: int    # provenance + hot_ids + scales
+    x_rows: int
+    n_rows: int
+    nnz: int
+    d: int
+
+    @classmethod
+    def from_plan(cls, plan, d: int, x_rows: int, nnz: int) -> "StagedTraffic":
+        from of_spmm_tpu_torch.sparse.staged_windows import geometry
+
+        G = plan.T // 128
+        sent = geometry(plan)[4]
+        real = control = index = 0
+        for seg in plan.segments:
+            real += int((_np(seg.lrow) < sent).any(axis=1).sum())
+            control += seg.n_steps * (16 + G)
+            win = seg.windows
+            index += sum(int(_np(a).size) for a in (win.step_win, win.range_rows,
+                                                      win.staged_rows))
+        index += plan.n_hot
+        if plan.row_scale is not None:
+            index += plan.shape[0] + plan.shape[1]
+        words = 128 * (1 + (4 if plan.multihot else 1)
+                       + (0 if plan.row_scale is not None else 2))
+        return cls(real, words, control, index, int(x_rows), plan.shape[0], int(nnz), int(d))
+
+    @property
+    def bytes(self) -> int:
+        return (4 * (self.real_slots * self.slot_words + self.control_words + self.index_words)
+                + self.x_rows * self.d * 4 + self.n_rows * self.d * 4)
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.nnz * self.d

@@ -275,9 +275,10 @@ def test_impl_selection_and_refusals():
         spmm(op, x, impl="pallas")
     with pytest.raises(NotImplementedError, match="backward"):
         spmm(op, x.clone().requires_grad_())
-    for layout in ("fused", "ranges", "expansion"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_operator(CSR.from_dense(dense), layout=layout, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_operator(CSR.from_dense(dense), layout="expansion", device="cpu")
+    with pytest.raises(ValueError, match="layout"):
+        make_operator(CSR.from_dense(dense), layout="blocked", device="cpu")
     before = dict(kernels.LAUNCHES)  # "auto" on CPU tensors picks the plain engine
     np.testing.assert_allclose(spmm(op, x, impl="torch").numpy(), spmm(op, x).numpy(),
                                rtol=RTOL, atol=ATOL)
