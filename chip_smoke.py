@@ -9,8 +9,12 @@ on the card, then runs the main path on each of the port's engines: GCN
 inference at the width of OGB's published GCN baseline for arxiv (3
 layers, hidden 256) on synthetic ogbn-arxiv, through
 load_graph -> normalized_adjacency -> make_operator -> GCN.forward, first
-on the default (tiered) layout and then on layout="panels", "fused" and
-"ranges". Each engine also times one SpMM on products-small.
+on the default (tiered) layout and then on layout="panels", "fused",
+"ranges" and "expansion". Each engine also times one SpMM on
+products-small. The expansion engine v2, which has no operator layout,
+runs through its own entry points (build_expansion2_plan ->
+spmm_expansion2) on arxiv and products-small, as tools/bench_expansion2.py
+drives the JAX package's.
 
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary and the card's name and power limit as
@@ -36,13 +40,19 @@ import torch
 from of_spmm_tpu_torch import native
 from of_spmm_tpu_torch.data import load_graph, random_features
 from of_spmm_tpu_torch.models import GCN, normalized_adjacency
-from of_spmm_tpu_torch.ops import make_operator, place_operator, spmm_internal
+from of_spmm_tpu_torch.ops import (
+    make_operator, place_operator, place_plan, spmm_expansion2, spmm_internal)
 from of_spmm_tpu_torch.ops.autograd import SpmmOperator
+from of_spmm_tpu_torch.ops.cuda import expansion as ekernels
+from of_spmm_tpu_torch.ops.cuda import expansion2 as e2kernels
 from of_spmm_tpu_torch.ops.cuda import fused as fkernels
 from of_spmm_tpu_torch.ops.cuda import panels as pkernels
 from of_spmm_tpu_torch.ops.cuda import ranges as rkernels
 from of_spmm_tpu_torch.ops.cuda import spmm as kernels
 from of_spmm_tpu_torch.sparse import staged_windows
+from of_spmm_tpu_torch.sparse.expansion import (
+    ExpansionPlan, attach_stage_rows, build_expansion_plan, plan_memory_report)
+from of_spmm_tpu_torch.sparse.expansion2 import build_expansion2_plan
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
 from of_spmm_tpu_torch.sparse.fused import FusedPlan, build_fused_plan
 from of_spmm_tpu_torch.sparse.panels import (
@@ -50,8 +60,8 @@ from of_spmm_tpu_torch.sparse.panels import (
 from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
 from of_spmm_tpu_torch.utils.roofline import (
-    PanelTraffic, SpmmTraffic, StagedTraffic, detect_peak_bw, detect_peak_fp32, spmm_report,
-    time_cuda, wall_ms)
+    ExpansionTraffic, PanelTraffic, SpmmTraffic, StagedTraffic, detect_peak_bw, detect_peak_fp32,
+    spmm_report, time_cuda, wall_ms)
 
 SOURCES = {
     "bucket_spmm": "of_spmm_tpu_torch/csrc/spmm.cu",
@@ -59,6 +69,8 @@ SOURCES = {
     "panel_spmm": "of_spmm_tpu_torch/csrc/panels.cu",
     "fused_spmm": "of_spmm_tpu_torch/csrc/fused.cu",
     "ranges_spmm": "of_spmm_tpu_torch/csrc/ranges.cu",
+    "expansion_spmm": "of_spmm_tpu_torch/csrc/expansion.cu",
+    "expansion2_spmm": "of_spmm_tpu_torch/csrc/expansion2.cu",
 }
 REPLACES = {
     "bucket_spmm": "of_spmm_tpu/ops/pallas/spmm.py:46",
@@ -66,9 +78,15 @@ REPLACES = {
     "panel_spmm": "of_spmm_tpu/ops/pallas/panels.py:49",
     "fused_spmm": "of_spmm_tpu/ops/pallas/fused.py:49",
     "ranges_spmm": "of_spmm_tpu/ops/pallas/ranges.py:46",
+    "expansion_spmm": "of_spmm_tpu/ops/pallas/expansion.py:72",
+    "expansion2_spmm": "of_spmm_tpu/ops/pallas/expansion2.py:46",
 }
 # the engines whose plan is a FusedPlan / RangesPlan: kernel module, plan type
 STAGED = {"fused": (fkernels, FusedPlan), "ranges": (rkernels, RangesPlan)}
+# the one-hot expansion kernels: wrapper, plain version
+EXPANSION = {"expansion_spmm": (ekernels.expansion_spmm, ekernels.expansion_spmm_torch),
+             "expansion2_spmm": (e2kernels.expansion2_spmm, e2kernels.expansion2_spmm_torch)}
+EXPANSION_WIDTHS = (40, 128, 256, 7)  # d % 128 != 0; float4 and scalar paths
 BUCKET_WIDTHS = (3, 5, 9, 17, 33, 64, 153, 256)
 FEATURE_WIDTHS = (128, 256, 60)
 STAGED_WIDTHS = (128, 256, 60, 7)  # the fused and ranges kernels: float4 and scalar paths
@@ -119,6 +137,25 @@ assert op.binned.n_scattered > 0
 for seg in op.binned.segments:
     seg.windows.staged_rows.fill_(1 << 30)
 spmm_internal(op, torch.zeros((8192, 8), device="cuda"))
+torch.cuda.synchronize()
+print("no error")
+"""
+
+
+# An expansion plan whose staged rows name X rows past the end of x: the
+# kernel (shared by both expansion engines) must stop with a device-side
+# assertion (child process, as above). {v} is "" or "2".
+BAD_EXPANSION_PROBE = """
+import numpy as np, torch
+from of_spmm_tpu_torch.ops import place_plan, spmm_expansion{v}
+from of_spmm_tpu_torch.sparse.expansion{v} import build_expansion{v}_plan
+from of_spmm_tpu_torch.sparse.formats import CSR
+rng = np.random.default_rng(0)
+dense = ((rng.random((256, 1024)) < 0.05) * rng.standard_normal((256, 1024))).astype(np.float32)
+plan = place_plan(build_expansion{v}_plan(CSR.from_dense(dense)), "cuda")
+for g in plan.groups:
+    g.stage_row.fill_(1 << 30)
+spmm_expansion{v}(plan, torch.zeros((1024, 8), device="cuda"))
 torch.cuda.synchronize()
 print("no error")
 """
@@ -621,6 +658,286 @@ def staged_scale(engine: str, pa: CSR, px: torch.Tensor, p_sparse: torch.Tensor,
                 rel_err_vs_torch_sparse_mm=lib_err, **fig)
 
 
+def random_csr(n: int, m: int, nnz: int, rng, rank1: bool, empty=None) -> CSR:
+    """A seeded random matrix: standard-normal values with duplicate
+    entries (summed), or symmetric-normalized (rank-1) values; rows in the
+    slice ``empty`` hold nothing."""
+    rows = rng.integers(0, n, nnz)
+    cols = rng.integers(0, m, nnz)
+    if empty is not None:
+        keep = (rows < empty.start) | (rows >= empty.stop)
+        rows, cols = rows[keep], cols[keep]
+    if rank1:
+        key = np.unique(rows * m + cols)
+        rows, cols = key // m, key % m
+        dr = np.bincount(rows, minlength=n).astype(np.float64)
+        dc = np.bincount(cols, minlength=m).astype(np.float64)
+        vals = (dr[rows] ** -0.5 * dc[cols] ** -0.5).astype(np.float32)
+    else:
+        dup = rows.shape[0] // 10
+        rows, cols = np.concatenate([rows, rows[:dup]]), np.concatenate([cols, cols[:dup]])
+        vals = rng.standard_normal(rows.shape[0]).astype(np.float32)
+    return CSR.from_coo(COO.from_arrays(rows.astype(np.int32), cols.astype(np.int32), vals,
+                                        (n, m)))
+
+
+def expansion_shape(plan) -> dict:
+    """The shape of an expansion plan (either engine), for the phase lines."""
+    lanes = plan.n_steps * (plan.TILE if isinstance(plan, ExpansionPlan) else plan.G * 128)
+    out = {"R": plan.R, "groups": len(plan.groups), "steps": plan.n_steps, "lanes": lanes,
+           "staged_rows": plan.n_staged,
+           "tiers": max(len(g.stage_tier_ptr) - 1 for g in plan.groups)}
+    if isinstance(plan, ExpansionPlan):
+        out.update(TILE=plan.TILE, CW=plan.CW)
+    else:
+        out.update(G=plan.G, rank1=plan.rank1)
+    return out
+
+
+def expansion_cases(rng):
+    """Placed plans of both expansion engines that cover, between them,
+    what the arxiv plans do not: several groups (small stage_budget),
+    several tiers (small stage_tier), general values with duplicates
+    (v1 always; v2 general mode), empty tiles, non-square matrices.
+    Yields (kernel name, case, plan); raises if a plan lacks what it is
+    here for."""
+    dev = torch.device("cuda", 0)
+    general = random_csr(3000, 4000, 60_000, rng, rank1=False)
+    empty = random_csr(2000, 6000, 40_000, rng, rank1=True, empty=slice(512, 1024))
+    hubs = rank1_graph(6000, 6000, rng, per_row=3, band=24, hubs=40)
+
+    def tiers(plan):
+        return max(len(g.stage_tier_ptr) - 1 for g in plan.groups)
+
+    plan = build_expansion_plan(general, R=128, TILE=256, CW=256, stage_tier=512,
+                                stage_budget=2048)
+    if not (len(plan.groups) > 1 and tiers(plan) > 1):
+        raise AssertionError("v1 groups case has one group or one tier")
+    yield "expansion_spmm", "general values+duplicates+groups+tiers", place_plan(plan, dev)
+    plan = build_expansion_plan(empty)
+    if 1 in plan.groups[0].tile_of.tolist() or plan.shape[0] == plan.shape[1]:
+        raise AssertionError("v1 empty-tile case has a step on tile 1 or is square")
+    yield "expansion_spmm", "empty tile+non-square", place_plan(plan, dev)
+    yield "expansion_spmm", "hubs+band, defaults", place_plan(build_expansion_plan(hubs), dev)
+    plan = build_expansion2_plan(general, R=128, G=4, stage_tier=512, stage_budget=2048)
+    if plan.rank1 or not (len(plan.groups) > 1 and tiers(plan) > 1):
+        raise AssertionError("v2 general case is rank-1, one group or one tier")
+    yield "expansion2_spmm", "general values+duplicates+groups+tiers", place_plan(plan, dev)
+    plan = build_expansion2_plan(empty, stage_tier=2048)
+    if not plan.rank1 or tiers(plan) < 2:
+        raise AssertionError("v2 empty-tile case is not rank-1 or has one tier")
+    yield "expansion2_spmm", "rank-1+empty tile+non-square+tiers", place_plan(plan, dev)
+    plan = build_expansion2_plan(hubs, rank1=False, stage_budget=4096)
+    if plan.rank1 or len(plan.groups) < 2:
+        raise AssertionError("v2 forced-general case is rank-1 or has one group")
+    yield "expansion2_spmm", "rank1=False on rank-1 values+groups", place_plan(plan, dev)
+
+
+def lane_load(plan) -> dict:
+    """How the expansion kernels' work falls on their blocks: real lanes
+    (lanes that add a row) per 128-lane group slot (one block each) and
+    per step, counted on the host from the placed plan."""
+    per_slot = []
+    for g in plan.groups:
+        real = g.lrow < plan.R
+        if g.val_hi is not None:
+            real &= (ekernels.bf16_tensor_value(g.val_hi)
+                     + ekernels.bf16_tensor_value(g.val_lo)) != 0
+        per_slot.append(real.sum(1).cpu().numpy())
+    per_slot = np.concatenate(per_slot).astype(np.int64)
+    per_step = per_slot.reshape(plan.n_steps, -1).sum(1)
+    return {"lanes_per_step": per_slot.shape[0] // max(plan.n_steps, 1) * 128,
+            "real_lanes": int(per_slot.sum()), "real_slots": int((per_slot > 0).sum()),
+            "slots": int(per_slot.shape[0]),
+            "step_real_lanes_mean": float(per_step.mean()),
+            "step_real_lanes_min": int(per_step.min()),
+            "step_real_lanes_max": int(per_step.max())}
+
+
+def expansion_figures(name: str, plan, sp: torch.Tensor, d: int, gen, peak_bw: float,
+                      peak_fp32: float) -> dict:
+    """An expansion kernel over one SpMM (all its launches) at width d: its
+    time, its plain version's, torch.sparse.mm on the CSR of the same
+    matrix (``sp``), and the bound of that work (utils/roofline.py
+    ExpansionTraffic). ``launches`` is counted over one such SpMM."""
+    kernel, plain = EXPANSION[name]
+    dev = torch.device("cuda", 0)
+    x = torch.randn((plan.shape[1], d), generator=gen).to(dev)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        y = kernel(plan, x)
+        launches = kernels.LAUNCHES[name]
+        lib_err = rel_err(torch.sparse.mm(sp, x), y)
+        ms = time_cuda(lambda: kernel(plan, x), iters=20)
+        plain_ms = time_cuda(lambda: plain(plan, x), iters=3)
+        lib_ms = time_cuda(lambda: torch.sparse.mm(sp, x), iters=20)
+    traffic = ExpansionTraffic.from_plan(plan, d)
+    bound, by = _bound(traffic.bytes, traffic.flops, peak_bw, peak_fp32)
+    return {"d": d, "scope": "all launches of one SpMM", "launches": launches,
+            "ms": ms, "plain_ms": plain_ms, "library": "torch.sparse.mm", "library_ms": lib_ms,
+            "library_rel_err": lib_err, "bytes": traffic.bytes, "plan_bytes": traffic.plan_bytes,
+            "zeroing_bytes": traffic.zero_bytes, "x_rows": traffic.x_rows,
+            "flops": traffic.flops, "bound_ms": bound, "bound_by": by}
+
+
+def expansion_main_path(a_hat: CSR, cfg, x: torch.Tensor, model: GCN,
+                        tiered_logits: torch.Tensor, gen, peak_bw: float, peak_fp32: float):
+    """GCN inference on arxiv through layout="expansion": the plan, the
+    staged-row provenance and the placement timed apart, then the user's
+    entry point drives it; logits against impl="torch" and the tiered
+    CUDA logits; the kernel at the main path's widths against its plain
+    version. Returns (launches of one forward, max abs err, the phase's
+    fields, the kernel's figures at d = 128)."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    plan = build_expansion_plan(a_hat)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    attach_stage_rows(plan)
+    t_attach = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    place_plan(plan, dev)
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    del plan
+    t0 = time.perf_counter()
+    op = make_operator(a_hat, layout="expansion")
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    sp = op.binned
+    if not isinstance(sp, ExpansionPlan) or not op.transpose_aliased:
+        raise AssertionError("ogbn-arxiv should plan as an aliased expansion operator")
+    n_launch = sum(1 for g in sp.groups if g.n_steps)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        logits = model(op, x)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        expected = {k: 0 for k in launches}
+        expected["expansion_spmm"] = 3 * n_launch
+        if launches != expected:
+            raise AssertionError(f"expansion main path launches {launches}, expected {expected}")
+        want = model(op, x, impl="torch")
+        torch.cuda.synchronize()
+    if logits.shape != (cfg.n_nodes, GCN_DIMS[-1]) or not torch.isfinite(logits).all():
+        raise AssertionError(f"expansion logits {tuple(logits.shape)} not finite or wrong shape")
+    vs_plain, vs_tiered = rel_err(logits, want), rel_err(logits, tiered_logits)
+    if vs_plain > MAIN_PATH_REL_TOL or vs_tiered > MAIN_PATH_REL_TOL:
+        raise AssertionError(f"expansion GCN logits: rel err {vs_plain} vs impl=torch, "
+                             f"{vs_tiered} vs the tiered CUDA path")
+    err = 0.0
+    with torch.inference_mode():
+        for d in sorted(set(GCN_DIMS[:-1])):
+            xd = torch.randn((cfg.n_nodes, d), generator=gen).to(dev)
+            err = max(err, check_close(ekernels.expansion_spmm(sp, xd),
+                                       ekernels.expansion_spmm_torch(sp, xd),
+                                       f"arxiv expansion_spmm d={d}"))
+        torch.cuda.synchronize()
+        fwd_ms = time_cuda(lambda: model(op, x), iters=20)
+        fwd_wall_ms = wall_ms(lambda: model(op, x), iters=20)
+        spmm_rows = []
+        for layer, d in enumerate(GCN_DIMS[:-1]):
+            h = torch.randn((cfg.n_nodes, d), generator=gen).to(dev)
+            ms = time_cuda(lambda: spmm_internal(op, h), iters=20)
+            rep = spmm_report(ms, SpmmTraffic(a_hat.nnz, cfg.n_nodes, cfg.n_nodes, d), peak_bw)
+            spmm_rows.append({"layer": layer, "d": d, **{k: round(v, 4) for k, v in rep.items()}})
+    fig = expansion_figures("expansion_spmm", sp, torch_csr(a_hat, dev), 128, gen, peak_bw,
+                            peak_fp32)
+    mem = plan_memory_report(sp, d=256)
+    fields = dict(graph="ogbn-arxiv (synthetic, symmetrized, self-loops)", n_nodes=cfg.n_nodes,
+                  nnz=a_hat.nnz, dims=GCN_DIMS, layout="expansion", **expansion_shape(sp),
+                  padding_efficiency=sp.padding_efficiency(a_hat.nnz),
+                  lane_load=lane_load(sp), plan_bytes=mem["plan_bytes"],
+                  stage_row_bytes=mem["stage_row_bytes"],
+                  plan_seconds=round(t_plan, 4), stage_rows_seconds=round(t_attach, 4),
+                  placement_seconds=round(t_place, 4), make_operator_seconds=round(t_op, 4),
+                  launches_per_forward=launches, logits_rel_err_vs_torch=vs_plain,
+                  logits_rel_err_vs_tiered=vs_tiered, forward_ms=round(fwd_ms, 4),
+                  forward_wall_ms=round(fwd_wall_ms, 4), spmm=spmm_rows)
+    return launches, err, fields, fig
+
+
+def expansion_scale(pa: CSR, px: torch.Tensor, p_sparse: torch.Tensor, gen, peak_bw: float,
+                    peak_fp32: float) -> dict:
+    """One SpMM at d = 128 on products-small through layout="expansion",
+    against impl="torch" and torch.sparse.mm, with the kernel's figures."""
+    t0 = time.perf_counter()
+    op = make_operator(pa, layout="expansion")
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    plan = op.binned
+    with torch.inference_mode():
+        y = spmm_internal(op, px)
+        y_plain = spmm_internal(op, px, impl="torch")
+        y_lib = torch.sparse.mm(p_sparse, px)
+        torch.cuda.synchronize()
+    err, lib_err = rel_err(y, y_plain), rel_err(y, y_lib)
+    if err > MAIN_PATH_REL_TOL or lib_err > MAIN_PATH_REL_TOL or not torch.isfinite(y).all():
+        raise AssertionError(f"products-small expansion SpMM: rel err {err} vs impl=torch, "
+                             f"{lib_err} vs torch.sparse.mm")
+    fig = expansion_figures("expansion_spmm", plan, p_sparse, 128, gen, peak_bw, peak_fp32)
+    return dict(graph="products-small (synthetic, symmetrized, self-loops)",
+                n_nodes=pa.shape[0], nnz=pa.nnz, layout="expansion", **expansion_shape(plan),
+                padding_efficiency=plan.padding_efficiency(pa.nnz), lane_load=lane_load(plan),
+                make_operator_seconds=round(t_op, 2), rel_err_vs_torch=err,
+                rel_err_vs_torch_sparse_mm=lib_err, **fig)
+
+
+def expansion2_run(graph: str, a: CSR, tiered_op, widths, gen, peak_bw: float,
+                   peak_fp32: float):
+    """spmm_expansion2 on one graph, as tools/bench_expansion2.py drives
+    the JAX package's: the plan and its placement timed, then per width
+    one SpMM through the entry point against the kernel's plain version
+    and the tiered SpMM, and its time. Returns (the launches of the
+    SpMMs, max abs err, the phase's fields, the kernel's figures at the
+    first width)."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    plan = build_expansion2_plan(a)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    placed = place_plan(plan, dev)
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    del plan
+    if not placed.rank1:
+        raise AssertionError(f"{graph}: the normalized adjacency should plan rank-1")
+    n_launch = sum(1 for g in placed.groups if g.n_steps)
+    xs = [torch.randn((a.shape[1], d), generator=gen).to(dev) for d in widths]
+    rows, err = [], 0.0
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        ys = [spmm_expansion2(placed, xd) for xd in xs]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        expected = {k: 0 for k in launches}
+        expected["expansion2_spmm"] = n_launch * len(widths)
+        if launches != expected:
+            raise AssertionError(f"{graph} spmm_expansion2 launches {launches}, "
+                                 f"expected {expected}")
+        for d, xd, y in zip(widths, xs, ys):
+            err = max(err, check_close(y, e2kernels.expansion2_spmm_torch(placed, xd),
+                                       f"{graph} expansion2_spmm d={d}"))
+            vs_tiered = rel_err(y, spmm_internal(tiered_op, xd))
+            if vs_tiered > MAIN_PATH_REL_TOL or not torch.isfinite(y).all():
+                raise AssertionError(f"{graph} spmm_expansion2 d={d}: rel err {vs_tiered} "
+                                     f"vs the tiered SpMM")
+            ms = time_cuda(lambda: spmm_expansion2(placed, xd), iters=20)
+            tiered_ms = time_cuda(lambda: spmm_internal(tiered_op, xd), iters=20)
+            rep = spmm_report(ms, SpmmTraffic(a.nnz, a.shape[0], a.shape[1], d), peak_bw)
+            rows.append({"d": d, "rel_err_vs_tiered": vs_tiered, "tiered_ms": tiered_ms,
+                         **{k: round(v, 4) for k, v in rep.items()}})
+    fig = expansion_figures("expansion2_spmm", placed, torch_csr(a, dev), widths[0], gen,
+                            peak_bw, peak_fp32)
+    mem = plan_memory_report(placed, d=widths[0])
+    fields = dict(graph=graph, n_nodes=a.shape[0], nnz=a.nnz, **expansion_shape(placed),
+                  padding_efficiency=placed.padding_efficiency(a.nnz),
+                  lane_load=lane_load(placed), plan_bytes=mem["plan_bytes"],
+                  stage_row_bytes=mem["stage_row_bytes"], plan_seconds=round(t_plan, 4),
+                  placement_seconds=round(t_place, 4), launches=launches, spmm=rows)
+    return launches, err, fields, fig
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -645,7 +962,7 @@ def main() -> int:
     t0 = time.perf_counter()
     planner = threading.Thread(target=native.available)
     planner.start()
-    kmods = (kernels, pkernels, fkernels, rkernels)
+    kmods = (kernels, pkernels, fkernels, rkernels, ekernels, e2kernels)
     with ThreadPoolExecutor(len(kmods)) as pool:
         futures = {k.SOURCE: pool.submit(k.build) for k in kmods}
         built = {src: f.result() for src, f in futures.items()}
@@ -1002,18 +1319,68 @@ def main() -> int:
         scale = staged_scale(engine, pa, px, p_sparse, gen, peak_bw, peak_fp32)
         emit(f"{engine}_scale", **scale, tiered_spmm_ms=p_ms, panels_spmm_ms=ps_fig["ms"])
 
-    # -- 15. the kernels, 16. the card, 17. the result ------------------------
-    # launches: one GCN forward (three SpMMs) on the kernel's engine; the
-    # times and the bound: all launches of one SpMM at d=128,
-    # launches_per_spmm of them
+    # -- 15.-19. the expansion engines: both kernels against their plain
+    #            versions on small plans of every shape, GCN inference on
+    #            arxiv through layout="expansion", one products-small SpMM,
+    #            and spmm_expansion2 on arxiv and products-small -------------
+    cases = []
+    with torch.inference_mode():
+        for kname, case, ecase in expansion_cases(rng):
+            kernel, plain = EXPANSION[kname]
+            for d in EXPANSION_WIDTHS:
+                xd = torch.randn((ecase.shape[1], d), generator=gen).to(dev)
+                got, want = kernel(ecase, xd), plain(ecase, xd)
+                torch.cuda.synchronize()
+                max_err[kname] = max(max_err[kname],
+                                     check_close(got, want, f"{kname} {case} d={d}"))
+            cases.append({"kernel": kname, "case": case, "shape": list(ecase.shape),
+                          **expansion_shape(ecase)})
+            del ecase
+    for v in ("", "2"):
+        expect_device_assert(BAD_EXPANSION_PROBE.format(v=v),
+                             f"expansion{v}_spmm with a staged row outside x")
+    emit("expansion_kernel", d=EXPANSION_WIDTHS, cases=cases,
+         max_abs_err={k: max_err[k] for k in EXPANSION}, tolerance="|k-p| <= 1e-5 + 1e-4|p|",
+         bad_staged_row="expansion_spmm and expansion2_spmm stopped with a device-side assertion")
+    exp_launches, err, fields, exp_fig = expansion_main_path(a_hat, cfg, x, model, logits, gen,
+                                                             peak_bw, peak_fp32)
+    max_err["expansion_spmm"] = max(max_err["expansion_spmm"], err)
+    emit("expansion_main_path", **fields, tiered_forward_ms=round(fwd_ms, 4),
+         panels_forward_ms=round(pfwd_ms, 4))
+    emit("expansion_kernel_times", graph="ogbn-arxiv", **exp_fig)
+    emit("expansion_scale", **expansion_scale(pa, px, p_sparse, gen, peak_bw, peak_fp32),
+         tiered_spmm_ms=p_ms)
+    e2_launches, err, fields, e2_fig = expansion2_run(
+        "ogbn-arxiv (synthetic, symmetrized, self-loops)", a_hat, op, (128, 256), gen, peak_bw,
+        peak_fp32)
+    max_err["expansion2_spmm"] = max(max_err["expansion2_spmm"], err)
+    emit("expansion2", **fields, expansion_spmm_ms=exp_fig["ms"])
+    emit("expansion2_kernel_times", graph="ogbn-arxiv", **e2_fig)
+    _, err, fields, e2p_fig = expansion2_run(
+        "products-small (synthetic, symmetrized, self-loops)", pa, pop, (128,), gen, peak_bw,
+        peak_fp32)
+    max_err["expansion2_spmm"] = max(max_err["expansion2_spmm"], err)
+    emit("expansion2_scale", **fields)
+    emit("expansion2_kernel_times", graph="products-small", **e2p_fig)
+
+    # -- 20. the kernels, 21. the card, 22. the result ------------------------
+    # launches: one GCN forward (three SpMMs) on the kernel's engine, or
+    # (expansion2) the two arxiv SpMMs of its entry point; the times and
+    # the bound: all launches of one SpMM at d=128, launches_per_spmm of
+    # them
     figs = {"bucket_spmm": {**a_fig["bucket_spmm"], "d": a_fig["d"]},
             "gather_rows": {**a_fig["gather_rows"], "d": a_fig["d"]},
-            "panel_spmm": pan_fig, **staged_figs}
+            "panel_spmm": pan_fig, **staged_figs, "expansion_spmm": exp_fig,
+            "expansion2_spmm": e2_fig}
     scopes = {"bucket_spmm": ("one GCN forward on ogbn-arxiv (tiered)", launches),
               "gather_rows": ("one GCN forward on ogbn-arxiv (tiered)", launches),
               "panel_spmm": ("one GCN forward on ogbn-arxiv (layout='panels')", pan_launches),
               **{f"{e}_spmm": (f"one GCN forward on ogbn-arxiv (layout='{e}')",
-                               staged_launches[f"{e}_spmm"]) for e in STAGED}}
+                               staged_launches[f"{e}_spmm"]) for e in STAGED},
+              "expansion_spmm": ("one GCN forward on ogbn-arxiv (layout='expansion')",
+                                 exp_launches),
+              "expansion2_spmm": ("spmm_expansion2 on ogbn-arxiv at d=128 and d=256",
+                                  e2_launches)}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": scopes[k][1][k], "launches_scope": scopes[k][0],

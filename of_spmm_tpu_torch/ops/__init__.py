@@ -8,6 +8,8 @@ from of_spmm_tpu_torch.ops.autograd import (
     spmm,
     spmm_internal,
 )
+from of_spmm_tpu_torch.ops.cuda.expansion import expansion_spmm, place_plan, spmm_expansion
+from of_spmm_tpu_torch.ops.cuda.expansion2 import expansion2_spmm, spmm_expansion2
 from of_spmm_tpu_torch.ops.cuda.fused import fused_spmm
 from of_spmm_tpu_torch.ops.cuda.panels import panel_spmm
 from of_spmm_tpu_torch.ops.cuda.ranges import ranges_spmm
@@ -25,4 +27,9 @@ __all__ = [
     "panel_spmm",
     "fused_spmm",
     "ranges_spmm",
+    "expansion_spmm",
+    "expansion2_spmm",
+    "spmm_expansion",
+    "spmm_expansion2",
+    "place_plan",
 ]

@@ -4,11 +4,11 @@
 symmetric) on the host and places it on a device; ``spmm`` runs Y = A @ X
 through it. ``impl`` picks the engine: ``"cuda"`` the hand-written kernels
 (ops/cuda/spmm.py for the binned and tiered layouts, ops/cuda/panels.py,
-ops/cuda/fused.py and ops/cuda/ranges.py for the panel, fused and ranges
-engines), ``"torch"`` the plain versions (ops/reference.py,
-``panel_spmm_torch``, ``fused_spmm_torch``, ``ranges_spmm_torch``),
-``"auto"`` the kernels for tensors on the card and the plain versions for
-tensors on the CPU.
+ops/cuda/fused.py, ops/cuda/ranges.py and ops/cuda/expansion.py for the
+panel, fused, ranges and expansion engines), ``"torch"`` the plain
+versions (ops/reference.py, ``panel_spmm_torch``, ``fused_spmm_torch``,
+``ranges_spmm_torch``, ``expansion_spmm_torch``), ``"auto"`` the kernels
+for tensors on the card and the plain versions for tensors on the CPU.
 
 This slice is forward only. The differentiable gather <-> segment_sum
 pair and the transpose-plan backward come with the next slice; until
@@ -25,11 +25,13 @@ import numpy as np
 import torch
 
 from of_spmm_tpu_torch.ops import reference as ref
+from of_spmm_tpu_torch.ops.cuda.expansion import expansion_spmm, expansion_spmm_torch, place_plan
 from of_spmm_tpu_torch.ops.cuda.fused import fused_spmm, fused_spmm_torch
 from of_spmm_tpu_torch.ops.cuda.panels import panel_spmm, panel_spmm_torch
 from of_spmm_tpu_torch.ops.cuda.ranges import ranges_spmm, ranges_spmm_torch
 from of_spmm_tpu_torch.ops.cuda.spmm import bucket_spmm, gather_rows
 from of_spmm_tpu_torch.sparse.binned import BinnedEll, bin_rows, bin_rows_relabeled
+from of_spmm_tpu_torch.sparse.expansion import ExpansionPlan, build_expansion_plan
 from of_spmm_tpu_torch.sparse import staged_windows
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
 from of_spmm_tpu_torch.sparse.fused import FusedPlan, build_fused_plan
@@ -37,13 +39,7 @@ from of_spmm_tpu_torch.sparse.panels import PanelPlan, attach_windows, build_pan
 from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
 from of_spmm_tpu_torch.sparse.tiled import DEFAULT_TIER_SIZE, TieredEll, bin_rows_tiered
 from of_spmm_tpu_torch.utils.config import FLAGS
-from of_spmm_tpu_torch.utils.device import resolve_device
-
-# layouts of the JAX package that wait for a later slice, and where the
-# roadmap lists them
-_NOT_PORTED = {
-    "expansion": "ROADMAP.md Queue 1 item 10 (remaining engine families)",
-}
+from of_spmm_tpu_torch.utils.device import place_arrays, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,12 +47,11 @@ class SpmmOperator:
     """A sparse matrix prepared for repeated SpMM.
 
     Holds the forward plan (``binned``: a BinnedEll, TieredEll,
-    PanelPlan, FusedPlan or RangesPlan) and the transpose plan built once
-    at plan time. ``op @ x``
-    computes A @ x in node space.
+    PanelPlan, FusedPlan, RangesPlan or ExpansionPlan) and the transpose
+    plan built once at plan time. ``op @ x`` computes A @ x in node space.
     """
 
-    binned: Any  # BinnedEll | TieredEll | PanelPlan | FusedPlan | RangesPlan
+    binned: Any  # BinnedEll | TieredEll | PanelPlan | FusedPlan | RangesPlan | ExpansionPlan
     binned_t: Any
     shape: Tuple[int, int]
     # relabeling (square binned plans): the plans live in an internal row
@@ -141,7 +136,8 @@ def make_operator(
     the finish is a slice-concat), "tiered" (column-tiered ELL,
     sparse/tiled.py), "panels" (the panel engine, sparse/panels.py: the
     rank-1 plan, or the per-edge plan when the values do not factor),
-    "fused" (sparse/fused.py), "ranges" (sparse/ranges.py), or "auto"
+    "fused" (sparse/fused.py), "ranges" (sparse/ranges.py), "expansion"
+    (sparse/expansion.py), or "auto"
     (tiered iff n_cols > tier_size, as in the JAX package). Engine layouts
     alias the transpose plan for symmetric matrices.
     ``device=None`` means the card, and raises when there is none.
@@ -152,11 +148,8 @@ def make_operator(
         raise NotImplementedError(
             "make_operator(reorder=...) is not ported yet: ROADMAP.md Queue 1 item 7 "
             "(locality reorder)")
-    if layout in _NOT_PORTED:
-        raise NotImplementedError(
-            f"layout {layout!r} is not ported yet: {_NOT_PORTED[layout]}")
     if layout not in ("auto", "binned", "tiered", *_ENGINES):
-        raise ValueError(f"layout must be auto|binned|tiered|panels|fused|ranges, "
+        raise ValueError(f"layout must be auto|binned|tiered|{'|'.join(_ENGINES)}, "
                          f"got {layout!r}")
     csr = CSR.from_coo(a) if isinstance(a, COO) else a
     if layout in _ENGINES:
@@ -215,7 +208,8 @@ def _build_panels(csr: CSR) -> PanelPlan:
 
 
 # layouts whose plan is the engine: the builder of each
-_ENGINES = {"panels": _build_panels, "fused": build_fused_plan, "ranges": build_ranges_plan}
+_ENGINES = {"panels": _build_panels, "fused": build_fused_plan, "ranges": build_ranges_plan,
+            "expansion": build_expansion_plan}
 
 
 def place_operator(op: SpmmOperator, device) -> SpmmOperator:
@@ -223,38 +217,26 @@ def place_operator(op: SpmmOperator, device) -> SpmmOperator:
     preserving sharing: an aliased transpose plan (symmetric matrices)
     and any array referenced twice are copied once.
 
-    Engine plans first get their window provenance on the host (panels:
+    Engine plans first get their provenance on the host (panels:
     sparse/panels.py attach_windows, which panel plans follow by expanding
     their compact masks on ``device`` with one scatter-add; fused and
-    ranges: sparse/staged_windows.py attach_windows)."""
+    ranges: sparse/staged_windows.py attach_windows; expansion:
+    ops/cuda/expansion.py place_plan, each group's ``stage_row``)."""
     device = torch.device(device)
-    memo: dict = {}
-    if isinstance(op.binned, (PanelPlan, FusedPlan, RangesPlan)):
+    if isinstance(op.binned, (PanelPlan, FusedPlan, RangesPlan, ExpansionPlan)):
         ready = {}
         for p in (op.binned, op.binned_t):
-            if id(p) not in ready:
-                ready[id(p)] = (ensure_masks(attach_windows(p), device)
-                                if isinstance(p, PanelPlan) else staged_windows.attach_windows(p))
+            if id(p) in ready:
+                continue
+            if isinstance(p, PanelPlan):
+                ready[id(p)] = ensure_masks(attach_windows(p), device)
+            elif isinstance(p, ExpansionPlan):
+                ready[id(p)] = place_plan(p, device)
+            else:
+                ready[id(p)] = staged_windows.attach_windows(p)
         op = dataclasses.replace(op, binned=ready[id(op.binned)],
                                  binned_t=ready[id(op.binned_t)])
-
-    def place(obj):
-        key = id(obj)
-        if key in memo:
-            return memo[key]
-        if isinstance(obj, (np.ndarray, torch.Tensor)):
-            res = torch.as_tensor(obj, device=device)
-        elif dataclasses.is_dataclass(obj):
-            res = dataclasses.replace(
-                obj, **{f.name: place(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
-        elif isinstance(obj, tuple):
-            res = tuple(place(o) for o in obj)
-        else:
-            res = obj
-        memo[key] = res
-        return res
-
-    return place(op)
+    return place_arrays(op, device)
 
 
 def _select_impl(impl: str, x: torch.Tensor) -> str:
@@ -279,7 +261,8 @@ def _spmm_binned_kernels(binned: BinnedEll, x: torch.Tensor) -> torch.Tensor:
 def _spmm_impl(plan, x: torch.Tensor, impl: str) -> torch.Tensor:
     for plan_type, kernel, plain in ((PanelPlan, panel_spmm, panel_spmm_torch),
                                      (FusedPlan, fused_spmm, fused_spmm_torch),
-                                     (RangesPlan, ranges_spmm, ranges_spmm_torch)):
+                                     (RangesPlan, ranges_spmm, ranges_spmm_torch),
+                                     (ExpansionPlan, expansion_spmm, expansion_spmm_torch)):
         if isinstance(plan, plan_type):
             xa = x.to(torch.float32).contiguous()
             return (kernel if impl == "cuda" else plain)(plan, xa).to(x.dtype)

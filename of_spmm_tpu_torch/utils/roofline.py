@@ -260,3 +260,59 @@ class StagedTraffic:
     @property
     def flops(self) -> int:
         return 2 * self.nnz * self.d
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpansionTraffic:
+    """Least HBM traffic of one SpMM through an ExpansionPlan or
+    Expansion2Plan (every group) at width ``d``: each array the kernel
+    reads, once (lane indices, rows and values, the step tables, the
+    provenance ``stage_row`` placement derives and the scales), the X rows
+    the real lanes reference, once, and Y, once. The kernel adds into a
+    zeroed Y; the zeroing (``zero_bytes``) is not compulsory and is left
+    out of ``bytes``. ``from_plan`` counts it from a placed plan."""
+
+    plan_bytes: int     # the arrays the kernel reads
+    x_rows: int         # distinct X rows the real lanes reference
+    real_lanes: int     # lanes that add a row
+    n_rows: int
+    d: int
+
+    @classmethod
+    def from_plan(cls, plan, d: int) -> "ExpansionTraffic":
+        from of_spmm_tpu_torch.sparse import expansion, expansion2
+
+        v2 = isinstance(plan, expansion2.Expansion2Plan)
+        nbytes = real_lanes = 0
+        referenced = []
+        for g in plan.groups:
+            g = _np_group(g)
+            arrays = (g.lidx, g.blk_of, g.stage_scale) if v2 else (g.win_lidx, g.base_blk)
+            for a in arrays + (g.lrow, g.val_hi, g.val_lo, g.tile_of, g.stage_row):
+                nbytes += 0 if a is None else int(a.nbytes)
+            u, real = (expansion2.lane_stage_pos(g, plan.R) if v2
+                       else expansion.lane_stage_pos(g, plan.CW))
+            real_lanes += int(real.sum())
+            referenced.append(g.stage_row[u[real]])
+        if getattr(plan, "row_scale", None) is not None:
+            nbytes += plan.n_rows * 4
+        rows = np.unique(np.concatenate(referenced)) if referenced else np.zeros(0)
+        return cls(nbytes, int(rows.shape[0]), real_lanes, plan.n_rows, int(d))
+
+    @property
+    def bytes(self) -> int:
+        return self.plan_bytes + self.x_rows * self.d * 4 + self.n_rows * self.d * 4
+
+    @property
+    def zero_bytes(self) -> int:
+        return self.n_rows * self.d * 4
+
+    @property
+    def flops(self) -> int:
+        return 2 * self.real_lanes * self.d
+
+
+def _np_group(g):
+    """A plan group with its arrays as numpy, wherever they live."""
+    return dataclasses.replace(g, **{f.name: _np(getattr(g, f.name))
+                                     for f in dataclasses.fields(g)})

@@ -276,7 +276,7 @@ def test_impl_selection_and_refusals():
     with pytest.raises(NotImplementedError, match="backward"):
         spmm(op, x.clone().requires_grad_())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_operator(CSR.from_dense(dense), layout="expansion", device="cpu")
+        make_operator(CSR.from_dense(dense), reorder="bfs", device="cpu")
     with pytest.raises(ValueError, match="layout"):
         make_operator(CSR.from_dense(dense), layout="blocked", device="cpu")
     before = dict(kernels.LAUNCHES)  # "auto" on CPU tensors picks the plain engine
