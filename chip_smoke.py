@@ -16,6 +16,15 @@ runs through its own entry points (build_expansion2_plan ->
 spmm_expansion2) on arxiv and products-small, as tools/bench_expansion2.py
 drives the JAX package's.
 
+Then the attention path: the flash-attention kernel against its plain
+version on small cases (float32, bfloat16, float16), BERT-base inference
+(bert_base -> TransformerEncoder.forward, seeded weights, B = 8,
+T = 512, float32 with TF32 off) whose every block's attention input is
+run again through MultiheadAttention(flash=True) with the block's own
+parameters, non-causal and causal, against the dense attention; one
+block's gradients through flash=True against the dense core; and the
+kernel alone at BERT-base's attention shape.
+
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary and the card's name and power limit as
 nvidia-smi reports them; the last line is
@@ -36,19 +45,23 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from of_spmm_tpu_torch import native
 from of_spmm_tpu_torch.data import load_graph, random_features
-from of_spmm_tpu_torch.models import GCN, normalized_adjacency
+from of_spmm_tpu_torch.models import GCN, bert_base, normalized_adjacency
+from of_spmm_tpu_torch.nn import MultiheadAttention
 from of_spmm_tpu_torch.ops import (
     make_operator, place_operator, place_plan, spmm_expansion2, spmm_internal)
 from of_spmm_tpu_torch.ops.autograd import SpmmOperator
 from of_spmm_tpu_torch.ops.cuda import expansion as ekernels
 from of_spmm_tpu_torch.ops.cuda import expansion2 as e2kernels
+from of_spmm_tpu_torch.ops.cuda import flash_attention as fakernels
 from of_spmm_tpu_torch.ops.cuda import fused as fkernels
 from of_spmm_tpu_torch.ops.cuda import panels as pkernels
 from of_spmm_tpu_torch.ops.cuda import ranges as rkernels
 from of_spmm_tpu_torch.ops.cuda import spmm as kernels
+from of_spmm_tpu_torch.ops.flash_attention import flash_attention
 from of_spmm_tpu_torch.sparse import staged_windows
 from of_spmm_tpu_torch.sparse.expansion import (
     ExpansionPlan, attach_stage_rows, build_expansion_plan, plan_memory_report)
@@ -60,8 +73,8 @@ from of_spmm_tpu_torch.sparse.panels import (
 from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
 from of_spmm_tpu_torch.utils.roofline import (
-    ExpansionTraffic, PanelTraffic, SpmmTraffic, StagedTraffic, detect_peak_bw, detect_peak_fp32,
-    spmm_report, time_cuda, wall_ms)
+    AttentionTraffic, ExpansionTraffic, PanelTraffic, SpmmTraffic, StagedTraffic, detect_peak_bw,
+    detect_peak_fp32, detect_peak_tensor16, spmm_report, time_cuda, wall_ms)
 
 SOURCES = {
     "bucket_spmm": "of_spmm_tpu_torch/csrc/spmm.cu",
@@ -71,6 +84,7 @@ SOURCES = {
     "ranges_spmm": "of_spmm_tpu_torch/csrc/ranges.cu",
     "expansion_spmm": "of_spmm_tpu_torch/csrc/expansion.cu",
     "expansion2_spmm": "of_spmm_tpu_torch/csrc/expansion2.cu",
+    "flash_attention": "of_spmm_tpu_torch/csrc/flash_attention.cu",
 }
 REPLACES = {
     "bucket_spmm": "of_spmm_tpu/ops/pallas/spmm.py:46",
@@ -80,6 +94,7 @@ REPLACES = {
     "ranges_spmm": "of_spmm_tpu/ops/pallas/ranges.py:46",
     "expansion_spmm": "of_spmm_tpu/ops/pallas/expansion.py:72",
     "expansion2_spmm": "of_spmm_tpu/ops/pallas/expansion2.py:46",
+    "flash_attention": "of_spmm_tpu/ops/pallas/flash_attention.py:36",
 }
 # the engines whose plan is a FusedPlan / RangesPlan: kernel module, plan type
 STAGED = {"fused": (fkernels, FusedPlan), "ranges": (rkernels, RangesPlan)}
@@ -92,6 +107,23 @@ FEATURE_WIDTHS = (128, 256, 60)
 STAGED_WIDTHS = (128, 256, 60, 7)  # the fused and ranges kernels: float4 and scalar paths
 GCN_DIMS = (128, 256, 256, 40)  # OGB's GCN baseline for ogbn-arxiv: 3 layers, hidden 256
 MAIN_PATH_REL_TOL = 1e-4
+# flash_attention against its plain version, |k - p| <= atol + rtol |p| in
+# the working type: bf16 / fp16 are looser because the kernel sums in
+# another order and rounds P to that type before P V
+FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2),
+             torch.float16: (1e-2, 1e-2)}
+# (BH, Tq, Tk, d, block_q, block_k, causal): the JAX tests' shapes, T = 100
+# at the default blocks, Tq != Tk causal, and the head widths of the
+# repository (8, 32, 64, 128) up to the kernel's limit (256); T = 100 and
+# 160 leave ragged ends of the kernel's 64-row tiles
+FLASH_CASES = ((6, 128, 128, 128, 128, 128, False), (6, 128, 128, 128, 128, 128, True),
+               (6, 384, 384, 128, 128, 128, False), (6, 384, 384, 128, 128, 128, True),
+               (6, 100, 100, 64, 256, 256, False), (6, 100, 100, 64, 256, 256, True),
+               (6, 128, 256, 64, 128, 128, True), (6, 256, 128, 64, 128, 128, True),
+               *((4, 160, 160, d, 256, 256, c) for d in (8, 32, 64, 128, 256)
+                 for c in (False, True)))
+BERT_BATCH, BERT_SEQ = 8, 512  # BERT-base attention: BH = 96 heads of d = 64
+GRAD_TOL = 2e-4  # tests/test_flash_attention.py's bar for the flash gradients
 
 # A bucket column one past the end of x: the kernel must stop with a
 # device-side assertion. Run in a child process, because the assertion
@@ -938,6 +970,206 @@ def expansion2_run(graph: str, a: CSR, tiered_op, widths, gen, peak_bw: float,
     return launches, err, fields, fig
 
 
+def dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def check_flash(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """|k - p| <= atol + rtol |p| (FLASH_TOL of the working type) on the
+    two results' values; returns max |k - p|."""
+    atol, rtol = FLASH_TOL[want.dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bad = err > atol + rtol * w.abs()
+    if got.dtype != want.dtype or not torch.isfinite(g).all() or bad.any():
+        raise AssertionError(f"{what}: {int(bad.sum())} elements out of tolerance, "
+                             f"max abs err {float(err.max())}, dtype {got.dtype}")
+    return float(err.max())
+
+
+def flash_kernel_cases(gen) -> dict:
+    """flash_attention against its plain version (with the case's JAX
+    blocks) on FLASH_CASES in float32, bfloat16 and float16, and the
+    host-side refusal of T = 100 with blocks of 64."""
+    dev = torch.device("cuda", 0)
+    errs = {dtype_name(dt): 0.0 for dt in FLASH_TOL}
+    for BH, Tq, Tk, d, bq, bk, causal in FLASH_CASES:
+        q = torch.randn((BH, Tq, d), generator=gen)
+        k, v = (torch.randn((BH, Tk, d), generator=gen) for _ in range(2))
+        for dtype in FLASH_TOL:
+            qd, kd, vd = (t.to(dev, dtype) for t in (q, k, v))
+            got = fakernels.flash_attention(qd, kd, vd, causal)
+            want = fakernels.flash_attention_torch(qd, kd, vd, causal, bq, bk)
+            torch.cuda.synchronize()
+            e = check_flash(got, want, f"flash_attention BH={BH} Tq={Tq} Tk={Tk} d={d} "
+                                       f"causal={causal}")
+            errs[dtype_name(dtype)] = max(errs[dtype_name(dtype)], e)
+    x = torch.zeros((1, 1, 100, 64), device=dev)
+    try:
+        flash_attention(x, x, x, block_q=64, block_k=64)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("flash_attention took T = 100 with blocks of 64")
+    return {"cases": [dict(zip(("BH", "Tq", "Tk", "d", "block_q", "block_k", "causal"), c))
+                      for c in FLASH_CASES],
+            "dtypes": list(errs), "max_abs_err": errs,
+            "tolerance": {dtype_name(dt): f"|k-p| <= {a} + {r}|p|"
+                          for dt, (a, r) in FLASH_TOL.items()},
+            "ragged_blocks_refused": refusal}
+
+
+def transformer_main_path(gen) -> tuple:
+    """BERT-base inference (seeded weights and tokens, B = 8, T = 512,
+    float32) through TransformerEncoder.forward, whose blocks run the
+    dense attention as in the JAX package; then every block's attention
+    input from that forward (a forward hook: a test harness) run again
+    through MultiheadAttention(flash=True) with the block's own
+    parameters, non-causal and causal, held against the block's dense
+    attention (the forward's own output when non-causal). Returns the
+    flash launches per mode, the phase's fields and the flash MHA modules
+    with their inputs (for flash_grad)."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    model = bert_base(generator=torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tokens = torch.randint(0, model.vocab_size, (BERT_BATCH, BERT_SEQ), generator=gen).to(dev)
+    seen = []
+    hooks = [b.attn.register_forward_hook(lambda mod, args, out: seen.append((args[0], out)))
+             for b in model.blocks]
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        start_bytes = torch.cuda.memory_allocated()  # weights, tokens, earlier phases' data
+        hidden = model(tokens)
+        torch.cuda.synchronize()
+        fwd_launches = dict(kernels.LAUNCHES)
+        peak_bytes = torch.cuda.max_memory_allocated() - start_bytes
+    for h in hooks:
+        h.remove()
+    if (hidden.shape != (BERT_BATCH, BERT_SEQ, model.embed_dim)
+            or not torch.isfinite(hidden).all() or len(seen) != model.num_layers):
+        raise AssertionError(f"BERT-base hidden states {tuple(hidden.shape)} not finite, "
+                             f"wrong shape, or {len(seen)} blocks seen")
+    if any(fwd_launches.values()):
+        raise AssertionError(f"the encoder's forward launched port kernels: {fwd_launches}")
+    flash = []
+    for b in model.blocks:
+        f = MultiheadAttention(model.embed_dim, model.num_heads, flash=True)
+        f.load_state_dict(b.attn.state_dict())
+        flash.append(f)
+    launches, modes = {}, {}
+    with torch.inference_mode():
+        for causal in (False, True):
+            mode = "causal" if causal else "non_causal"
+            kernels.reset_launch_counts()
+            outs = [f(x, is_causal=causal) for f, (x, _) in zip(flash, seen)]
+            torch.cuda.synchronize()
+            launches[mode] = dict(kernels.LAUNCHES)
+            expected = {k: 0 for k in SOURCES}
+            expected["flash_attention"] = model.num_layers
+            if launches[mode] != expected:
+                raise AssertionError(f"flash MHA ({mode}) launches {launches[mode]}, "
+                                     f"expected {expected}")
+            errs = [rel_err(o, out if not causal else b.attn(x, is_causal=True))
+                    for o, b, (x, out) in zip(outs, model.blocks, seen)]
+            if max(errs) > MAIN_PATH_REL_TOL or not all(torch.isfinite(o).all() for o in outs):
+                raise AssertionError(f"flash MHA ({mode}) vs dense MHA: rel errs {errs}")
+            x0 = seen[0][0]
+            modes[mode] = {
+                "launches": launches[mode]["flash_attention"],
+                "rel_err_vs_dense_per_block": errs,
+                "flash_mha_ms": time_cuda(lambda: flash[0](x0, is_causal=causal), iters=20),
+                "dense_mha_ms": time_cuda(lambda: model.blocks[0].attn(x0, is_causal=causal),
+                                          iters=20)}
+        fwd_ms = time_cuda(lambda: model(tokens), iters=10)
+        fwd_wall_ms = wall_ms(lambda: model(tokens), iters=10)
+    fields = dict(model="bert_base (BERT-base: 12 layers, width 768, 12 heads, MLP 3072, "
+                        "vocabulary 30522; seeded random weights)",
+                  batch=BERT_BATCH, seq=BERT_SEQ, dtype="float32",
+                  tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
+                        "cudnn": torch.backends.cudnn.allow_tf32},
+                  params=sum(p.numel() for p in model.parameters()),
+                  weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+                  init_seconds=round(t_init, 2), forward_launches=fwd_launches,
+                  forward_ms=fwd_ms, forward_wall_ms=fwd_wall_ms,
+                  forward_peak_extra_bytes=peak_bytes, hidden_finite=True,
+                  flash_mha=modes, mha_scope="block 0's attention at (8, 512, 768)")
+    return launches, fields, flash[0], seen[0][0], model.blocks[0].attn
+
+
+def flash_grad(flash: MultiheadAttention, dense: MultiheadAttention, x: torch.Tensor) -> dict:
+    """One block's MHA at BERT-base width, causal: gradients of
+    sum(o ** 2) with respect to q, k, v (three copies of the block's
+    input) and every parameter, through flash=True and through the dense
+    core, held within GRAD_TOL (|f - d| <= 2e-4 + 2e-4 |d|)."""
+    grads = []
+    for mod in (dense, flash):
+        mod.zero_grad(set_to_none=True)
+        qkv = [x.clone().requires_grad_(True) for _ in range(3)]
+        (mod(*qkv, is_causal=True) ** 2).sum().backward()
+        grads.append([t.grad for t in qkv] + [p.grad for p in mod.parameters()])
+    names = ["q", "k", "v"] + [n for n, _ in dense.named_parameters()]
+    errs = {}
+    for name, d, f in zip(names, *grads):
+        err = (f - d).abs()
+        bad = err > GRAD_TOL + GRAD_TOL * d.abs()
+        if not torch.isfinite(f).all() or bad.any():
+            raise AssertionError(f"flash MHA grad {name}: {int(bad.sum())} elements out of "
+                                 f"tolerance, max abs err {float(err.max())}")
+        errs[name] = {"max_abs_err": float(err.max()), "rel_err": rel_err(f, d)}
+    dense.zero_grad(set_to_none=True)
+    flash.zero_grad(set_to_none=True)
+    return {"shape": list(x.shape), "causal": True, "loss": "sum(o ** 2)",
+            "tolerance": f"|f-d| <= {GRAD_TOL} + {GRAD_TOL}|d|", "grads": errs}
+
+
+def flash_scale(gen, peak_bw: float, peak_fp32: float, peak_t16: float) -> list:
+    """flash_attention at BERT-base's attention shape (BH = 96, T = 512,
+    d = 64), float32 and bfloat16, non-causal and causal: its time, its
+    plain version's, torch's scaled_dot_product_attention on the same
+    (B, H, T, d) tensors (timed only; the port never calls it), and the
+    bound of the work (AttentionTraffic: bytes over HBM bandwidth,
+    operations over the type's peak: CUDA cores for float32, tensor cores
+    for bfloat16)."""
+    dev = torch.device("cuda", 0)
+    BH, T, d = BERT_BATCH * 12, BERT_SEQ, 64
+    qkv = [torch.randn((BH, T, d), generator=gen) for _ in range(3)]
+    rows = []
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dev, dtype) for t in qkv)
+            q4, k4, v4 = (t.view(BERT_BATCH, 12, T, d) for t in (q, k, v))
+            for causal in (False, True):
+                got = fakernels.flash_attention(q, k, v, causal)
+                want = fakernels.flash_attention_torch(q, k, v, causal)
+                lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+                torch.cuda.synchronize()
+                err = check_flash(got, want, f"flash_attention at scale {dtype} causal={causal}")
+                ms = time_cuda(lambda: fakernels.flash_attention(q, k, v, causal), iters=50)
+                plain_ms = time_cuda(lambda: fakernels.flash_attention_torch(q, k, v, causal),
+                                     iters=5)
+                lib_ms = time_cuda(
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
+                    iters=50)
+                traffic = AttentionTraffic(BH, T, T, d, q.element_size(), causal)
+                peak = peak_fp32 if dtype == torch.float32 else peak_t16
+                bound, by = traffic.bound(peak_bw, peak)
+                rows.append({"dtype": dtype_name(dtype), "causal": causal, "BH": BH, "T": T,
+                             "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "library": "torch.nn.functional.scaled_dot_product_attention",
+                             "library_max_abs_err": float((lib.reshape(BH, T, d).float()
+                                                           - want.float()).abs().max()),
+                             "max_abs_err": err, "bytes": traffic.bytes,
+                             "flops": traffic.flops,
+                             "bound_ms_bytes": traffic.bytes / peak_bw * 1e3,
+                             "bound_ms_operations": traffic.flops / peak * 1e3,
+                             "peak_tflops": peak / 1e12, "bound_ms": bound, "bound_by": by,
+                             "fraction_of_bound": bound / ms})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -953,16 +1185,18 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"{name} has compute capability {cap}; the kernels are built for sm_90a")
     peak_bw, peak_fp32 = detect_peak_bw(name), detect_peak_fp32(name)
+    peak_t16 = detect_peak_tensor16(name)
     emit("device", name=name, capability=list(cap), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
-         peak_hbm_gb_s=peak_bw / 1e9, peak_fp32_tflops=peak_fp32 / 1e12)
+         peak_hbm_gb_s=peak_bw / 1e9, peak_fp32_tflops=peak_fp32 / 1e12,
+         peak_bf16_tensor_tflops=peak_t16 / 1e12)
 
     # -- 2. build: one nvcc per source, started together, beside the host
     #       planner's g++ build ------------------------------------------------
     t0 = time.perf_counter()
     planner = threading.Thread(target=native.available)
     planner.start()
-    kmods = (kernels, pkernels, fkernels, rkernels, ekernels, e2kernels)
+    kmods = (kernels, pkernels, fkernels, rkernels, ekernels, e2kernels, fakernels)
     with ThreadPoolExecutor(len(kmods)) as pool:
         futures = {k.SOURCE: pool.submit(k.build) for k in kmods}
         built = {src: f.result() for src, f in futures.items()}
@@ -1363,7 +1597,25 @@ def main() -> int:
     emit("expansion2_scale", **fields)
     emit("expansion2_kernel_times", graph="products-small", **e2p_fig)
 
-    # -- 20. the kernels, 21. the card, 22. the result ------------------------
+    # -- 20.-23. the attention path: the flash kernel against its plain
+    #            version, BERT-base inference with every block's attention
+    #            run again through MultiheadAttention(flash=True), one
+    #            block's gradients, the kernel at BERT-base's shape ---------
+    fcases = flash_kernel_cases(gen)
+    max_err["flash_attention"] = fcases["max_abs_err"]["float32"]
+    emit("flash_kernel", **fcases)
+    fa_launches, fields, fa_mha, fa_x, dense_mha = transformer_main_path(gen)
+    emit("transformer_main_path", **fields)
+    emit("flash_grad", **flash_grad(fa_mha, dense_mha, fa_x))
+    del fa_mha, fa_x, dense_mha
+    fa_rows = flash_scale(gen, peak_bw, peak_fp32, peak_t16)
+    emit("flash_scale", rows=fa_rows)
+    fa_main = next(r for r in fa_rows if r["dtype"] == "float32" and not r["causal"])
+    max_err["flash_attention"] = max(max_err["flash_attention"],
+                                     max(r["max_abs_err"] for r in fa_rows
+                                         if r["dtype"] == "float32"))
+
+    # -- 24. the kernels, 25. the card, 26. the result ------------------------
     # launches: one GCN forward (three SpMMs) on the kernel's engine, or
     # (expansion2) the two arxiv SpMMs of its entry point; the times and
     # the bound: all launches of one SpMM at d=128, launches_per_spmm of
@@ -1381,14 +1633,26 @@ def main() -> int:
                                  exp_launches),
               "expansion2_spmm": ("spmm_expansion2 on ogbn-arxiv at d=128 and d=256",
                                   e2_launches)}
-    print(json.dumps({"kernels": [
+    entries = [
         {"name": k, "route": "cuda", "source": SOURCES[k], "replaces": REPLACES[k],
          "launches": scopes[k][1][k], "launches_scope": scopes[k][0],
          "max_abs_err": max_err[k],
          **{f: figs[k][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "launches_per_spmm": figs[k]["launches"],
          "times_scope": f"one SpMM on ogbn-arxiv at d={figs[k]['d']}"}
-        for k in SOURCES]}), flush=True)
+        for k in SOURCES if k != "flash_attention"]
+    entries.append(
+        {"name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],
+         "replaces": REPLACES["flash_attention"],
+         "launches": sum(m["flash_attention"] for m in fa_launches.values()),
+         "launches_scope": "every BERT-base block's attention input through "
+                           "MultiheadAttention(flash=True), non-causal and causal "
+                           "(12 launches each)",
+         "max_abs_err": max_err["flash_attention"],
+         **{f: fa_main[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "max_abs_err_by_dtype": fcases["max_abs_err"],
+         "times_scope": "one call at (BH, T, d) = (96, 512, 64), float32, non-causal"})
+    print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

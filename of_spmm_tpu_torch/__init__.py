@@ -5,10 +5,12 @@ mirror the JAX package's layout; every TPU kernel on a ported path becomes
 a kernel written by hand for Hopper (``csrc/*.cu``), with a plain PyTorch
 version beside it. The port imports neither JAX nor the JAX package.
 
-Ported so far: GCN inference on the binned and tiered SpMM layouts.
+Ported so far: GCN inference on every SpMM layout of the JAX package,
+and the attention path (flash attention, multi-head attention and the
+BERT-style transformer encoder) for inference.
 
     from of_spmm_tpu_torch.data import load_graph, random_features
-    from of_spmm_tpu_torch.models import GCN, normalized_adjacency
+    from of_spmm_tpu_torch.models import GCN, bert_base, normalized_adjacency
     from of_spmm_tpu_torch.ops import make_operator
 """
 

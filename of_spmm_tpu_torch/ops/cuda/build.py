@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: Dict[str, int] = {"bucket_spmm": 0, "gather_rows": 0, "panel_spmm": 0,
                             "fused_spmm": 0, "ranges_spmm": 0, "expansion_spmm": 0,
-                            "expansion2_spmm": 0}
+                            "expansion2_spmm": 0, "flash_attention": 0}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -195,7 +195,9 @@ def bin_rows_tiered(
     real_rids = []  # per emitted bucket (concat order): real row ids
     bucket_totals = []
     groups_by_tier: dict = {}
-    for lo, hi in zip(g_bounds, g_ends):
+    # a matrix without nonzeros has no chunks and is planned with no tiers
+    # (spmm then returns zeros); the JAX package raises IndexError here
+    for lo, hi in zip(g_bounds, g_ends) if order.shape[0] else ():
         groups_by_tier.setdefault(int(s_tier[lo]), []).append(
             (int(s_width[lo]), order[lo:hi])
         )

@@ -40,6 +40,15 @@ PEAK_FP32_FLOPS: Dict[str, float] = {
     "H100 NVL": 60e12,
 }
 
+# Peak dense bfloat16 / float16 tensor-core rate (FLOP/s), same data
+# sheet (half the rate it lists with sparsity).
+PEAK_TENSOR16_FLOPS: Dict[str, float] = {
+    "H100 80GB HBM3": 989e12,
+    "H100 SXM": 989e12,
+    "H100 PCIe": 756e12,
+    "H100 NVL": 835e12,
+}
+
 # untimed calls before each measurement (build, caches, allocator)
 WARMUP_CALLS = 3
 
@@ -69,6 +78,46 @@ def detect_peak_bw(device_name: Optional[str] = None) -> float:
 def detect_peak_fp32(device_name: Optional[str] = None) -> float:
     """float32 FLOP/s outside the tensor cores of the named card."""
     return _lookup(PEAK_FP32_FLOPS, _card_name(device_name))
+
+
+def detect_peak_tensor16(device_name: Optional[str] = None) -> float:
+    """Dense bfloat16 / float16 tensor-core FLOP/s of the named card."""
+    return _lookup(PEAK_TENSOR16_FLOPS, _card_name(device_name))
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionTraffic:
+    """Least work of one attention forward over BH heads: q, k, v read
+    once and o written once (``bytes``), and 4 d operations (two
+    multiply-adds) per (query, key) pair the mask keeps (``flops``; with
+    ``causal``, top-left: query i sees keys 0..i)."""
+
+    bh: int
+    tq: int
+    tk: int
+    d: int
+    elem_bytes: int
+    causal: bool
+
+    @property
+    def pairs(self) -> int:
+        if not self.causal:
+            return self.tq * self.tk
+        full = min(self.tq, self.tk)  # queries 0..full-1 see i + 1 keys
+        return full * (full + 1) // 2 + (self.tq - full) * self.tk
+
+    @property
+    def bytes(self) -> int:
+        return self.elem_bytes * self.bh * self.d * 2 * (self.tq + self.tk)
+
+    @property
+    def flops(self) -> int:
+        return 4 * self.bh * self.pairs * self.d
+
+    def bound(self, peak_bw: float, peak_flops: float):
+        """(least ms, "bytes" or "operations") at these peaks."""
+        t_bytes, t_ops = self.bytes / peak_bw * 1e3, self.flops / peak_flops * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -258,6 +258,25 @@ def test_tiered_empty_rows_match_xla(scatter_bytes):
         FLAGS.override("OFS_TIERED_SCATTER_BYTES", None)
 
 
+@pytest.mark.parametrize("layout", ["tiered", "auto"])
+def test_tiered_empty_matrix_divergence(layout):
+    """Where the port departs from the reference on purpose: the JAX
+    package's tiered planner fails on a matrix without nonzeros (an
+    IndexError on an empty chunk list); the port plans it with no tiers
+    and its SpMM returns zeros. layout="auto" goes tiered here because
+    n_cols > tier_size."""
+    dense = np.zeros((50, 50), np.float32)
+    with pytest.raises(IndexError):
+        jmake_operator(JCSR.from_dense(dense), layout=layout, tier_size=16, place=False)
+    op = make_operator(CSR.from_dense(dense), layout=layout, tier_size=16, device="cpu")
+    assert isinstance(op.binned, TieredEll) and op.binned.tiers == ()
+    x = torch.from_numpy(np.random.default_rng(27).standard_normal((50, 7)).astype(np.float32))
+    for impl in ("torch", "cuda"):  # "cuda" on CPU tensors: the plain kernel versions
+        y = spmm(op, x, impl=impl)
+        assert y.shape == (50, 7) and not y.any()
+        assert not spmm(op.T, x, impl=impl).any()
+
+
 def test_transpose_operator_matches_dense():
     dense = _dense(70, 50, 0.1, seed=41)
     op = make_operator(CSR.from_dense(dense), layout="tiered", tier_size=16, device="cpu")
