@@ -25,6 +25,12 @@ parameters, non-causal and causal, against the dense attention; one
 block's gradients through flash=True against the dense core; and the
 kernel alone at BERT-base's attention shape.
 
+Last, the SpMM inner-loop microbenchmarks (of_spmm_tpu_torch/tools/:
+microbench_blockfma, microbench_mxu, microbench_cond, proto_fused): each
+tool's entry point at its default size, the TPU tool's full width, then
+its kernels against their plain versions on two small seeded cases and
+the default inputs.
+
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary and the card's name and power limit as
 nvidia-smi reports them; the last line is
@@ -35,6 +41,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -58,7 +65,11 @@ from of_spmm_tpu_torch.ops.cuda import expansion as ekernels
 from of_spmm_tpu_torch.ops.cuda import expansion2 as e2kernels
 from of_spmm_tpu_torch.ops.cuda import flash_attention as fakernels
 from of_spmm_tpu_torch.ops.cuda import fused as fkernels
+from of_spmm_tpu_torch.ops.cuda import microbench_blockfma as kblockfma
+from of_spmm_tpu_torch.ops.cuda import microbench_cond as kcond
+from of_spmm_tpu_torch.ops.cuda import microbench_mxu as kmxu
 from of_spmm_tpu_torch.ops.cuda import panels as pkernels
+from of_spmm_tpu_torch.ops.cuda import proto_fused as kproto
 from of_spmm_tpu_torch.ops.cuda import ranges as rkernels
 from of_spmm_tpu_torch.ops.cuda import spmm as kernels
 from of_spmm_tpu_torch.ops.flash_attention import flash_attention
@@ -72,9 +83,13 @@ from of_spmm_tpu_torch.sparse.panels import (
     C_SBIG, C_TFIRST, C_TILE, PanelPlan, attach_windows, build_panels_plan, ensure_masks)
 from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
+from of_spmm_tpu_torch.tools import microbench_blockfma as tblockfma
+from of_spmm_tpu_torch.tools import microbench_cond as tcond
+from of_spmm_tpu_torch.tools import microbench_mxu as tmxu
+from of_spmm_tpu_torch.tools import proto_fused as tproto
 from of_spmm_tpu_torch.utils.roofline import (
     AttentionTraffic, ExpansionTraffic, PanelTraffic, SpmmTraffic, StagedTraffic, detect_peak_bw,
-    detect_peak_fp32, detect_peak_tensor16, spmm_report, time_cuda, wall_ms)
+    WARMUP_CALLS, detect_peak_fp32, detect_peak_tensor16, spmm_report, time_cuda, wall_ms)
 
 SOURCES = {
     "bucket_spmm": "of_spmm_tpu_torch/csrc/spmm.cu",
@@ -85,6 +100,11 @@ SOURCES = {
     "expansion_spmm": "of_spmm_tpu_torch/csrc/expansion.cu",
     "expansion2_spmm": "of_spmm_tpu_torch/csrc/expansion2.cu",
     "flash_attention": "of_spmm_tpu_torch/csrc/flash_attention.cu",
+    "microbench_blockfma_a": "of_spmm_tpu_torch/csrc/microbench_blockfma.cu",
+    "microbench_blockfma_b": "of_spmm_tpu_torch/csrc/microbench_blockfma.cu",
+    "microbench_mxu": "of_spmm_tpu_torch/csrc/microbench_mxu.cu",
+    "microbench_cond": "of_spmm_tpu_torch/csrc/microbench_cond.cu",
+    "proto_fused": "of_spmm_tpu_torch/csrc/proto_fused.cu",
 }
 REPLACES = {
     "bucket_spmm": "of_spmm_tpu/ops/pallas/spmm.py:46",
@@ -95,6 +115,11 @@ REPLACES = {
     "expansion_spmm": "of_spmm_tpu/ops/pallas/expansion.py:72",
     "expansion2_spmm": "of_spmm_tpu/ops/pallas/expansion2.py:46",
     "flash_attention": "of_spmm_tpu/ops/pallas/flash_attention.py:36",
+    "microbench_blockfma_a": "tools/microbench_blockfma.py:61",
+    "microbench_blockfma_b": "tools/microbench_blockfma.py:98",
+    "microbench_mxu": "tools/microbench_mxu.py:88",
+    "microbench_cond": "tools/microbench_cond.py:105",
+    "proto_fused": "tools/proto_fused.py:131",
 }
 # the engines whose plan is a FusedPlan / RangesPlan: kernel module, plan type
 STAGED = {"fused": (fkernels, FusedPlan), "ranges": (rkernels, RangesPlan)}
@@ -124,6 +149,21 @@ FLASH_CASES = ((6, 128, 128, 128, 128, 128, False), (6, 128, 128, 128, 128, 128,
                  for c in (False, True)))
 BERT_BATCH, BERT_SEQ = 8, 512  # BERT-base attention: BH = 96 heads of d = 64
 GRAD_TOL = 2e-4  # tests/test_flash_attention.py's bar for the flash gradients
+# the microbenchmark kernels against their plain versions: elementwise
+# 1e-5 + 1e-4|p| where every term is positive (blockfma, proto_fused);
+# normwise max |k - p| <= 1e-4 max |p| where long float32 sums of both
+# signs are taken in another order (mxu: up to 16,000 terms a row; cond:
+# 4,096 terms a tile, and the window's halves added first)
+MICROBENCH_NORM_TOL = 1e-4
+# two small seeded cases per tool, beside its default size (seed 0)
+BLOCKFMA_SMALL = ((64, 256, 32, 1), (1000, 8192, 64, 2))  # C, T, K, seed
+MXU_SMALL = ((3, 1), (50, 2))                            # S, seed
+COND_SMALL = ((3, 1), (40, 2))                           # steps, seed
+PROTO_SMALL = ((4096, 128, 256, 1600, 2, 1), (50_000, 512, 1024, 3200, 5, 2))  # N R T S TILES seed
+# the variant whose time stands in the kernels line
+MICROBENCH_MAIN = {"microbench_blockfma_a": "A", "microbench_blockfma_b": "B",
+                   "microbench_mxu": "chain2", "microbench_cond": "nocond",
+                   "proto_fused": "fused"}
 
 # A bucket column one past the end of x: the kernel must stop with a
 # device-side assertion. Run in a child process, because the assertion
@@ -1170,6 +1210,150 @@ def flash_scale(gen, peak_bw: float, peak_fp32: float, peak_t16: float) -> list:
     return rows
 
 
+def check_norm(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """max |k - p| <= MICROBENCH_NORM_TOL max |p|; returns max |k - p|."""
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or err > MICROBENCH_NORM_TOL * float(want.abs().max()):
+        raise AssertionError(f"{what}: max abs err {err} against max |p| "
+                             f"{float(want.abs().max())}")
+    return err
+
+
+def run_tool(tool, expected: dict) -> tuple:
+    """The tool's entry point at its default size, on the card (its printed
+    lines go to stderr), with every launch count set to 0 just before it;
+    (its rows, the counts just after), the counts held to ``expected``."""
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        rows = tool.main([])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {k: 0 for k in SOURCES}
+    want.update(expected)
+    if launches != want:
+        raise AssertionError(f"{tool.__name__} launches {launches}, expected {want}")
+    return rows, launches
+
+
+def blockfma_phase(dev) -> tuple:
+    """tools/microbench_blockfma at its default size through its entry
+    point, then both kernels against their plain versions on two small
+    seeded cases and the default inputs, and the plain versions' times."""
+    calls = WARMUP_CALLS + tblockfma.ITERS
+    rows, launches = run_tool(tblockfma, {"microbench_blockfma_a": calls,
+                                          "microbench_blockfma_b": calls})
+    with torch.inference_mode():
+        for row in rows:
+            v = row["variant"]
+            plain = kblockfma.blockfma_a_torch if v == "A" else kblockfma.blockfma_b_torch
+            err = 0.0
+            for C, T, K, seed in BLOCKFMA_SMALL + ((tblockfma.C, tblockfma.T, tblockfma.K, 0),):
+                a = [torch.from_numpy(x).to(dev) for x in tblockfma.inputs(v, C, T, K, seed)]
+                got, want = tblockfma.run(v, *a), plain(*a)
+                torch.cuda.synchronize()
+                err = max(err, check_close(got, want, f"blockfma {v} C={C} T={T} K={K}"))
+            row["max_abs_err"] = err
+            row["plain_ms"] = time_cuda(lambda: plain(*a), iters=3)
+    return rows, launches
+
+
+def mxu_phase(dev) -> tuple:
+    """tools/microbench_mxu at its default size through its entry point,
+    then every variant against the plain version on two small seeded cases
+    and the default inputs, and the plain version's times."""
+    rows, launches = run_tool(tmxu, {"microbench_mxu": len(kmxu.VARIANTS)
+                                     * (WARMUP_CALLS + tmxu.ITERS)})
+    err = {v: 0.0 for v in kmxu.VARIANTS}
+    with torch.inference_mode():
+        for S, seed in MXU_SMALL + ((tmxu.S, 0),):
+            m = [t.to(dev) for t in tmxu.inputs(S, seed=seed)]
+            for v in kmxu.VARIANTS:
+                got, want = kmxu.mxu_step(v, *m), kmxu.mxu_step_torch(v, *m)
+                torch.cuda.synchronize()
+                err[v] = max(err[v], check_norm(got, want, f"microbench_mxu {v} S={S}"))
+        for row in rows:
+            row["max_abs_err"] = err[row["variant"]]
+            row["plain_ms"] = time_cuda(lambda: kmxu.mxu_step_torch(row["variant"], *m), iters=3)
+    return rows, launches
+
+
+def cond_phase(dev) -> tuple:
+    """tools/microbench_cond at its default size through its entry point,
+    then every mode (every step's tile) against the plain version on two
+    small seeded cases and the default inputs, and the plain version's
+    times."""
+    rows, launches = run_tool(tcond, {"microbench_cond": len(tcond.RUNS)
+                                      * (WARMUP_CALLS + tcond.ITERS)})
+    err = {mode: 0.0 for mode, _ in tcond.RUNS}
+    with torch.inference_mode():
+        for steps, seed in COND_SMALL + ((tcond.STEPS, 0),):
+            _, masks, win = (t.to(dev) for t in tcond.inputs(1.0, steps, seed))
+            for mode, frac in tcond.RUNS:
+                c = (torch.full((steps,), int(tcond.G * frac), dtype=torch.int32, device=dev),
+                     masks, win)
+                got, want = kcond.cond_steps(mode, *c), kcond.cond_steps_torch(mode, *c)
+                torch.cuda.synchronize()
+                err[mode] = max(err[mode], check_norm(got, want, f"microbench_cond {mode} "
+                                                                 f"steps={steps}"))
+                del got, want
+                if steps == tcond.STEPS:
+                    row = next(r for r in rows if r["variant"] == mode)
+                    row["plain_ms"] = time_cuda(lambda: kcond.cond_steps_torch(mode, *c), iters=3)
+    for row in rows:
+        row["max_abs_err"] = err[row["variant"]]
+    return rows, launches
+
+
+def proto_phase(dev) -> tuple:
+    """tools/proto_fused at its default size through its entry point, then
+    every mode against the plain version (dma's staging buffer bit-exact,
+    compute on that buffer, fused against the plain oracle) on two small
+    seeded cases and the default inputs, and the plain version's times."""
+    rows, launches = run_tool(tproto, {"proto_fused": 1 + len(tproto.MODES)
+                                       * (WARMUP_CALLS + tproto.ITERS)})
+    err = {mode: 0.0 for mode in tproto.MODES}
+    default = (tproto.N, tproto.R, tproto.T, tproto.S, tproto.TILES, 0)
+    with torch.inference_mode():
+        for N, R, T, S, TILES, seed in PROTO_SMALL + (default,):
+            args = [t.to(dev) for t in tproto.inputs(N, R, T, S, TILES, tproto.SPT, seed)]
+            size = dict(R=R, S=S, SPT=tproto.SPT, TILES=TILES)
+            staged_k, staged_p = (torch.empty(kproto.staged_shape(S, TILES), device=dev)
+                                  for _ in range(2))
+            what = f"proto_fused N={N} R={R} T={T} S={S} TILES={TILES}"
+            zeros = kproto.proto_fused("dma", *args, **size, staged=staged_k)
+            kproto.proto_fused_torch("dma", *args, **size, staged=staged_p)
+            torch.cuda.synchronize()
+            if not torch.equal(staged_k, staged_p) or zeros.any():
+                raise AssertionError(f"{what} dma: staging not bit-exact or output not zero")
+            for mode in ("compute", "fused"):
+                got = kproto.proto_fused(mode, *args, **size, staged=staged_k)
+                want = kproto.proto_fused_torch(mode, *args, **size, staged=staged_p)
+                torch.cuda.synchronize()
+                err[mode] = max(err[mode], check_close(got, want, f"{what} {mode}"))
+            del got, want, zeros
+        for row in rows:
+            mode = row["variant"]
+            row["max_abs_err"] = err[mode]
+            row["plain_ms"] = time_cuda(lambda: kproto.proto_fused_torch(
+                mode, *args, **size, staged=staged_p), iters=3)
+    return rows, launches
+
+
+def microbench_entry(name: str, rows: list, launches: dict) -> dict:
+    """The kernels-line entry of one microbenchmark kernel: its main
+    variant's times and bound, every variant's beside them."""
+    main_row = next(r for r in rows if r["variant"] == MICROBENCH_MAIN[name])
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[name],
+            "launches_scope": "one run of the entry point at its default size",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: main_row[k] for k in keys}, "library_ms": None,
+            "times_scope": f"variant {MICROBENCH_MAIN[name]} at the tool's default size",
+            "variants": [{"variant": r["variant"], **{k: r[k] for k in keys},
+                          "fraction_of_bound": r["fraction_of_bound"]} for r in rows]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1196,7 +1380,8 @@ def main() -> int:
     t0 = time.perf_counter()
     planner = threading.Thread(target=native.available)
     planner.start()
-    kmods = (kernels, pkernels, fkernels, rkernels, ekernels, e2kernels, fakernels)
+    kmods = (kernels, pkernels, fkernels, rkernels, ekernels, e2kernels, fakernels, kblockfma,
+             kmxu, kcond, kproto)
     with ThreadPoolExecutor(len(kmods)) as pool:
         futures = {k.SOURCE: pool.submit(k.build) for k in kmods}
         built = {src: f.result() for src, f in futures.items()}
@@ -1615,7 +1800,22 @@ def main() -> int:
                                      max(r["max_abs_err"] for r in fa_rows
                                          if r["dtype"] == "float32"))
 
-    # -- 24. the kernels, 25. the card, 26. the result ------------------------
+    # -- 24.-27. the SpMM inner-loop microbenchmarks: each tool's entry point
+    #            at its default size, then its kernels against their plain
+    #            versions -------------------------------------------------------
+    micro = {}
+    for tool, phase in (("microbench_blockfma", blockfma_phase), ("microbench_mxu", mxu_phase),
+                        ("microbench_cond", cond_phase), ("proto_fused", proto_phase)):
+        t0 = time.perf_counter()
+        rows, tool_launches = phase(dev)
+        micro[tool] = (rows, tool_launches)
+        emit(tool, seconds=round(time.perf_counter() - t0, 2),
+             launches={k: n for k, n in tool_launches.items() if n},
+             tolerance=("|k-p| <= 1e-5 + 1e-4|p|" if tool in ("microbench_blockfma", "proto_fused")
+                        else f"max|k-p| <= {MICROBENCH_NORM_TOL} max|p|"),
+             rows=rows)
+
+    # -- 28. the kernels, 29. the card, 30. the result ------------------------
     # launches: one GCN forward (three SpMMs) on the kernel's engine, or
     # (expansion2) the two arxiv SpMMs of its entry point; the times and
     # the bound: all launches of one SpMM at d=128, launches_per_spmm of
@@ -1640,7 +1840,7 @@ def main() -> int:
          **{f: figs[k][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "launches_per_spmm": figs[k]["launches"],
          "times_scope": f"one SpMM on ogbn-arxiv at d={figs[k]['d']}"}
-        for k in SOURCES if k != "flash_attention"]
+        for k in SOURCES if k not in MICROBENCH_MAIN and k != "flash_attention"]
     entries.append(
         {"name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],
          "replaces": REPLACES["flash_attention"],
@@ -1652,10 +1852,17 @@ def main() -> int:
          **{f: fa_main[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "max_abs_err_by_dtype": fcases["max_abs_err"],
          "times_scope": "one call at (BH, T, d) = (96, 512, 64), float32, non-causal"})
+    for kname, variant in MICROBENCH_MAIN.items():
+        tool = "microbench_blockfma" if kname.startswith("microbench_blockfma") else kname
+        rows, tool_launches = micro[tool]
+        if tool == "microbench_blockfma":
+            rows = [r for r in rows if r["variant"] == variant]
+        entries.append(microbench_entry(kname, rows, tool_launches))
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 
 

@@ -365,3 +365,109 @@ def _np_group(g):
     """A plan group with its arrays as numpy, wherever they live."""
     return dataclasses.replace(g, **{f.name: _np(getattr(g, f.name))
                                      for f in dataclasses.fields(g)})
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelWork:
+    """Least work of one call of a microbenchmark kernel
+    (of_spmm_tpu_torch/tools/): ``bytes`` that it must move (each input
+    it needs read once, each output written once) and ``flops`` that it
+    must do, on the bf16 tensor cores when ``tensor_cores`` (else float32
+    on the CUDA cores). Where the work depends on the data, the count is
+    what these inputs need (the distinct rows they reference, the groups a
+    step runs)."""
+
+    bytes: int
+    flops: int
+    tensor_cores: bool = False
+
+    def bound(self, peak_bw: float, peak_fp32: float, peak_t16: float):
+        """(least ms, "bytes" or "operations") at these peaks."""
+        peak = peak_t16 if self.tensor_cores else peak_fp32
+        t_bytes, t_ops = self.bytes / peak_bw * 1e3, self.flops / peak * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _distinct(t: torch.Tensor) -> int:
+    return int(torch.unique(t.reshape(-1)).numel())
+
+
+def blockfma_work(variant: str, starts: torch.Tensor, w: torch.Tensor,
+                  tier: torch.Tensor) -> KernelWork:
+    """tools/microbench_blockfma.py: A reads starts, w, the tier rows of
+    every 8-row block [s, s + 8) and writes out; 2 flops per (slot, row,
+    column). B reads starts, vals, the tier rows c and writes out; 2 flops
+    per (slot, column): one row per slot (the TPU's 7 zero rows per slot
+    are not work)."""
+    rows_out, d = starts.shape[0], tier.shape[1]
+    K = starts.shape[1] * 8
+    slots = (rows_out // 8) * K
+    if variant == "A":
+        rows = _distinct(starts.long()[..., None] + torch.arange(8, device=starts.device))
+        flops = 2 * slots * 8 * d
+    elif variant == "B":
+        rows = _distinct(starts)
+        flops = 2 * slots * d
+    else:
+        raise ValueError(f"variant must be 'A' or 'B', got {variant!r}")
+    nbytes = starts.nbytes + w.nbytes + rows * d * 4 + rows_out * d * 4
+    return KernelWork(nbytes, flops)
+
+
+def mxu_work(variant: str, blk: torch.Tensor, lidx: torch.Tensor, lrow: torch.Tensor,
+             rows_out: int) -> KernelWork:
+    """tools/microbench_mxu.py: the window rows the variant's lanes read
+    (512 bytes each; whole blocks for winread / winstat), the index arrays
+    it reads (blk for the dynamic variants, lidx for the gathers, lrow for
+    chain2; noop reads row 0 of each step's lidx) and the tile; 2 flops
+    per (lane, column): the two halves' add and the accumulation."""
+    S, _, G = blk.shape
+    L, d = 128, 128
+    out_bytes = rows_out * d * 4
+    if variant == "noop":
+        return KernelWork(S * L * 4 + out_bytes, S * L)
+    dyn = variant in ("winread", "rawdyn", "chain2")
+    b = blk.view(S, G).long() if dyn else torch.arange(G, device=blk.device).expand(S, G)
+    if variant in ("winread", "winstat"):
+        rows = _distinct(b) * L
+    else:
+        rows = _distinct(b[..., None] * L + lidx.view(S, G, L).long())
+    nbytes = rows * 2 * d * 2 + out_bytes + (blk.nbytes if dyn else 0)
+    nbytes += 0 if variant in ("winread", "winstat") else lidx.nbytes
+    nbytes += lrow.nbytes if variant == "chain2" else 0
+    return KernelWork(nbytes, 2 * S * G * L * d)
+
+
+def cond_work(groups_run: int, steps: int) -> KernelWork:
+    """tools/microbench_cond.py: per group run, its 4 x 128 mask words and
+    the dense bf16 product bits^T @ win on the tensor cores (2 x 128 x 128
+    x 256 flops); the window once, gcnt, and every step's 128 x 128 float32
+    tile written."""
+    L = 128
+    nbytes = groups_run * 4 * L * 4 + L * 2 * L * 2 + steps * 4 + steps * L * L * 4
+    return KernelWork(nbytes, groups_run * 2 * L * L * 2 * L, tensor_cores=True)
+
+
+def proto_fused_work(mode: str, scols: torch.Tensor, lidx: torch.Tensor, lrow: torch.Tensor,
+                     blk: torch.Tensor, R: int, S: int, SPT: int, TILES: int) -> KernelWork:
+    """tools/proto_fused.py: fused reads the X rows its lanes reference
+    (through both index levels), the staging steps' scols, the compute
+    steps' lidx, lrow and blk, and writes the output; compute reads the
+    staged rows its lanes reference instead of X rows and scols; dma reads
+    the staging steps' scols and the X rows they name, and writes the
+    staging buffer (TILES, S, 128) and the zero output. 2 flops per (lane,
+    column): the hi + lo add and the accumulation."""
+    from of_spmm_tpu_torch.ops.cuda.proto_fused import lane_sources
+
+    L = 128
+    G, DELTA = blk.shape[-1], S // SPT
+    out_bytes = TILES * R * L * 4
+    stage_idx = TILES * SPT * DELTA * 4
+    if mode == "dma":
+        rows = _distinct(scols.reshape(-1, DELTA)[:TILES * SPT])
+        return KernelWork(stage_idx + rows * L * 4 + TILES * S * L * 4 + out_bytes, 0)
+    lanes = TILES * SPT * G * L
+    _, src = lane_sources(scols, lidx, blk, S, SPT, TILES, 0, TILES * SPT, mode == "compute")
+    nbytes = _distinct(src) * L * 4 + 2 * lanes * 4 + TILES * SPT * G * 4 + out_bytes
+    nbytes += stage_idx if mode == "fused" else 0
+    return KernelWork(nbytes, 2 * lanes * L)
