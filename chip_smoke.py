@@ -25,11 +25,13 @@ parameters, non-causal and causal, against the dense attention; one
 block's gradients through flash=True against the dense core; and the
 kernel alone at BERT-base's attention shape.
 
-Last, the SpMM inner-loop microbenchmarks (of_spmm_tpu_torch/tools/:
-microbench_blockfma, microbench_mxu, microbench_cond, proto_fused): each
-tool's entry point at its default size, the TPU tool's full width, then
-its kernels against their plain versions on two small seeded cases and
-the default inputs.
+Last, the microbenchmarks (of_spmm_tpu_torch/tools/): the SpMM inner
+loop (microbench_blockfma, microbench_mxu, microbench_cond, proto_fused)
+and the gathers (microbench_gather, microbench_gather2 with window and
+twosided, microbench_dyngather): each tool's entry point at its default
+size, the TPU tool's full width, then its kernels against their plain
+versions on two small seeded cases and the default inputs, beside the
+plain versions' and, for the gathers, one PyTorch call's times.
 
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary and the card's name and power limit as
@@ -67,6 +69,9 @@ from of_spmm_tpu_torch.ops.cuda import flash_attention as fakernels
 from of_spmm_tpu_torch.ops.cuda import fused as fkernels
 from of_spmm_tpu_torch.ops.cuda import microbench_blockfma as kblockfma
 from of_spmm_tpu_torch.ops.cuda import microbench_cond as kcond
+from of_spmm_tpu_torch.ops.cuda import microbench_dyngather as kdyn
+from of_spmm_tpu_torch.ops.cuda import microbench_gather as kgather
+from of_spmm_tpu_torch.ops.cuda import microbench_gather2 as kgather2
 from of_spmm_tpu_torch.ops.cuda import microbench_mxu as kmxu
 from of_spmm_tpu_torch.ops.cuda import panels as pkernels
 from of_spmm_tpu_torch.ops.cuda import proto_fused as kproto
@@ -85,6 +90,9 @@ from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
 from of_spmm_tpu_torch.tools import microbench_blockfma as tblockfma
 from of_spmm_tpu_torch.tools import microbench_cond as tcond
+from of_spmm_tpu_torch.tools import microbench_dyngather as tdyn
+from of_spmm_tpu_torch.tools import microbench_gather as tgather
+from of_spmm_tpu_torch.tools import microbench_gather2 as tgather2
 from of_spmm_tpu_torch.tools import microbench_mxu as tmxu
 from of_spmm_tpu_torch.tools import proto_fused as tproto
 from of_spmm_tpu_torch.utils.roofline import (
@@ -105,6 +113,14 @@ SOURCES = {
     "microbench_mxu": "of_spmm_tpu_torch/csrc/microbench_mxu.cu",
     "microbench_cond": "of_spmm_tpu_torch/csrc/microbench_cond.cu",
     "proto_fused": "of_spmm_tpu_torch/csrc/proto_fused.cu",
+    # take_fused and dma_deep launch microbench_gather.cu's ELL kernels
+    **{k: "of_spmm_tpu_torch/csrc/microbench_gather.cu"
+       for k in ("gather_vmem_loop", "gather_vmem_take", "gather_onehot", "gather_block_slice",
+                 "gather_row_dma", "gather2_take_fused", "gather2_dma_deep")},
+    **{k: "of_spmm_tpu_torch/csrc/microbench_gather2.cu"
+       for k in ("gather2_onehot_pair", "gather2_window_pair", "gather2_twosided")},
+    "dyngather_take_along": "of_spmm_tpu_torch/csrc/microbench_dyngather.cu",
+    "dyngather_smem_cap": "of_spmm_tpu_torch/csrc/microbench_dyngather.cu",
 }
 REPLACES = {
     "bucket_spmm": "of_spmm_tpu/ops/pallas/spmm.py:46",
@@ -120,6 +136,18 @@ REPLACES = {
     "microbench_mxu": "tools/microbench_mxu.py:88",
     "microbench_cond": "tools/microbench_cond.py:105",
     "proto_fused": "tools/proto_fused.py:131",
+    "gather_vmem_loop": "tools/microbench_gather.py:138",
+    "gather_vmem_take": "tools/microbench_gather.py:175",
+    "gather_onehot": "tools/microbench_gather.py:219",
+    "gather_block_slice": "tools/microbench_gather.py:263",
+    "gather_row_dma": "tools/microbench_gather.py:314",
+    "gather2_onehot_pair": "tools/microbench_gather2.py:57",
+    "gather2_take_fused": "tools/microbench_gather2.py:95",
+    "gather2_dma_deep": "tools/microbench_gather2.py:150",
+    "gather2_window_pair": "tools/microbench_gather2.py:210",
+    "gather2_twosided": "tools/microbench_gather2.py:294",
+    "dyngather_take_along": "tools/microbench_dyngather.py:54",
+    "dyngather_smem_cap": "tools/microbench_dyngather.py:85",
 }
 # the engines whose plan is a FusedPlan / RangesPlan: kernel module, plan type
 STAGED = {"fused": (fkernels, FusedPlan), "ranges": (rkernels, RangesPlan)}
@@ -160,10 +188,49 @@ BLOCKFMA_SMALL = ((64, 256, 32, 1), (1000, 8192, 64, 2))  # C, T, K, seed
 MXU_SMALL = ((3, 1), (50, 2))                            # S, seed
 COND_SMALL = ((3, 1), (40, 2))                           # steps, seed
 PROTO_SMALL = ((4096, 128, 256, 1600, 2, 1), (50_000, 512, 1024, 3200, 5, 2))  # N R T S TILES seed
-# the variant whose time stands in the kernels line
+# the variant whose time stands in the kernels line: the TPU function's
+# default size where its tool's main() runs it, else main()'s first run
 MICROBENCH_MAIN = {"microbench_blockfma_a": "A", "microbench_blockfma_b": "B",
                    "microbench_mxu": "chain2", "microbench_cond": "nocond",
-                   "proto_fused": "fused"}
+                   "proto_fused": "fused",
+                   "gather_vmem_loop": "C=8192", "gather_vmem_take": "C=8192",
+                   "gather_onehot": "C=512 float32", "gather_block_slice": "C=8192",
+                   "gather_row_dma": "W=16", "gather2_onehot_pair": "C=128",
+                   "gather2_take_fused": "C=16384", "gather2_dma_deep": "W=32",
+                   "gather2_window_pair": "TILE=1024 CW=128",
+                   "gather2_twosided": "TILE=1024 CW=256 R=256",
+                   "dyngather_take_along": "tala_eq C=2048 T=2048",
+                   "dyngather_smem_cap": "largest that works"}
+# the gather kernels against their plain versions: bit-exact where the
+# kernel moves values (row gathers, one-hot products: 1 x v plus zeros, the
+# hi + lo add in float32), elementwise 1e-5 + 1e-4|p| where it sums
+# positive terms in another order (the ELL forms, block_slice), normwise
+# 1e-4 max|p| for twosided (lanes added with atomics in no fixed order)
+GATHER_EXACT = ("gather_vmem_take", "gather_onehot", "gather2_onehot_pair",
+                "gather2_window_pair", "dyngather_take_along", "dyngather_smem_cap")
+# two small seeded cases per kernel (seeds 1 and 2), beside every row of
+# its tool's run at the default size (seed 0): odd widths, partial waves,
+# windows that are not a multiple of the staged chunk
+GATHER_SMALL = {
+    "gather_vmem_loop": (dict(C=64, T=2048, K=16), dict(C=1000, T=1 << 16, K=128)),
+    "gather_vmem_take": (dict(C=64, T=2048), dict(C=5000, T=1 << 16)),
+    "gather_onehot": (dict(C=64, T=2048, dtype="float32"),
+                      dict(C=300, T=1 << 14, dtype="bfloat16")),
+    "gather_block_slice": (dict(C=64, T=2048, K=8), dict(C=3000, T=1 << 17, K=64)),
+    "gather_row_dma": (dict(table_rows=300, T=2048, W=16),
+                       dict(table_rows=100_000, T=1 << 15, W=7)),
+    "gather2_onehot_pair": (dict(C=64, T=2048), dict(C=200, T=1 << 14)),
+    "gather2_take_fused": (dict(C=64, T=2048, K=8), dict(C=5000, T=1 << 16, K=8)),
+    "gather2_dma_deep": (dict(table_rows=300, T=2048, W=128),
+                         dict(table_rows=100_000, T=1 << 15, W=48)),
+    "gather2_window_pair": (dict(TILE=1024, CW=128, T=2048, U=300),
+                            dict(TILE=256, CW=100, T=1 << 14, U=2000)),
+    "gather2_twosided": (dict(TILE=512, CW=128, R=64, T=4096),
+                         dict(TILE=256, CW=200, R=300, T=1 << 14)),
+    "dyngather_take_along": (dict(C=64, T=32, shape="ne", steps=2),
+                             dict(C=5000, T=300, shape="bcast", steps=3)),
+    "dyngather_smem_cap": (dict(nbytes=4096), dict(nbytes=49168)),
+}
 
 # A bucket column one past the end of x: the kernel must stop with a
 # device-side assertion. Run in a child process, because the assertion
@@ -191,6 +258,18 @@ op = make_operator(CSR.from_dense(dense), layout="panels")  # per-edge: every ro
 for seg in op.binned.segments:
     seg.stage_take.fill_(1 << 30)
 spmm_internal(op, torch.zeros((1024, 8), device="cuda"))
+torch.cuda.synchronize()
+print("no error")
+"""
+
+# A row index one past the end of the tier: the gather kernels must stop
+# with a device-side assertion (child process, as above).
+BAD_GATHER_PROBE = """
+import torch
+from of_spmm_tpu_torch.ops.cuda import microbench_gather as kgather
+cols = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
+cols[0, 77] = 64
+kgather.vmem_take(cols, torch.zeros((64, 128), device="cuda"))
 torch.cuda.synchronize()
 print("no error")
 """
@@ -1219,13 +1298,13 @@ def check_norm(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return err
 
 
-def run_tool(tool, expected: dict) -> tuple:
+def run_tool(tool, expected: dict, argv: tuple = ()) -> tuple:
     """The tool's entry point at its default size, on the card (its printed
     lines go to stderr), with every launch count set to 0 just before it;
     (its rows, the counts just after), the counts held to ``expected``."""
     kernels.reset_launch_counts()
     with contextlib.redirect_stdout(sys.stderr):
-        rows = tool.main([])
+        rows = tool.main(list(argv))
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     want = {k: 0 for k in SOURCES}
@@ -1339,19 +1418,215 @@ def proto_phase(dev) -> tuple:
     return rows, launches
 
 
+# the gather kernel's inputs and the sizes a tool row carries for them
+GATHER_KEYS = {
+    "gather_vmem_loop": ("C", "T", "K"), "gather_vmem_take": ("C", "T"),
+    "gather_onehot": ("C", "T", "dtype"), "gather_block_slice": ("C", "T", "K"),
+    "gather_row_dma": ("table_rows", "T", "W"), "gather2_onehot_pair": ("C", "T"),
+    "gather2_take_fused": ("C", "T", "K"), "gather2_dma_deep": ("table_rows", "T", "W"),
+    "gather2_window_pair": ("TILE", "CW", "T", "U"), "gather2_twosided": ("TILE", "CW", "R", "T"),
+    "dyngather_take_along": ("C", "T", "shape", "steps"), "dyngather_smem_cap": ("nbytes",),
+}
+
+
+def gather_case(kernel: str, dev, seed: int, **p) -> tuple:
+    """(kernel call, plain call, (library call's name, the call) or None)
+    of one gather kernel on its tool's seeded inputs at the sizes ``p``,
+    placed on ``dev``. A library call's index arrays are built here,
+    outside the timed call."""
+    def on(ts):
+        return [t.to(dev) for t in ts]
+
+    def bag(idx, table, w=None):
+        return ("torch.nn.functional.embedding_bag",
+                lambda: F.embedding_bag(idx, table, per_sample_weights=w, mode="sum"))
+
+    def select(table, idx):
+        return "torch.index_select", lambda: torch.index_select(table, 0, idx)
+
+    if kernel in ("gather_vmem_loop", "gather2_take_fused"):
+        loop = kernel == "gather_vmem_loop"
+        make = tgather.inputs_vmem_loop if loop else tgather2.inputs_take_fused
+        cols, vals, tier = on(make(p["C"], p["T"], p["K"], seed))
+        k, plain = ((kgather.vmem_loop, kgather.vmem_loop_torch) if loop
+                    else (kgather2.take_fused, kgather2.take_fused_torch))
+        return (lambda: k(cols, vals, tier), lambda: plain(cols, vals, tier),
+                bag(cols.long(), tier, vals))
+    if kernel in ("gather_vmem_take", "gather_onehot"):
+        dtype = getattr(torch, p.get("dtype", "float32"))
+        cols, tier = on(tgather.inputs_take(p["C"], p["T"], seed, dtype))
+        k, plain = ((kgather.vmem_take, kgather.vmem_take_torch) if kernel == "gather_vmem_take"
+                    else (kgather.onehot, kgather.onehot_torch))
+        return (lambda: k(cols, tier), lambda: plain(cols, tier),
+                select(tier.float(), cols.reshape(-1).long()))
+    if kernel == "gather_block_slice":
+        starts, tier = on(tgather.inputs_block_slice(p["C"], p["T"], p["K"], seed))
+        s8 = starts.view(starts.shape[0] // 8, -1).long()
+        idx = (s8[:, None, :] + torch.arange(8, device=dev)[None, :, None]).reshape(
+            starts.shape[0], -1)
+        return (lambda: kgather.block_slice(starts, tier),
+                lambda: kgather.block_slice_torch(starts, tier), bag(idx, tier))
+    if kernel in ("gather_row_dma", "gather2_dma_deep"):
+        cols, table = on(tgather.inputs_row_dma(p["table_rows"], p["T"], seed))
+        W = p["W"]
+        if kernel == "gather_row_dma":
+            k, plain, group = kgather.row_dma, kgather.row_dma_torch, kgather.GROUP
+        else:
+            k, plain, group = kgather2.dma_deep, kgather2.dma_deep_torch, kgather2.DEEP_GROUP
+        return (lambda: k(cols, table, W), lambda: plain(cols, table, W),
+                bag(cols.view(-1, group).long(), table))
+    if kernel == "gather2_onehot_pair":
+        cols, hi, lo = on(tgather2.inputs_onehot_pair(p["C"], p["T"], seed))
+        return (lambda: kgather2.onehot_pair(cols, hi, lo),
+                lambda: kgather2.onehot_pair_torch(cols, hi, lo),
+                select(hi.float() + lo.float(), cols.reshape(-1).long()))
+    if kernel in ("gather2_window_pair", "gather2_twosided"):
+        TILE, CW, T = p["TILE"], p["CW"], p["T"]
+        if kernel == "gather2_twosided":
+            bases, lidx, rows, vals, hi, lo = on(tgather2.inputs_twosided(TILE, CW, p["R"], T,
+                                                                         seed=seed))
+            args = (bases, lidx, rows, vals, hi, lo, CW, p["R"])
+            return (lambda: kgather2.twosided(*args), lambda: kgather2.twosided_torch(*args),
+                    None)
+        *made, _ = tgather2.inputs_window_pair(TILE, CW, T, U=p["U"], seed=seed)
+        bases, lidx, hi, lo = on(made)
+        src = bases.view(-1).long().repeat_interleave(TILE) + lidx.view(-1).long()
+        return (lambda: kgather2.window_pair(bases, lidx, hi, lo, CW),
+                lambda: kgather2.window_pair_torch(bases, lidx, hi, lo, CW),
+                select(hi.float() + lo.float(), src))
+    if kernel == "dyngather_take_along":
+        idx, table = on(tdyn.inputs(p["C"], p["T"], p["shape"], seed))
+        steps, idx_l = p["steps"], idx.long()
+        return (lambda: kdyn.take_along(idx, table, steps),
+                lambda: kdyn.take_along_torch(idx, table, steps),
+                ("torch.gather", lambda: torch.gather(table, 0, idx_l)))
+    if kernel == "dyngather_smem_cap":
+        x = torch.from_numpy(np.random.default_rng(seed).random((8, 128), np.float32)).to(dev)
+        n = p["nbytes"]
+        return lambda: kdyn.smem_cap(x, n), lambda: kdyn.smem_cap_torch(x, n), None
+    raise ValueError(f"no gather kernel {kernel!r}")
+
+
+def gather_check(kernel: str, got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """The kernel's result against its plain version at the kernel's
+    tolerance (GATHER_EXACT bit for bit); returns max |k - p|."""
+    torch.cuda.synchronize()
+    if kernel in GATHER_EXACT:
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{what}: not bit-exact against the plain version")
+        return 0.0
+    if kernel == "gather2_twosided":
+        return check_norm(got, want, what)
+    return check_close(got, want, what)
+
+
+def gather_rows_check(dev, rows: list) -> None:
+    """Every kernel row of a gather tool's run: the kernel against its plain
+    version on the row's inputs (the default size, seed 0) and on
+    GATHER_SMALL's cases; the plain version's and the library call's times
+    (the library's result held to the plain version's as well)."""
+    small_err = {}
+    with torch.inference_mode():
+        for row in rows:
+            k = row["kernel"]
+            if k is None:
+                continue
+            run, plain, lib = gather_case(k, dev, 0, **{key: row[key] for key in GATHER_KEYS[k]})
+            want = plain()
+            row["max_abs_err"] = gather_check(k, run(), want, f"{k} {row['variant']}")
+            row["plain_ms"] = time_cuda(plain, iters=3)
+            row["library"], row["library_ms"] = None, None
+            if lib is not None:
+                check_close(lib[1](), want, f"{lib[0]} for {k} {row['variant']}")
+                row["library"], row["library_ms"] = lib[0], time_cuda(lib[1], iters=10)
+            del run, plain, lib, want
+            if k not in small_err:
+                small_err[k] = 0.0
+                for seed, size in enumerate(GATHER_SMALL[k], start=1):
+                    run, plain, _ = gather_case(k, dev, seed, **size)
+                    small_err[k] = max(small_err[k], gather_check(k, run(), plain(),
+                                                                  f"{k} {size} seed {seed}"))
+    for row in rows:
+        if row["kernel"] is not None:
+            row["max_abs_err"] = max(row["max_abs_err"], small_err[row["kernel"]])
+
+
+def gather_phase(dev) -> tuple:
+    """tools/microbench_gather at its default size through its entry point,
+    then its kernels against their plain versions, the plain versions' and
+    the library calls' times, and a device-assert probe."""
+    calls = WARMUP_CALLS + tgather.ITERS
+    rows, launches = run_tool(tgather, {"gather_vmem_loop": len(tgather.VMEM_C) * calls,
+                                        "gather_vmem_take": len(tgather.TAKE_C) * calls,
+                                        "gather_onehot": 2 * len(tgather.ONEHOT_C) * calls,
+                                        "gather_block_slice": calls, "gather_row_dma": calls})
+    gather_rows_check(dev, rows)
+    expect_device_assert(BAD_GATHER_PROBE, "vmem_take with a row outside the tier")
+    return rows, launches
+
+
+def gather2_phase(dev) -> tuple:
+    """tools/microbench_gather2 with its default list plus window and
+    twosided, then as gather_phase."""
+    calls = WARMUP_CALLS + tgather.ITERS
+    g = tgather2
+    rows, launches = run_tool(g, {"gather_vmem_take": len(g.VTAKE_C) * calls,
+                                  "gather_onehot": len(g.SMALL_C) * calls,
+                                  "gather2_onehot_pair": len(g.SMALL_C) * calls,
+                                  "gather2_take_fused": len(g.FUSED_C) * calls,
+                                  "gather2_dma_deep": len(g.DEEP_W) * calls,
+                                  "gather2_window_pair": len(g.WINDOW) * calls,
+                                  "gather2_twosided": len(g.TWOSIDED) * calls},
+                              argv=(*g.DEFAULT, "window", "twosided"))
+    gather_rows_check(dev, rows)
+    return rows, launches
+
+
+def dyngather_phase(dev) -> tuple:
+    """tools/microbench_dyngather at its default size through its entry
+    point (vmem_cap must find the card's opt-in limit: every larger size
+    refused), then as gather_phase."""
+    calls = WARMUP_CALLS + tdyn.ITERS
+    rows, launches = run_tool(tdyn, {"dyngather_take_along": len(tdyn.RUNS) * calls,
+                                     "dyngather_smem_cap": 1 + calls})
+    cap = next(r for r in rows if r["kernel"] == "dyngather_smem_cap")
+    limit = cap["optin_limit"]
+    if cap["nbytes"] != limit or any(ok != (n <= limit) for n, ok in cap["tried"]):
+        raise AssertionError(f"vmem_cap: sizes {cap['tried']} against the opt-in limit {limit}")
+    gather_rows_check(dev, rows)
+    return rows, launches
+
+
 def microbench_entry(name: str, rows: list, launches: dict) -> dict:
     """The kernels-line entry of one microbenchmark kernel: its main
-    variant's times and bound, every variant's beside them."""
+    variant's times and bound, and for a one-hot product the share of the
+    peak its prescribed multiply-adds reach. The SpMM inner-loop kernels
+    list every variant's beside them; the gathers' variants (45 rows) are
+    in their tools' phase lines only, which keeps this line under 16 KB."""
     main_row = next(r for r in rows if r["variant"] == MICROBENCH_MAIN[name])
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches[name],
-            "launches_scope": "one run of the entry point at its default size",
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{k: main_row[k] for k in keys}, "library_ms": None,
-            "times_scope": f"variant {MICROBENCH_MAIN[name]} at the tool's default size",
-            "variants": [{"variant": r["variant"], **{k: r[k] for k in keys},
-                          "fraction_of_bound": r["fraction_of_bound"]} for r in rows]}
+    entry = {"name": name, "route": "cuda", "source": SOURCES[name],
+             "replaces": REPLACES[name], "launches": launches[name],
+             "launches_scope": "one run of the entry point at its default size",
+             "max_abs_err": max(r["max_abs_err"] for r in rows),
+             **{k: main_row[k] for k in keys}, "library_ms": main_row.get("library_ms"),
+             **({"library": main_row["library"]} if main_row.get("library") else {}),
+             **{k: main_row[k] for k in ("onehot_macs", "onehot_mac_fraction") if k in main_row},
+             "times_scope": f"variant {MICROBENCH_MAIN[name]} at the tool's default size"}
+    if "gather" not in tool_of(name):
+        entry["variants"] = [{"variant": r["variant"], **{k: r[k] for k in keys},
+                              "fraction_of_bound": r["fraction_of_bound"]} for r in rows]
+    return entry
+
+
+def tool_of(kname: str) -> str:
+    """The tool whose entry point drives a microbenchmark kernel."""
+    for prefix, tool in (("microbench_blockfma", "microbench_blockfma"),
+                         ("gather2_", "microbench_gather2"), ("gather_", "microbench_gather"),
+                         ("dyngather_", "microbench_dyngather")):
+        if kname.startswith(prefix):
+            return tool
+    return kname
 
 
 def main() -> int:
@@ -1381,7 +1656,7 @@ def main() -> int:
     planner = threading.Thread(target=native.available)
     planner.start()
     kmods = (kernels, pkernels, fkernels, rkernels, ekernels, e2kernels, fakernels, kblockfma,
-             kmxu, kcond, kproto)
+             kmxu, kcond, kproto, kgather, kgather2, kdyn)
     with ThreadPoolExecutor(len(kmods)) as pool:
         futures = {k.SOURCE: pool.submit(k.build) for k in kmods}
         built = {src: f.result() for src, f in futures.items()}
@@ -1800,22 +2075,29 @@ def main() -> int:
                                      max(r["max_abs_err"] for r in fa_rows
                                          if r["dtype"] == "float32"))
 
-    # -- 24.-27. the SpMM inner-loop microbenchmarks: each tool's entry point
-    #            at its default size, then its kernels against their plain
+    # -- 24.-30. the microbenchmarks: each tool's entry point at its
+    #            default size, then its kernels against their plain
     #            versions -------------------------------------------------------
     micro = {}
+    gather_tol = ("bit-exact: row gathers, one-hot products, take_along, smem_cap; "
+                  "|k-p| <= 1e-5 + 1e-4|p|: ELL forms, block_slice; "
+                  f"max|k-p| <= {MICROBENCH_NORM_TOL} max|p|: twosided")
     for tool, phase in (("microbench_blockfma", blockfma_phase), ("microbench_mxu", mxu_phase),
-                        ("microbench_cond", cond_phase), ("proto_fused", proto_phase)):
+                        ("microbench_cond", cond_phase), ("proto_fused", proto_phase),
+                        ("microbench_gather", gather_phase),
+                        ("microbench_gather2", gather2_phase),
+                        ("microbench_dyngather", dyngather_phase)):
         t0 = time.perf_counter()
         rows, tool_launches = phase(dev)
         micro[tool] = (rows, tool_launches)
         emit(tool, seconds=round(time.perf_counter() - t0, 2),
              launches={k: n for k, n in tool_launches.items() if n},
              tolerance=("|k-p| <= 1e-5 + 1e-4|p|" if tool in ("microbench_blockfma", "proto_fused")
+                        else gather_tol if "gather" in tool
                         else f"max|k-p| <= {MICROBENCH_NORM_TOL} max|p|"),
              rows=rows)
 
-    # -- 28. the kernels, 29. the card, 30. the result ------------------------
+    # -- 31. the kernels, 32. the card, 33. the result ------------------------
     # launches: one GCN forward (three SpMMs) on the kernel's engine, or
     # (expansion2) the two arxiv SpMMs of its entry point; the times and
     # the bound: all launches of one SpMM at d=128, launches_per_spmm of
@@ -1853,10 +2135,12 @@ def main() -> int:
          "max_abs_err_by_dtype": fcases["max_abs_err"],
          "times_scope": "one call at (BH, T, d) = (96, 512, 64), float32, non-causal"})
     for kname, variant in MICROBENCH_MAIN.items():
-        tool = "microbench_blockfma" if kname.startswith("microbench_blockfma") else kname
+        tool = tool_of(kname)
         rows, tool_launches = micro[tool]
         if tool == "microbench_blockfma":
             rows = [r for r in rows if r["variant"] == variant]
+        elif "gather" in tool:
+            rows = [r for r in rows if r["kernel"] == kname]
         entries.append(microbench_entry(kname, rows, tool_launches))
     print(json.dumps({"kernels": entries}), flush=True)
     print(smi, flush=True)

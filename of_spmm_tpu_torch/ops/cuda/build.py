@@ -34,7 +34,13 @@ LAUNCHES: Dict[str, int] = {"bucket_spmm": 0, "gather_rows": 0, "panel_spmm": 0,
                             "fused_spmm": 0, "ranges_spmm": 0, "expansion_spmm": 0,
                             "expansion2_spmm": 0, "flash_attention": 0,
                             "microbench_blockfma_a": 0, "microbench_blockfma_b": 0,
-                            "microbench_mxu": 0, "microbench_cond": 0, "proto_fused": 0}
+                            "microbench_mxu": 0, "microbench_cond": 0, "proto_fused": 0,
+                            "gather_vmem_loop": 0, "gather_vmem_take": 0, "gather_onehot": 0,
+                            "gather_block_slice": 0, "gather_row_dma": 0,
+                            "gather2_onehot_pair": 0, "gather2_take_fused": 0,
+                            "gather2_dma_deep": 0, "gather2_window_pair": 0,
+                            "gather2_twosided": 0, "dyngather_take_along": 0,
+                            "dyngather_smem_cap": 0}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

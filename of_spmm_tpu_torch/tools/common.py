@@ -59,10 +59,27 @@ def bound_fields(work: KernelWork, ms: float, device: torch.device) -> Dict[str,
             "bound_ms": bound, "bound_by": by, "fraction_of_bound": bound / ms}
 
 
+def onehot_mac_fields(macs: int, tensor_cores: bool, ms: float,
+                      device: torch.device) -> Dict[str, object]:
+    """A TPU one-hot product's multiply-adds (utils/roofline.onehot_macs),
+    reported beside the bound: their count and, on the card, the least
+    time they take at the peak of the units that run them (the bf16 tensor
+    cores, else float32 on the CUDA cores) as a fraction of ``ms``."""
+    row = {"onehot_macs": macs}
+    if device.type == "cuda":
+        name = torch.cuda.get_device_name(device)
+        peak = detect_peak_tensor16(name) if tensor_cores else detect_peak_fp32(name)
+        row["onehot_mac_ms"] = 2 * macs / peak * 1e3
+        row["onehot_mac_fraction"] = row["onehot_mac_ms"] / ms
+    return row
+
+
 def describe(row: Dict[str, object], units: str) -> str:
     """One printed line for a measured row."""
     if row["device"] == "cpu":
         return f"{units}  host {row['ms']:.4f} ms (cpu: no device bound)"
+    macs = (f"  one-hot MACs {row['onehot_mac_fraction']:.3f} of peak"
+            if "onehot_mac_fraction" in row else "")
     return (f"{units}  {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
-            f"  fraction {row['fraction_of_bound']:.3f}  [{row['device']}]")
+            f"  fraction {row['fraction_of_bound']:.3f}{macs}  [{row['device']}]")
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import statistics
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -471,3 +471,105 @@ def proto_fused_work(mode: str, scols: torch.Tensor, lidx: torch.Tensor, lrow: t
     nbytes = _distinct(src) * L * 4 + 2 * lanes * 4 + TILES * SPT * G * 4 + out_bytes
     nbytes += stage_idx if mode == "fused" else 0
     return KernelWork(nbytes, 2 * lanes * L)
+
+
+def row_gather_work(cols: torch.Tensor, table: torch.Tensor) -> KernelWork:
+    """tools/microbench_gather.py bench_vmem_take: the distinct table rows
+    cols names, cols, and one output row per index; no operations."""
+    row = table.shape[1] * table.element_size()
+    return KernelWork(_distinct(cols) * row + cols.nbytes + cols.numel() * 4 * table.shape[1], 0)
+
+
+def ell_work(cols: torch.Tensor, K: int, table: torch.Tensor,
+             vals: Optional[torch.Tensor] = None) -> KernelWork:
+    """An ELL gather-reduce, out[o] = sum over k < K of (vals[o, k] *)
+    table[flat cols[K o + k]]: bench_vmem_loop and bench_take_fused
+    (weighted), bench_row_dma and bench_dma_deep (unweighted). The
+    distinct rows cols names, cols, vals and the output; per index and
+    column 2 flops weighted (the multiply-add), 1 unweighted (the add)."""
+    d = table.shape[1]
+    n_out = cols.numel() // K
+    nbytes = _distinct(cols) * d * table.element_size() + cols.nbytes + n_out * d * 4
+    nbytes += 0 if vals is None else vals.nbytes
+    return KernelWork(nbytes, (1 if vals is None else 2) * cols.numel() * d)
+
+
+def _window_rows(idx: torch.Tensor, window: int, bases: Optional[torch.Tensor],
+                 tile: int) -> int:
+    """Distinct table rows a one-hot gather reads: base + index for each
+    index in [0, window) (an index outside it selects no row)."""
+    flat = idx.reshape(-1).long()
+    keep = (flat >= 0) & (flat < window)
+    if bases is not None:
+        flat = flat + bases.reshape(-1).long().repeat_interleave(tile)
+    return _distinct(flat[keep])
+
+
+def onehot_work(cols: torch.Tensor, tables: Sequence[torch.Tensor], window: int,
+                bases: Optional[torch.Tensor] = None) -> KernelWork:
+    """A one-hot product gather, out[t] = sum over tables of
+    f32(table[base + cols[t]]), or a zero row where cols[t] lies outside
+    the ``window`` rows: bench_onehot_mxu (one table, the window its C
+    rows), bench_onehot_pair (hi and lo), bench_window_pair (hi and lo,
+    ``window`` CW rows at a base per step of T / len(bases) lanes). The
+    function is a row gather. Bytes: the distinct rows the indices select
+    in every table, cols, bases and the float32 output. Operations: the
+    float32 add of the tables' rows, 1 flop per lane and column for each
+    table past the first. The one-hot multiply-adds the TPU kernel
+    prescribes are not work the function needs: onehot_macs counts them."""
+    T, d = cols.numel(), tables[0].shape[1]
+    tile = T // bases.numel() if bases is not None else T
+    rows = _window_rows(cols, window, bases, tile)
+    nbytes = rows * sum(d * t.element_size() for t in tables) + cols.nbytes + T * d * 4
+    nbytes += 0 if bases is None else bases.nbytes
+    return KernelWork(nbytes, (len(tables) - 1) * T * d)
+
+
+def onehot_macs(cols: torch.Tensor, n_tables: int, window: int) -> int:
+    """The multiply-adds of a TPU one-hot product gather: window x 128 per
+    lane and table (the (T, window) one-hot times each (window, 128)
+    table). What tools/microbench_gather.py's onehot rows price on the
+    TPU's matrix unit; reported beside a bound, never in it."""
+    return cols.numel() * window * 128 * n_tables
+
+
+def block_slice_work(starts: torch.Tensor, tier: torch.Tensor) -> KernelWork:
+    """bench_block_slice: the distinct tier rows of every 8-row block
+    [s, s + 8), starts and the output (8 rows per step of 8 x K starts);
+    one add per (start, block row, column)."""
+    d = tier.shape[1]
+    rows = _distinct(starts.long()[..., None] + torch.arange(8, device=starts.device))
+    return KernelWork(rows * d * 4 + starts.nbytes + starts.shape[0] * d * 4,
+                      starts.numel() * 8 * d)
+
+
+def twosided_work(bases: torch.Tensor, lidx: torch.Tensor, rows: torch.Tensor,
+                  vals: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor, CW: int,
+                  R: int) -> KernelWork:
+    """tools/microbench_gather2.py bench_twosided: the window pair gather's
+    bytes as onehot_work counts them, but the (R, 128) float32 output in
+    place of the gathered rows, plus rows and vals read; 2 flops per lane
+    and column on the CUDA cores (the value's scale and the add into the
+    output; the gather's hi + lo add and the split are not counted). The
+    TPU's one-hot products (the window gather and the scatter over R
+    rows) are how the TPU gathers and adds, not work the function needs."""
+    g = onehot_work(lidx, (hi, lo), CW, bases)
+    d = hi.shape[1]
+    nbytes = g.bytes - lidx.numel() * d * 4 + rows.nbytes + vals.nbytes + R * d * 4
+    return KernelWork(nbytes, 2 * lidx.numel() * d)
+
+
+def take_along_work(idx: torch.Tensor, table: torch.Tensor) -> KernelWork:
+    """tools/microbench_dyngather.py _run: one pass of
+    out[t, l] = table[idx[t, l], l]; the distinct table elements it reads,
+    idx and the output. The TPU grid repeats the pass ``steps`` times on
+    the same blocks; inputs read once and the output written once is one
+    pass's bytes."""
+    d = table.shape[1]
+    elems = _distinct(idx.long() * d + torch.arange(d, device=idx.device))
+    return KernelWork(elems * 4 + idx.nbytes + idx.numel() * 4, 0)
+
+
+def smem_cap_work(x: torch.Tensor) -> KernelWork:
+    """tools/microbench_dyngather.py vmem_cap: x read and written once."""
+    return KernelWork(2 * x.nbytes, 0)
