@@ -44,6 +44,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -85,7 +86,8 @@ from of_spmm_tpu_torch.sparse.expansion2 import build_expansion2_plan
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
 from of_spmm_tpu_torch.sparse.fused import FusedPlan, build_fused_plan
 from of_spmm_tpu_torch.sparse.panels import (
-    C_SBIG, C_TFIRST, C_TILE, PanelPlan, attach_windows, build_panels_plan, ensure_masks)
+    C_SBIG, C_TFIRST, C_TILE, UNIT_EDGES, PanelPlan, attach_windows, build_panels_plan,
+    ensure_masks, work_units)
 from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
 from of_spmm_tpu_torch.tools import microbench_blockfma as tblockfma
@@ -160,20 +162,25 @@ FEATURE_WIDTHS = (128, 256, 60)
 STAGED_WIDTHS = (128, 256, 60, 7)  # the fused and ranges kernels: float4 and scalar paths
 GCN_DIMS = (128, 256, 256, 40)  # OGB's GCN baseline for ogbn-arxiv: 3 layers, hidden 256
 MAIN_PATH_REL_TOL = 1e-4
+PANEL_WIDTHS = (128, 256, 60, 7)  # the panel kernel: float4 and scalar paths
+PANEL_BATCH, PANEL_LIST, PANEL_CHUNK = 8, 4096, 8  # csrc/panels.cu kBatch, kListCap, kChunk
+UNIT_CAPS = (2048, 4096, 8192, 16384, 65536)  # work-unit edge caps the panel phases time
 # flash_attention against its plain version, |k - p| <= atol + rtol |p| in
 # the working type: bf16 / fp16 are looser because the kernel sums in
 # another order and rounds P to that type before P V
 FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-2),
              torch.float16: (1e-2, 1e-2)}
 # (BH, Tq, Tk, d, block_q, block_k, causal): the JAX tests' shapes, T = 100
-# at the default blocks, Tq != Tk causal, and the head widths of the
-# repository (8, 32, 64, 128) up to the kernel's limit (256); T = 100 and
-# 160 leave ragged ends of the kernel's 64-row tiles
+# at the default blocks, Tq != Tk both ways, and the head widths of the
+# repository (8, 32, 64, 128) up to the kernel's limit (256), with 40 and
+# 80 (padded to 48 and 80 by the bf16 / fp16 kernel); T = 100 and 160
+# leave ragged ends of the kernel's 64-row tiles
 FLASH_CASES = ((6, 128, 128, 128, 128, 128, False), (6, 128, 128, 128, 128, 128, True),
                (6, 384, 384, 128, 128, 128, False), (6, 384, 384, 128, 128, 128, True),
                (6, 100, 100, 64, 256, 256, False), (6, 100, 100, 64, 256, 256, True),
-               (6, 128, 256, 64, 128, 128, True), (6, 256, 128, 64, 128, 128, True),
-               *((4, 160, 160, d, 256, 256, c) for d in (8, 32, 64, 128, 256)
+               *((6, 128, 256, 64, 128, 128, c) for c in (False, True)),
+               *((6, 256, 128, 64, 128, 128, c) for c in (False, True)),
+               *((4, 160, 160, d, 256, 256, c) for d in (8, 32, 40, 64, 80, 128, 256)
                  for c in (False, True)))
 BERT_BATCH, BERT_SEQ = 8, 512  # BERT-base attention: BH = 96 heads of d = 64
 GRAD_TOL = 2e-4  # tests/test_flash_attention.py's bar for the flash gradients
@@ -482,7 +489,8 @@ def panel_cases(rng):
     """Placed panel plans that cover, between them, every shape the kernel
     meets: hot rows, several ranges (one at the clamped top end of X),
     several segments, direct rows, tiles split into scattered pieces, big
-    (SCQ) scattered chunks, and the per-edge mode. Yields (name, plan);
+    (SCQ) scattered chunks, hub-heavy tiles cut into several work units
+    (added with atomics), and the per-edge mode. Yields (name, plan);
     raises if a plan lacks what it is here for."""
     dev = torch.device("cuda", 0)
 
@@ -511,6 +519,10 @@ def panel_cases(rng):
     if not any(bool((s.ctrl[:, 0, C_SBIG] > 0).any()) for s in plan.segments):
         raise AssertionError("big-chunk case stages no SCQ chunk")
     yield "big scattered chunks", plan
+    plan = placed(rank1_graph(2000, 6000, rng, per_row=3, band=8, hubs=200))
+    if not any(int(s.windows.split_tiles.shape[0]) for s in plan.segments):
+        raise AssertionError("hub case cuts no tile into several work units")
+    yield "hub tiles cut into work units", plan
     n, mm, nnz = 3000, 4000, 60_000
     coo = COO.from_arrays(rng.integers(0, n, nnz).astype(np.int32),
                           rng.integers(0, mm, nnz).astype(np.int32),
@@ -545,24 +557,91 @@ def panel_figures(plan: PanelPlan, sp: torch.Tensor, x_rows: int, nnz: int, d: i
             "bound_ms": bound, "bound_by": by}
 
 
+def unit_warp_edges(slot_edges: np.ndarray) -> int:
+    """Edges the busiest warp of a panel block walks over one work unit
+    whose slots hold ``slot_edges`` mask bits: per batch of PANEL_BATCH
+    slots the batch's edges are listed PANEL_LIST at a time and dealt to
+    the 16 warps in chunks of PANEL_CHUNK, round robin, so warp 0 has the
+    most (csrc/panels.cu)."""
+    total = 0
+    for b0 in range(0, slot_edges.shape[0], PANEL_BATCH):
+        n = int(slot_edges[b0:b0 + PANEL_BATCH].sum())
+        for r0 in range(0, n, PANEL_LIST):
+            k = min(PANEL_LIST, n - r0)
+            starts = np.arange(0, k, 16 * PANEL_CHUNK)
+            total += int(np.minimum(PANEL_CHUNK, k - starts).sum())
+    return total
+
+
 def tile_load(plan: PanelPlan) -> dict:
-    """How the panel kernel's work falls on its blocks and warps: edges
-    (mask bits) per 128-row output tile (one block each), per warp's 8
-    rows and per row, counted on the host from a compact plan's edges."""
+    """How the panel kernel's work falls on its blocks and warps, counted
+    on the host from a compact plan's edges: edges (mask bits) per
+    128-row output tile and per row; the work list (sparse/panels.py
+    work_units at the edge cap E): units (one block each), the heaviest
+    unit, the tiles cut into several units, and the edges of the busiest
+    warp of any block; and, for the first design (one block per tile,
+    8 fixed rows per warp), that design's busiest warp."""
     G = plan.T // 128
+    E = UNIT_EDGES
     rows, tile0 = [], 0
+    n_units = split = unit_max = warp_max = 0
     for seg in plan.segments:
         slot = np.repeat(np.arange(seg.mask_counts.shape[0]), seg.mask_counts.astype(np.int64))
         tile = tile0 + seg.ctrl[slot // G, 0, C_TILE].astype(np.int64)
         rows.append(tile * 128 + (seg.mask_edges.astype(np.int64) & 255))
         tile0 += seg.n_tiles
+        slots, units, split_tiles = work_units(seg.ctrl[:, 0, C_TILE], seg.mask_counts, G,
+                                               seg.n_tiles, E)
+        edges = seg.mask_counts.astype(np.int64)[slots]
+        n_units += units.shape[0]
+        split += split_tiles.shape[0]
+        for _tile, a, b in units:
+            unit_max = max(unit_max, int(edges[a:b].sum()))
+            warp_max = max(warp_max, unit_warp_edges(edges[a:b]))
     per_row = np.bincount(np.concatenate(rows), minlength=tile0 * 128)
     per_tile = per_row.reshape(tile0, 128).sum(1)
     per_warp = per_row.reshape(tile0, 16, 8).sum(2)
     return {"tiles": tile0, "tile_edges_mean": float(per_tile.mean()),
             "tile_edges_p99": float(np.percentile(per_tile, 99)),
             "tile_edges_max": int(per_tile.max()), "heaviest_tile": int(per_tile.argmax()),
-            "warp_edges_max": int(per_warp.max()), "row_edges_max": int(per_row.max())}
+            "row_edges_max": int(per_row.max()), "E": E, "units": n_units,
+            "unit_edges_max": unit_max, "split_tiles": split, "warp_edges_max": warp_max,
+            "fixed_rows_warp_edges_max": int(per_warp.max())}
+
+
+def with_unit_cap(plan: PanelPlan, cap: int) -> PanelPlan:
+    """The placed panel plan with its work list cut again at edge cap
+    ``cap`` (sparse/panels.py work_units; each slot's edges counted from
+    its masks on the card)."""
+    segs = []
+    for seg in plan.segments:
+        counts = sum(((seg.masks >> b) & 1).sum((1, 2)) for b in range(32))
+        slots, units, split = work_units(seg.ctrl[:, 0, C_TILE].cpu().numpy(),
+                                         counts.cpu().numpy(), plan.T // 128, seg.n_tiles, cap)
+        dev = seg.masks.device
+        win = dataclasses.replace(seg.windows, unit_slots=torch.from_numpy(slots).to(dev),
+                                  units=torch.from_numpy(units).to(dev),
+                                  split_tiles=torch.from_numpy(split).to(dev))
+        segs.append(dataclasses.replace(seg, windows=win))
+    return dataclasses.replace(plan, segments=tuple(segs))
+
+
+def unit_cap_sweep(plan: PanelPlan, x: torch.Tensor, want: torch.Tensor) -> list:
+    """panel_spmm with the work list cut at each of UNIT_CAPS: units,
+    split tiles, time, and the error against the plain version ``want``
+    (the launches here are outside every main-path count)."""
+    rows = []
+    with torch.inference_mode():
+        for cap in UNIT_CAPS:
+            p = with_unit_cap(plan, cap)
+            err = check_close(pkernels.panel_spmm(p, x), want, f"panel_spmm at E={cap}")
+            rows.append({"E": cap,
+                         "units": sum(int(s.windows.units.shape[0]) for s in p.segments),
+                         "split_tiles": sum(int(s.windows.split_tiles.shape[0])
+                                            for s in p.segments),
+                         "ms": time_cuda(lambda: pkernels.panel_spmm(p, x), iters=20),
+                         "max_abs_err": err})
+    return rows
 
 
 def torch_csr(csr: CSR, dev) -> torch.Tensor:
@@ -1246,7 +1325,8 @@ def flash_grad(flash: MultiheadAttention, dense: MultiheadAttention, x: torch.Te
 
 def flash_scale(gen, peak_bw: float, peak_fp32: float, peak_t16: float) -> list:
     """flash_attention at BERT-base's attention shape (BH = 96, T = 512,
-    d = 64), float32 and bfloat16, non-causal and causal: its time, its
+    d = 64), float32, bfloat16 and float16, non-causal and causal: its
+    time (float32 on the CUDA cores, bf16 / fp16 on the tensor cores), its
     plain version's, torch's scaled_dot_product_attention on the same
     (B, H, T, d) tensors (timed only; the port never calls it), and the
     bound of the work (AttentionTraffic: bytes over HBM bandwidth,
@@ -1257,7 +1337,7 @@ def flash_scale(gen, peak_bw: float, peak_fp32: float, peak_t16: float) -> list:
     qkv = [torch.randn((BH, T, d), generator=gen) for _ in range(3)]
     rows = []
     with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             q, k, v = (t.to(dev, dtype) for t in qkv)
             q4, k4, v4 = (t.view(BERT_BATCH, 12, T, d) for t in (q, k, v))
             for causal in (False, True):
@@ -1852,7 +1932,7 @@ def main() -> int:
     cases = []
     with torch.inference_mode():
         for case, pcase in panel_cases(rng):
-            for d in FEATURE_WIDTHS:
+            for d in PANEL_WIDTHS:
                 xd = torch.randn((pcase.shape[1], d), generator=gen).to(dev)
                 got = pkernels.panel_spmm(pcase, xd)
                 want = pkernels.panel_spmm_torch(pcase, xd)
@@ -1862,10 +1942,13 @@ def main() -> int:
             cases.append({"case": case, "shape": list(pcase.shape), "T": pcase.T,
                           "hot": pcase.n_hot, "ranges": pcase.n_ranges,
                           "segments": len(pcase.segments), "direct": pcase.n_direct,
-                          "S_buf": pcase.S_buf, "per_edge": pcase.per_edge})
+                          "S_buf": pcase.S_buf, "per_edge": pcase.per_edge,
+                          "units": sum(int(s.windows.units.shape[0]) for s in pcase.segments),
+                          "split_tiles": sum(int(s.windows.split_tiles.shape[0])
+                                             for s in pcase.segments)})
             del pcase
     expect_device_assert(BAD_WINDOW_PROBE, "panel_spmm with a window row outside x")
-    emit("panel_kernel", d=FEATURE_WIDTHS, cases=cases, max_abs_err=max_err["panel_spmm"],
+    emit("panel_kernel", d=PANEL_WIDTHS, cases=cases, max_abs_err=max_err["panel_spmm"],
          tolerance="|k-p| <= 1e-5 + 1e-4|p|",
          bad_window_row="panel_spmm stopped with a device-side assertion")
 
@@ -1950,7 +2033,12 @@ def main() -> int:
          forward_ms=round(pfwd_ms, 4), forward_wall_ms=round(pfwd_wall_ms, 4),
          tiered_forward_ms=round(fwd_ms, 4), tiered_forward_wall_ms=round(fwd_wall_ms, 4),
          spmm=pspmm_rows)
-    emit("panel_kernel_times", graph="ogbn-arxiv", **pan_fig)
+    h = torch.randn((cfg.n_nodes, 128), generator=gen).to(dev)
+    with torch.inference_mode():
+        h_want = pkernels.panel_spmm_torch(pp, h)
+    emit("panel_kernel_times", graph="ogbn-arxiv", **pan_fig,
+         unit_cap_sweep=unit_cap_sweep(pp, h, h_want))
+    del h, h_want
 
     # -- 8. panel engine at scale: one SpMM on products-small -----------------
     t0 = time.perf_counter()
@@ -1975,7 +2063,10 @@ def main() -> int:
          steps=sum(s.n_steps for s in ppp.segments),
          group_slots_total=sum(int(s.masks.shape[0]) for s in ppp.segments),
          make_operator_seconds=round(t_pop, 2), rel_err_vs_torch=pp_err,
-         rel_err_vs_torch_sparse_mm=pp_lib_err, tiered_spmm_ms=p_ms, **ps_fig)
+         rel_err_vs_torch_sparse_mm=pp_lib_err, tiered_spmm_ms=p_ms,
+         units=sum(int(s.windows.units.shape[0]) for s in ppp.segments),
+         split_tiles=sum(int(s.windows.split_tiles.shape[0]) for s in ppp.segments),
+         **ps_fig, unit_cap_sweep=unit_cap_sweep(ppp, px, y_plain))
 
     # -- 9.-14. the fused and ranges engines: their kernel against its plain
     #           version on small plans of every shape, GCN inference on arxiv,
@@ -2133,7 +2224,11 @@ def main() -> int:
          "max_abs_err": max_err["flash_attention"],
          **{f: fa_main[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "max_abs_err_by_dtype": fcases["max_abs_err"],
-         "times_scope": "one call at (BH, T, d) = (96, 512, 64), float32, non-causal"})
+         "times_scope": "one call at (BH, T, d) = (96, 512, 64), float32, non-causal",
+         "by_dtype": {f"{r['dtype']}{' causal' if r['causal'] else ''}":
+                      {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "fraction_of_bound")}
+                      for r in fa_rows}})
     for kname, variant in MICROBENCH_MAIN.items():
         tool = tool_of(kname)
         rows, tool_launches = micro[tool]

@@ -2,10 +2,12 @@
 
 ``panel_spmm(plan, x)`` computes Y = A @ X for a placed PanelPlan
 (sparse/panels.py): one launch of the kernel in ``csrc/panels.cu`` per
-plan segment. It replaces the TPU kernel
+plan segment, one block per work unit of the segment's work list
+(PanelWindows.units). It replaces the TPU kernel
 ``of_spmm_tpu/ops/pallas/panels.py::_kernel`` together with its host
 wrapper's column scaling, take table and row scaling; design notes are in
-the CUDA source.
+the CUDA source. ``panel_spmm_units_torch`` repeats the kernel's split
+into units (partial sums, row-scaled, added per tile) in plain PyTorch.
 
 The wrapper dispatches on the device of ``x``: on the CPU it runs
 ``panel_spmm_torch`` (what the CPU tests hold against the JAX package);
@@ -38,7 +40,7 @@ def build() -> Dict[str, object]:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.ofs_panel_spmm.argtypes = [p] * 14 + [i64] * 6 + [i32] * 5 + [p]
+    lib.ofs_panel_spmm.argtypes = [p] * 15 + [i64] * 7 + [i32] * 5 + [p]
     lib.ofs_panel_spmm.restype = i32
 
 
@@ -56,7 +58,7 @@ def _check_plan(plan: PanelPlan, x: torch.Tensor) -> None:
                              "attaches the window provenance and expands the masks)")
         if not isinstance(seg.masks, torch.Tensor):
             raise TypeError("the plan's arrays must be torch tensors (ops.place_operator)")
-        same_device(x, seg.masks, seg.ctrl, seg.windows.step_win)
+        same_device(x, seg.masks, seg.ctrl, seg.windows.step_win, seg.windows.units)
 
 
 def panel_spmm_torch(plan: PanelPlan, x: torch.Tensor) -> torch.Tensor:
@@ -98,6 +100,50 @@ def panel_spmm_torch(plan: PanelPlan, x: torch.Tensor) -> torch.Tensor:
     return out[:n] * plan.row_scale[:, None]
 
 
+def panel_spmm_units_torch(plan: PanelPlan, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's work split in plain PyTorch, on the same placed plan:
+    each work unit's partial sum over its group slots (PanelWindows.units
+    and unit_slots), times row_scale, added into its tile's rows. Equal to
+    ``panel_spmm_torch`` up to the order of the sums."""
+    n, _m = plan.shape
+    d = x.shape[1]
+    G = plan.T // _L
+    dev = x.device
+    n_tiles = sum(seg.n_tiles for seg in plan.segments)
+    out = torch.zeros((n_tiles * _L, d), dtype=torch.float32, device=dev)
+    row_scale = torch.zeros(n_tiles * _L, dtype=torch.float32, device=dev)
+    row_scale[:n] = plan.row_scale
+    shifts = torch.arange(32, dtype=torch.int32, device=dev).view(1, 1, 32, 1)
+    tile0 = 0
+    for seg in plan.segments:
+        units = seg.windows.units.long()
+        slots = seg.windows.unit_slots.long()
+        blk = seg.blk[:, 0, :].long()
+        n_units = units.shape[0]
+        lengths = units[:, 2] - units[:, 1]
+        unit_of = torch.empty_like(slots)  # the unit of each listed slot
+        at = torch.repeat_interleave(units[:, 1], lengths) + torch.arange(
+            int(lengths.sum()), device=dev) - torch.repeat_interleave(
+                torch.cumsum(lengths, 0) - lengths, lengths)
+        unit_of[at] = torch.repeat_interleave(torch.arange(n_units, device=dev), lengths)
+        partial = torch.zeros((n_units * _L, d), dtype=torch.float32, device=dev)
+        for i0 in range(0, slots.shape[0], _PLAIN_SLOTS):
+            chunk = slots[i0:i0 + _PLAIN_SLOTS]
+            bits = (seg.masks[chunk].unsqueeze(2) >> shifts) & 1  # (S, 4, 32, 128)
+            si, k, b, r = bits.nonzero(as_tuple=True)
+            step, g = chunk[si] // G, chunk[si] % G
+            src, scale, bad = resolve_window_rows(plan, seg, step, blk[step, g] * _L + k * 32 + b)
+            if bool(bad.any()):
+                raise IndexError("a mask bit names a window row that resolves to no row of x")
+            partial.index_add_(0, unit_of[i0 + si] * _L + r,
+                               x.index_select(0, src) * scale[:, None])
+        tile = torch.where(units[:, 0] < 0, ~units[:, 0], units[:, 0])
+        rows = ((tile0 + tile) * _L)[:, None] + torch.arange(_L, device=dev)
+        out.index_add_(0, rows.reshape(-1), partial * row_scale[rows.reshape(-1), None])
+        tile0 += seg.n_tiles
+    return out[:n]
+
+
 def panel_spmm(plan: PanelPlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X (float32, (n, d)) for a placed PanelPlan of A and float32
     ``x`` (m, d). On the card this launches the kernel once per segment;
@@ -127,12 +173,13 @@ def panel_spmm(plan: PanelPlan, x: torch.Tensor) -> torch.Tensor:
             continue
         win = seg.windows
         rc = lib.ofs_panel_spmm(
-            ptr(seg.ctrl), ptr(seg.blk), ptr(seg.masks), ptr(win.tile_steps),
-            ptr(win.step_win), ptr(win.range_rows), ptr(win.direct_rows),
-            ptr(seg.stage_take), ptr(seg.stage_scale), ptr(plan.hot_ids),
-            ptr(plan.col_scale), ptr(plan.row_scale), x.data_ptr(), out.data_ptr(),
-            m, xs_rows(plan), n, d, tile0, seg.n_tiles, plan.T // _L, plan.n_hot,
-            plan.RC, plan.RQ, dev.index or 0, stream(dev))
+            ptr(seg.blk), ptr(seg.masks), ptr(win.step_win), ptr(win.range_rows),
+            ptr(win.direct_rows), ptr(seg.stage_take), ptr(seg.stage_scale),
+            ptr(plan.hot_ids), ptr(plan.col_scale), ptr(plan.row_scale),
+            ptr(win.unit_slots), ptr(win.units), ptr(win.split_tiles), x.data_ptr(),
+            out.data_ptr(), m, xs_rows(plan), n, d, tile0, int(win.units.shape[0]),
+            int(win.split_tiles.shape[0]), plan.T // _L, plan.n_hot, plan.RC, plan.RQ,
+            dev.index or 0, stream(dev))
         raise_if(lib, rc, "panel_spmm")
         LAUNCHES["panel_spmm"] += 1
         tile0 += seg.n_tiles

@@ -74,6 +74,9 @@ DEFAULT_DIRECT_QUOTA = 0    # direct rows off by default (as in the JAX
 #                             package)
 _KEEP_FRAC = 0.90
 _BIG_T_PANELS = 8192        # lanes per step for graphs >= _BIG_T_NNZ
+UNIT_EDGES = 8192           # mask bits per work unit of the kernel (port
+#                             only; chip_smoke.py's panel phases time
+#                             2,048-65,536 on the H100)
 
 # ctrl words (sparse/panels.py of the JAX package documents all 19)
 C_TILE, C_GCNT = 0, 1
@@ -101,12 +104,23 @@ class PanelWindows:
 
     ``tile_steps[t]:tile_steps[t+1]`` are the compute steps of the
     segment's tile t (a tile's pieces are consecutive in the stream).
+
+    The kernel's work list (``work_units``): ``unit_slots`` are the group
+    slots (step * G + g) that hold at least one mask bit, in step order;
+    unit u covers ``unit_slots[units[u, 1]:units[u, 2]]``, all of one
+    tile, ``units[u, 0]`` (``~tile`` when the tile is cut into several
+    units, whose partial sums the kernel adds; ``split_tiles`` lists
+    those tiles). Units are ordered heaviest first; a tile without edges
+    has one empty unit, which writes its zero rows.
     """
 
     tile_steps: np.ndarray   # (n_tiles + 1,) int32
     step_win: np.ndarray     # (n_steps, 5) int32; zeros on non-compute steps
     range_rows: np.ndarray   # (n_windows, RC // RQ) int32
     direct_rows: np.ndarray  # (n_direct_rows,) int32
+    unit_slots: np.ndarray   # (n_live_slots,) int32
+    units: np.ndarray        # (n_units, 3) int32 [tile or ~tile, first, end]
+    split_tiles: np.ndarray  # (n_split,) int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,11 +203,12 @@ def plan_memory_report(plan: PanelPlan, d: int = 128,
                        hbm_limit: Optional[int] = None) -> dict:
     """Device-memory model of one SpMM at width ``d`` (the JAX package's
     keys), counting what the port keeps on the card: the plan arrays
-    with the expanded masks (2 KB per group slot) and the window
-    provenance, X, and the output. The port builds no take table and no
-    hot table (the kernel reads hot and scattered rows from X), so
-    ``max_table_bytes`` and ``hot_bytes`` are 0. The transient of the mask
-    expansion at placement (int64 words) is not counted."""
+    with the expanded masks (2 KB per group slot), the window provenance
+    and the kernel's work list (at most), X, and the output. The port
+    builds no take table and no hot table (the kernel reads hot and
+    scattered rows from X), so ``max_table_bytes`` and ``hot_bytes`` are
+    0. The transient of the mask expansion at placement (int64 words) is
+    not counted."""
     from of_spmm_tpu_torch.sparse.fused import (
         _BUDGET_FRACTION, _nbytes, device_hbm_bytes)
 
@@ -216,6 +231,11 @@ def plan_memory_report(plan: PanelPlan, d: int = 128,
         n_win = int(((ctrl[:, 0, C_TILE] >= 0) & (ctrl[:, 0, C_RFIRST] == 1)).sum())
         plan_b += 4 * ((seg.n_tiles + 1) + 5 * seg.n_steps + n_win * n_rq
                        + int(np.asarray(ctrl[:, 0, C_DCNT]).sum()))
+        # the work list: each slot with bits, and (3 words each) at most one
+        # unit per such slot and one per tile
+        live = (int(np.count_nonzero(np.asarray(seg.mask_counts)))
+                if seg.mask_counts is not None else n_slots)
+        plan_b += 4 * (live + 3 * (live + seg.n_tiles))
     x_b = m * d * 4
     out_b = n * d * 4
     peak = plan_b + x_b + out_b
@@ -995,6 +1015,8 @@ def segment_windows(plan: PanelPlan, seg: PanelSegment) -> PanelWindows:
         raise ValueError("a tile's compute steps are not consecutive")
     first = int(comp[0]) if comp.shape[0] else seg.n_steps
     tile_steps = first + np.searchsorted(tiles[comp], np.arange(seg.n_tiles + 1))
+    unit_slots, units, split_tiles = work_units(
+        tiles, np.asarray(seg.mask_counts), plan.T // _L, seg.n_tiles, UNIT_EDGES)
     return PanelWindows(
         tile_steps=tile_steps.astype(np.int32),
         step_win=step_win,
@@ -1002,7 +1024,57 @@ def segment_windows(plan: PanelPlan, seg: PanelSegment) -> PanelWindows:
                     else np.zeros((0, n_rq), np.int64)).astype(np.int32),
         direct_rows=(np.concatenate(direct_rows) if direct_rows
                      else np.zeros(0, np.int64)).astype(np.int32),
+        unit_slots=unit_slots,
+        units=units,
+        split_tiles=split_tiles,
     )
+
+
+def work_units(step_tile: np.ndarray, mask_counts: np.ndarray, G: int, n_tiles: int,
+               max_edges: int):
+    """The panel kernel's work list for one segment (see PanelWindows):
+    ``(unit_slots, units, split_tiles)``. ``step_tile`` is each step's
+    compute tile (ctrl word 0), ``mask_counts`` the mask bits of each
+    group slot. Each tile's slots with bits are cut greedily, in step
+    order, into units of at most ``max_edges`` bits (placement uses
+    UNIT_EDGES); a single slot with more is a unit alone. Units are
+    ordered by their bits, heaviest first (stable, so ties keep step
+    order)."""
+    E = int(max_edges)
+    if E < 1:
+        raise ValueError(f"unit edge cap {E} must be positive")
+    counts = np.asarray(mask_counts).astype(np.int64)
+    slots = np.nonzero(counts)[0]
+    tile = np.asarray(step_tile).astype(np.int64)[slots // G]
+    if (tile < 0).any() or (np.diff(tile) < 0).any():
+        raise ValueError("a slot with mask bits lies in a step that computes no tile, "
+                         "or a tile's steps are not consecutive")
+    edges = counts[slots]
+    cut = np.ones(slots.shape[0], bool)  # a unit starts at this slot
+    if slots.shape[0]:
+        tile_first = np.r_[True, tile[1:] != tile[:-1]]
+        t0 = np.nonzero(tile_first)[0]
+        totals = np.add.reduceat(edges, t0)
+        cut = tile_first.copy()
+        for a, b in zip(t0[totals > E], np.r_[t0[1:], slots.shape[0]][totals > E]):
+            run = 0
+            for i in range(a, b):  # the greedy cut, heavy tiles only
+                if i > a and run + edges[i] > E:
+                    cut[i], run = True, 0
+                run += edges[i]
+    first = np.nonzero(cut)[0]
+    end = np.r_[first[1:], slots.shape[0]][:first.shape[0]]
+    u_tile = tile[first]
+    weight = np.add.reduceat(edges, first) if first.shape[0] else np.zeros(0, np.int64)
+    n_units = np.bincount(u_tile, minlength=n_tiles)
+    split = np.nonzero(n_units > 1)[0]
+    u_tile = np.where(n_units[u_tile] > 1, ~u_tile, u_tile)
+    empty = np.nonzero(n_units == 0)[0]  # tiles without edges still write zeros
+    units = np.concatenate([np.stack([u_tile, first, end], 1),
+                            np.stack([empty, np.zeros_like(empty), np.zeros_like(empty)], 1)])
+    order = np.argsort(-np.r_[weight, np.zeros(empty.shape[0], np.int64)], kind="stable")
+    return (slots.astype(np.int32), units[order].astype(np.int32).reshape(-1, 3),
+            split.astype(np.int32))
 
 
 def resolve_window_rows(plan: PanelPlan, seg: PanelSegment, step, pos):

@@ -87,3 +87,29 @@ def test_flash_kernel_matches_plain_version_on_the_card():
                 calls += 1
                 torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
     assert cuda_build.LAUNCHES["flash_attention"] == launches + calls  # never the plain version
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_tensor_core_kernel_matches_plain_version_on_the_card(dtype):
+    """bf16 / fp16 run the tensor-core kernel (mma.sync): every padded head
+    width it instantiates, d % 8 != 0 (plain loads and stores), Tq != Tk
+    both ways, ragged 64-row tiles, causal and not, within 1e-2 + 1e-2|p|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(11)
+    launches = cuda_build.LAUNCHES["flash_attention"]
+    calls = 0
+    for d in (8, 40, 64, 80, 96, 100, 128, 160, 256, 7):
+        for Tq, Tk in ((100, 100), (128, 256), (256, 128), (1, 70), (64, 1)):
+            q = torch.randn((3, Tq, d), generator=gen).to(dev, dtype)
+            k, v = (torch.randn((3, Tk, d), generator=gen).to(dev, dtype) for _ in range(2))
+            for causal in (False, True):
+                got = fkernel.flash_attention(q, k, v, causal)
+                want = fkernel.flash_attention_torch(q, k, v, causal)
+                torch.cuda.synchronize()
+                calls += 1
+                assert got.dtype == dtype
+                torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    assert cuda_build.LAUNCHES["flash_attention"] == launches + calls

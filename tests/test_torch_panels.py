@@ -43,7 +43,8 @@ from of_spmm_tpu_torch.models import GCN, normalized_adjacency
 from of_spmm_tpu_torch.ops import make_operator, place_operator, spmm
 from of_spmm_tpu_torch.ops.autograd import SpmmOperator
 from of_spmm_tpu_torch.ops.cuda import build as cuda_build
-from of_spmm_tpu_torch.ops.cuda.panels import panel_spmm, panel_spmm_torch
+from of_spmm_tpu_torch.ops.cuda.panels import (
+    panel_spmm, panel_spmm_torch, panel_spmm_units_torch)
 from of_spmm_tpu_torch.sparse import panels as tpanels
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
 from of_spmm_tpu_torch.sparse.fused import device_hbm_bytes
@@ -272,6 +273,25 @@ def test_plain_version_matches_jax_kernel(case, d):
     if d == 8:
         _close(simulate(plan, x), np.asarray(jsimulate(jplan, x)))
         _close(simulate(plan, x), got)
+
+
+def test_unit_plain_version_matches_jax_kernel(monkeypatch):
+    """The kernel's split into work units (sparse/panels.py work_units),
+    run by its plain version ``panel_spmm_units_torch`` at an edge cap
+    low enough that the hub-heavy tiles split (partials, row-scaled,
+    summed per tile), against the JAX Pallas kernel in interpret mode,
+    the unsplit plain version and the dense product."""
+    dense = _graph(512, 768, 0.01, skew=True, seed=21, banded=0.2)
+    kw = dict(T=256, hot_budget=256, hot_min_run=1, range_cap=256)
+    monkeypatch.setattr(tpanels, "UNIT_EDGES", 64)
+    placed = _placed(tpanels.build_panels_plan(CSR.from_dense(dense), **kw))
+    assert sum(int(s.windows.split_tiles.shape[0]) for s in placed.segments) > 1
+    jplan = jpanels.build_panels_plan(JCSR.from_dense(dense), **kw)
+    x = np.random.default_rng(8).standard_normal((dense.shape[1], 8)).astype(np.float32)
+    got = panel_spmm_units_torch(placed, torch.from_numpy(x)).numpy()
+    _close(got, np.asarray(spmm_panels(jplan, jnp.asarray(x), interpret=True)))
+    _close(got, panel_spmm_torch(placed, torch.from_numpy(x)).numpy())
+    _close(got, dense @ x)
 
 
 @pytest.mark.parametrize("case", ["per_edge", "duplicates", "multi_segment", "overflow_pieces",
