@@ -163,8 +163,10 @@ STAGED_WIDTHS = (128, 256, 60, 7)  # the fused and ranges kernels: float4 and sc
 GCN_DIMS = (128, 256, 256, 40)  # OGB's GCN baseline for ogbn-arxiv: 3 layers, hidden 256
 MAIN_PATH_REL_TOL = 1e-4
 PANEL_WIDTHS = (128, 256, 60, 7)  # the panel kernel: float4 and scalar paths
-PANEL_BATCH, PANEL_LIST, PANEL_CHUNK = 8, 4096, 8  # csrc/panels.cu kBatch, kListCap, kChunk
+# kBatch, kListCap, kChunk of csrc/panels.cu and csrc/staged_spmm.cuh
+PANEL_BATCH, PANEL_LIST, PANEL_CHUNK = 8, 4096, 8
 UNIT_CAPS = (2048, 4096, 8192, 16384, 65536)  # work-unit edge caps the panel phases time
+STAGED_CAPS = (2048, 8192, 16384)  # work-unit selection caps the fused and ranges phases time
 # flash_attention against its plain version, |k - p| <= atol + rtol |p| in
 # the working type: bf16 / fp16 are looser because the kernel sums in
 # another order and rounds P to that type before P V
@@ -559,10 +561,11 @@ def panel_figures(plan: PanelPlan, sp: torch.Tensor, x_rows: int, nnz: int, d: i
 
 def unit_warp_edges(slot_edges: np.ndarray) -> int:
     """Edges the busiest warp of a panel block walks over one work unit
-    whose slots hold ``slot_edges`` mask bits: per batch of PANEL_BATCH
-    slots the batch's edges are listed PANEL_LIST at a time and dealt to
-    the 16 warps in chunks of PANEL_CHUNK, round robin, so warp 0 has the
-    most (csrc/panels.cu)."""
+    whose slots hold ``slot_edges`` mask bits (or selections, for a fused
+    or ranges block): per batch of PANEL_BATCH slots the batch's edges are
+    listed PANEL_LIST at a time and dealt to the 16 warps in chunks of
+    PANEL_CHUNK, round robin, so warp 0 has the most (csrc/panels.cu,
+    csrc/staged_spmm.cuh)."""
     total = 0
     for b0 in range(0, slot_edges.shape[0], PANEL_BATCH):
         n = int(slot_edges[b0:b0 + PANEL_BATCH].sum())
@@ -657,10 +660,13 @@ def staged_cases(engine: str, rng):
     """Placed fused or ranges plans that cover, between them, what the
     arxiv plan does not: one-hot lanes with general values, duplicate
     edges, several segments, virtual tiles from a small s_cap; for fused
-    rows staging and window mode, for ranges scattered overflow pieces and
-    ranges at the clamped top end of X (one wider than x itself, which
-    reads the TPU wrapper's zero padding). Yields (name, plan); raises if a
-    plan lacks what it is here for."""
+    rows staging, window mode (split window blocks) and 256-row tiles (two
+    row passes per unit), for ranges scattered overflow pieces and ranges
+    at the clamped top end of X (one wider than x itself, which reads the
+    TPU wrapper's zero padding); for both a hub-heavy plan whose work list
+    is cut at a small selection cap, so that most tiles are split into
+    several units. Yields (name, plan); raises if a plan lacks what it is
+    here for."""
     dev = torch.device("cuda", 0)
     build = build_fused_plan if engine == "fused" else build_ranges_plan
 
@@ -672,6 +678,9 @@ def staged_cases(engine: str, rng):
     def n_virtual(plan):
         return sum(int(((s.ctrl[:, 0, 0] >= 0) & (s.ctrl[:, 0, 1] == 1)).sum())
                    for s in plan.segments) - sum(s.n_tiles for s in plan.segments)
+
+    def n_split(plan):
+        return sum(int(s.windows.split_tiles.shape[0]) for s in plan.segments)
 
     n, nnz = 3000, 60_000
     rows = rng.integers(0, n, nnz).astype(np.int32)
@@ -692,9 +701,15 @@ def staged_cases(engine: str, rng):
         plan = placed(rank1_graph(4096, 4096, rng, per_row=4, band=16, hubs=24), R=256, T=512,
                       hot_budget=128, hot_min_run=1, stage_tier=256, s_cap=512, window=True,
                       seg_steps=40)
-        if not (plan.window and n_virtual(plan) and len(plan.segments) > 1):
-            raise AssertionError("window case lacks virtual tiles or segments")
+        if not (plan.window and n_virtual(plan) and len(plan.segments) > 1 and n_split(plan)):
+            raise AssertionError("window case lacks virtual tiles, segments or split blocks")
         yield "window mode+virtual tiles+segments", plan
+        plan = with_selection_cap(placed(rank1_graph(3000, 3000, rng, per_row=4, band=16,
+                                                     hubs=32), R=256, T=512, hot_budget=256,
+                                         hot_min_run=1), 256)
+        if not (plan.R > 128 and not plan.window and n_split(plan) > 4):
+            raise AssertionError("split case lacks 256-row tiles or split tiles")
+        yield "split units (E=256)+256-row tiles", plan
         return
     m = 6000
     plan = placed(rank1_graph(6000, m, rng, per_row=3, band=24, hubs=40), T=512,
@@ -717,6 +732,11 @@ def staged_cases(engine: str, rng):
     if not plan.RC > plan.shape[1]:
         raise AssertionError("narrow case has no range past the end of x")
     yield "range wider than x", plan
+    plan = with_selection_cap(placed(rank1_graph(4000, 4000, rng, per_row=4, band=16, hubs=32),
+                                     T=512, hot_budget=256, hot_min_run=2, range_cap=1024), 256)
+    if n_split(plan) <= 4:
+        raise AssertionError("split case has too few split tiles")
+    yield "split units (E=256)", plan
 
 
 def staged_figures(engine: str, plan, sp: torch.Tensor, x_rows: int, nnz: int, d: int, gen,
@@ -747,29 +767,92 @@ def staged_figures(engine: str, plan, sp: torch.Tensor, x_rows: int, nnz: int, d
 
 
 def selection_load(plan) -> dict:
-    """How the fused or ranges kernel's work falls on its blocks: window
-    row selections per lane group slot (one block each) and per control
-    step, counted on the host from the plan's real lanes."""
-    per_slot = []
+    """How the fused or ranges kernel's work falls on its blocks and warps,
+    counted on the host from the plan's real lanes: window row selections
+    per lane group slot and per control step; the work list
+    (sparse/staged_windows.py, cut at sparse/panels.py UNIT_EDGES): units
+    (one block each, per column slab), the heaviest unit, the split keys,
+    the selections of the busiest warp of any block; and, for the first
+    design (one block per slot, each warp walking its 32 lanes alone),
+    that design's busiest warp and the lanes it added into Y with atomics
+    (real lanes per output row)."""
+    G = plan.T // 128
     sent = staged_windows.geometry(plan)[4]
+    per_slot, warp_first, lanes = [], 0, 0
+    n_units = split = unit_max = warp_max = 0
     for seg in plan.segments:
-        lrow, lidx = seg.lrow.cpu().numpy(), seg.lidx.cpu().numpy()
+        lrow = seg.lrow.cpu().numpy()
         real = lrow < sent
         if plan.multihot:
-            words = np.where(real[:, None, :], lidx, 0).astype(np.uint32)
-            n = np.unpackbits(words.view(np.uint8), axis=None).reshape(words.shape[0], -1).sum(1)
+            lane_sel = (np.bitwise_count(seg.lidx.cpu().numpy().view(np.uint32)).sum(1)
+                        * real).astype(np.int64)
         else:
-            n = real.sum(1)
+            lane_sel = real.astype(np.int64)
+        lanes += int((lane_sel > 0).sum())
+        warp_first = max(warp_first, int(lane_sel.reshape(-1, 4, 32).sum(2).max()))
+        n = lane_sel.sum(1)
         per_slot.append(n)
+        win = seg.windows
+        units = win.units.cpu().numpy()
+        sel = n[win.unit_slots.cpu().numpy()]
+        n_units += units.shape[0]
+        split += int(win.split_tiles.shape[0])
+        for _key, a, b in units:
+            unit_max = max(unit_max, int(sel[a:b].sum()))
+            warp_max = max(warp_max, unit_warp_edges(sel[a:b]))
     per_slot = np.concatenate(per_slot).astype(np.int64)
-    per_step = per_slot.reshape(-1, plan.T // 128).sum(1)
+    per_step = per_slot.reshape(-1, G).sum(1)
     live = per_slot > 0
     return {"selections": int(per_slot.sum()), "real_slots": int(live.sum()),
             "slot_selections_mean": float(per_slot[live].mean()),
+            "slot_selections_p99": float(np.percentile(per_slot[live], 99)),
             "slot_selections_max": int(per_slot.max()),
             "step_selections_mean": float(per_step[per_step > 0].mean()),
             "step_selections_p99": float(np.percentile(per_step[per_step > 0], 99)),
-            "step_selections_max": int(per_step.max())}
+            "step_selections_max": int(per_step.max()),
+            "E": UNIT_EDGES, "units": n_units, "unit_selections_max": unit_max,
+            "split_tiles": split, "warp_selections_max": warp_max,
+            "first_design_warp_selections_max": warp_first,
+            "first_design_atomic_rows_per_output_row": lanes / plan.shape[0]}
+
+
+def with_selection_cap(plan, cap: int, counts=None):
+    """The placed fused or ranges plan with its work list cut again at
+    selection cap ``cap`` (sparse/staged_windows.py unit_keys,
+    sparse/panels.py work_units); ``counts`` are the segments' per-slot
+    selections (staged_windows.slot_selections) when known."""
+    segs = []
+    for i, seg in enumerate(plan.segments):
+        key, n_keys = staged_windows.unit_keys(plan, seg)
+        n = staged_windows.slot_selections(plan, seg) if counts is None else counts[i]
+        slots, units, split = work_units(key, n, plan.T // 128, n_keys, cap)
+        dev = seg.lidx.device
+        win = dataclasses.replace(seg.windows, unit_slots=torch.from_numpy(slots).to(dev),
+                                  units=torch.from_numpy(units).to(dev),
+                                  split_tiles=torch.from_numpy(split).to(dev))
+        segs.append(dataclasses.replace(seg, windows=win))
+    return dataclasses.replace(plan, segments=tuple(segs))
+
+
+def selection_cap_sweep(engine: str, plan, x: torch.Tensor, want: torch.Tensor) -> list:
+    """The fused or ranges kernel with the work list cut at each of
+    STAGED_CAPS: units, split keys, time, and the error against the plain
+    version ``want`` (the launches here are outside every main-path
+    count)."""
+    kernel = getattr(STAGED[engine][0], f"{engine}_spmm")
+    counts = [staged_windows.slot_selections(plan, s) for s in plan.segments]
+    rows = []
+    with torch.inference_mode():
+        for cap in STAGED_CAPS:
+            p = with_selection_cap(plan, cap, counts)
+            err = check_close(kernel(p, x), want, f"{engine}_spmm at E={cap}")
+            rows.append({"E": cap,
+                         "units": sum(int(s.windows.units.shape[0]) for s in p.segments),
+                         "split_tiles": sum(int(s.windows.split_tiles.shape[0])
+                                            for s in p.segments),
+                         "ms": time_cuda(lambda: kernel(p, x), iters=20),
+                         "max_abs_err": err})
+    return rows
 
 
 def plan_shape(plan) -> dict:
@@ -848,6 +931,17 @@ def staged_main_path(engine: str, a_hat: CSR, cfg, x: torch.Tensor, model: GCN,
             spmm_rows.append({"layer": layer, "d": d, **{k: round(v, 4) for k, v in rep.items()}})
     fig = staged_figures(engine, sp, torch_csr(a_hat, dev), int(np.unique(a_hat.cols).size),
                          a_hat.nnz, 128, gen, peak_bw, peak_fp32)
+    h = torch.randn((cfg.n_nodes, 128), generator=gen).to(dev)
+    with torch.inference_mode():
+        h_want = getattr(kmod, f"{name}_torch")(sp, h)
+        # the kernel's time at each tested width: what does not scale with
+        # d (the work list, the window rows' resolve, the barriers) shows
+        # at d = 7
+        fig["ms_by_width"] = {}
+        for d in STAGED_WIDTHS:
+            xd = torch.randn((cfg.n_nodes, d), generator=gen).to(dev)
+            fig["ms_by_width"][d] = time_cuda(lambda: getattr(kmod, name)(sp, xd), iters=20)
+    fig["selection_cap_sweep"] = selection_cap_sweep(engine, sp, h, h_want)
     fields = dict(graph="ogbn-arxiv (synthetic, symmetrized, self-loops)", n_nodes=cfg.n_nodes,
                   nnz=a_hat.nnz, dims=GCN_DIMS, layout=engine, **plan_shape(sp),
                   selection_load=selection_load(sp),
@@ -885,7 +979,8 @@ def staged_scale(engine: str, pa: CSR, px: torch.Tensor, p_sparse: torch.Tensor,
                 n_nodes=pa.shape[0], nnz=pa.nnz, layout=engine, **plan_shape(plan),
                 selection_load=selection_load(plan),
                 make_operator_seconds=round(t_op, 2), rel_err_vs_torch=err,
-                rel_err_vs_torch_sparse_mm=lib_err, **fig)
+                rel_err_vs_torch_sparse_mm=lib_err, **fig,
+                selection_cap_sweep=selection_cap_sweep(engine, plan, px, y_plain))
 
 
 def random_csr(n: int, m: int, nnz: int, rng, rank1: bool, empty=None) -> CSR:

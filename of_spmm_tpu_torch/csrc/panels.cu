@@ -77,6 +77,8 @@
 
 #include <cstdint>
 
+#include "tile_accumulate.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -89,6 +91,7 @@ constexpr int kChunk = 8;       // edges (X rows in flight) per warp and turn
 constexpr int kWinWords = 5;
 constexpr unsigned kFullMask = 0xffffffffu;
 static_assert(kThreads == 4 * kTileRows, "one thread per mask word of a slot");
+static_assert(kTileRows == ofs_tile::kRows && kWarp == ofs_tile::kWarp, "the accumulator tile");
 
 struct PanelArgs {
   const int32_t* blk;          // (steps, G)
@@ -109,61 +112,10 @@ struct PanelArgs {
   int32_t G, n_hot, RC, RQ, n_rq;
 };
 
-__device__ __forceinline__ void fma_acc(float4& acc, float v, const float4 x) {
-  acc.x = fmaf(v, x.x, acc.x);
-  acc.y = fmaf(v, x.y, acc.y);
-  acc.z = fmaf(v, x.z, acc.z);
-  acc.w = fmaf(v, x.w, acc.w);
-}
-
-__device__ __forceinline__ void fma_acc(float& acc, float v, const float x) {
-  acc = fmaf(v, x, acc);
-}
-
-// element e of a lane's value: the float4's components, or the float
-__device__ __forceinline__ float elem(const float4& v, int e) {
-  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float elem(const float& v, int) { return v; }
-
-__device__ __forceinline__ void set_elem(float4& v, int e, float f) {
-  if (e == 0) v.x = f;
-  else if (e == 1) v.y = f;
-  else if (e == 2) v.z = f;
-  else v.w = f;
-}
-
-__device__ __forceinline__ void set_elem(float& v, int, float f) { v = f; }
-
-__device__ __forceinline__ void store(float4* p, const float4 v, bool add) {
-  if (add) {
-    atomicAdd(p, v);
-  } else {
-    *p = v;
-  }
-}
-
-__device__ __forceinline__ void store(float* p, const float v, bool add) {
-  if (add) {
-    atomicAdd(p, v);
-  } else {
-    *p = v;
-  }
-}
-
-// acc into row r of the accumulator tile [e][row][lane] (NE = NV * the
-// floats of T elements per lane and row)
-template <typename T, int NV>
-__device__ __forceinline__ void add_row(float* s_acc, int r, int lane, const T (&acc)[NV]) {
-  constexpr int EPV = static_cast<int>(sizeof(T) / sizeof(float));
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-#pragma unroll
-    for (int e = 0; e < EPV; ++e) {
-      atomicAdd(s_acc + ((i * EPV + e) * kTileRows + r) * kWarp + lane, elem(acc[i], e));
-    }
-}
+using ofs_tile::add_row;
+using ofs_tile::fma_acc;
+using ofs_tile::set_elem;
+using ofs_tile::store;
 
 // Window row pos of a step -> (X row, scale). sw: the step's
 // [range window, table base, table rows P, direct base, direct rows D].

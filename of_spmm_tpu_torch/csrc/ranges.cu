@@ -17,45 +17,26 @@
 
 extern "C" {
 
-// One segment of a placed plan against x float32 (m, d); adds the
-// segment's rows into out float32 (n, d), which the caller has zeroed.
+// One segment of a placed plan against x float32 (m, d); writes the
+// segment's rows [out_row0, out_row0 + n_tiles * R) (those below n) of out
+// float32 (n, d): one zeroing block per split key, then one block per
+// work unit, 128-row pass and column slab of the segment's work list
+// (unit_slots, units, split_keys: sparse/staged_windows.py StagedWindows).
 // Every pointer is a contiguous device array (see ofs_staged::Args;
 // val_hi/val_lo, col_scale, row_scale and range_rows may be null).
-// out_row0 is the segment's first output row. Returns a cudaError_t.
-int ofs_ranges_spmm(const void* ctrl, const void* blk, const void* lidx, const void* lrow,
+// Returns a cudaError_t.
+int ofs_ranges_spmm(const void* blk, const void* lidx, const void* lrow,
                     const void* val_hi, const void* val_lo, const void* step_win,
                     const void* range_rows, const void* staged_rows, const void* hot_ids,
-                    const void* col_scale, const void* row_scale, const void* x, void* out,
+                    const void* col_scale, const void* row_scale, const void* unit_slots,
+                    const void* units, const void* split_keys, const void* x, void* out,
                     int64_t m, int64_t xs_rows, int64_t n, int64_t d, int64_t out_row0,
-                    int64_t n_steps, int G, int R, int n_hot, int RC, int RQ, int multihot,
-                    int window, int device, void* stream) {
-  ofs_staged::Args a{};
-  a.ctrl = static_cast<const int32_t*>(ctrl);
-  a.blk = static_cast<const int32_t*>(blk);
-  a.lidx = static_cast<const int32_t*>(lidx);
-  a.lrow = static_cast<const int32_t*>(lrow);
-  a.val_hi = static_cast<const float*>(val_hi);
-  a.val_lo = static_cast<const float*>(val_lo);
-  a.step_win = static_cast<const int32_t*>(step_win);
-  a.range_rows = static_cast<const int32_t*>(range_rows);
-  a.staged_rows = static_cast<const int32_t*>(staged_rows);
-  a.hot_ids = static_cast<const int32_t*>(hot_ids);
-  a.col_scale = static_cast<const float*>(col_scale);
-  a.row_scale = static_cast<const float*>(row_scale);
-  a.x = x;
-  a.out = out;
-  a.m = m;
-  a.xs_rows = xs_rows;
-  a.n = n;
-  a.out_row0 = out_row0;
-  a.G = G;
-  a.R = R;
-  a.n_hot = n_hot;
-  a.RC = RC;
-  a.RQ = RQ;
-  a.multihot = multihot;
-  a.window = window;
-  return ofs_staged::launch(a, d, n_steps, device, stream);
+                    int64_t n_units, int64_t n_split, int G, int R, int n_hot, int RC, int RQ,
+                    int multihot, int window, int device, void* stream) {
+  return ofs_staged::spmm_segment(blk, lidx, lrow, val_hi, val_lo, step_win, range_rows,
+                                  staged_rows, hot_ids, col_scale, row_scale, unit_slots, units,
+                                  split_keys, x, out, m, xs_rows, n, d, out_row0, n_units,
+                                  n_split, G, R, n_hot, RC, RQ, multihot, window, device, stream);
 }
 
 const char* ofs_error_string(int code) {

@@ -198,9 +198,10 @@ def plan_memory_report(plan, d: int = 128, hbm_limit: Optional[int] = None) -> d
     or RangesPlan (the JAX package's keys), counting what the port keeps
     on the card: the plan arrays (values as float32 pairs), the window
     provenance placement derives (one int32 per staged row and three per
-    step, plus the range windows), X and the output. The port builds no
-    staged table and no hot table (the kernel reads those rows from X),
-    so ``max_table_bytes`` and ``hot_bytes`` are 0."""
+    step, plus the range windows), the kernel's work list (at most), X
+    and the output. The port builds no staged table and no hot table (the
+    kernel reads those rows from X), so ``max_table_bytes`` and
+    ``hot_bytes`` are 0."""
     hbm = hbm_limit or device_hbm_bytes()
     n, m = plan.shape
     plan_b = _nbytes(plan.hot_ids) + _nbytes(plan.row_scale) + _nbytes(plan.col_scale)
@@ -214,6 +215,10 @@ def plan_memory_report(plan, d: int = 128, hbm_limit: Optional[int] = None) -> d
                   else int(np.asarray(seg.scols).size))
         n_win = int(((ctrl[:, 0] >= 0) & (ctrl[:, 10] == 1)).sum()) if n_rq else 0
         plan_b += 4 * (staged + 3 * seg.n_steps + n_win * n_rq)
+        # the work list: each group slot, and (3 words each) at most one
+        # unit per slot and one per output block, and the split blocks
+        slots, blocks = seg.n_steps * (plan.T // _L), seg.n_tiles * -(-plan.R // _L)
+        plan_b += 4 * (slots + 3 * (slots + blocks) + blocks)
     x_b = m * d * 4
     out_b = n * d * 4
     peak = plan_b + x_b + out_b

@@ -1035,20 +1035,22 @@ def work_units(step_tile: np.ndarray, mask_counts: np.ndarray, G: int, n_tiles: 
     """The panel kernel's work list for one segment (see PanelWindows):
     ``(unit_slots, units, split_tiles)``. ``step_tile`` is each step's
     compute tile (ctrl word 0), ``mask_counts`` the mask bits of each
-    group slot. Each tile's slots with bits are cut greedily, in step
-    order, into units of at most ``max_edges`` bits (placement uses
-    UNIT_EDGES); a single slot with more is a unit alone. Units are
-    ordered by their bits, heaviest first (stable, so ties keep step
-    order)."""
+    group slot. Each run of a tile's slots with bits is cut greedily, in
+    step order, into units of at most ``max_edges`` bits (placement uses
+    UNIT_EDGES); a single slot with more is a unit alone. A tile's slots
+    come in one run on panel plans; a tile whose slots come in several
+    (the fused kernel's window mode keys its units on 128-row output
+    blocks, whose steps may interleave) gets units from each, so it is
+    split. Units are ordered by their bits, heaviest first (stable, so
+    ties keep step order)."""
     E = int(max_edges)
     if E < 1:
         raise ValueError(f"unit edge cap {E} must be positive")
     counts = np.asarray(mask_counts).astype(np.int64)
     slots = np.nonzero(counts)[0]
     tile = np.asarray(step_tile).astype(np.int64)[slots // G]
-    if (tile < 0).any() or (np.diff(tile) < 0).any():
-        raise ValueError("a slot with mask bits lies in a step that computes no tile, "
-                         "or a tile's steps are not consecutive")
+    if (tile < 0).any():
+        raise ValueError("a slot with mask bits lies in a step that computes no tile")
     edges = counts[slots]
     cut = np.ones(slots.shape[0], bool)  # a unit starts at this slot
     if slots.shape[0]:

@@ -25,6 +25,13 @@ The staged slice is a snapshot of the step's (virtual) tile, taken at its
 first step; the replay checks that no later step of the tile overwrites
 it. Rows at or past ``m`` and below the padded height ``xs_rows`` are the
 TPU wrapper's zero padding and read as zero.
+
+Placement also derives the kernel's work list (``work_list``): the group
+slots with real selections, cut into balanced work units with the panel
+engine's ``work_units``. A unit's key is the output block its steps
+write: the tile, or in window mode the tile's 128-row window block
+``tile * ceil(R / 128) + ctrl[10]`` (window blocks of one tile interleave
+across its virtual tiles, so such a block is split).
 """
 
 from __future__ import annotations
@@ -35,10 +42,13 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from of_spmm_tpu_torch.sparse import panels
+
 _L = 128
 # control words the replay reads (both engines' ctrl layouts)
 C_TILE, C_TFIRST, C_SBASE, C_SCNT, C_RCNT, C_SREAD = 0, 1, 2, 3, 4, 5
 C_RFIRST, C_RREAD = 10, 11
+C_WIN = 10  # fused window mode: the step's 128-row output window
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +59,15 @@ class StagedWindows:
     step_win: np.ndarray     # (n_steps, 3) int32 [range window, staged offset, extent]
     range_rows: np.ndarray   # (n_windows, RC // RQ) int32
     staged_rows: np.ndarray  # (N,) int32
+    # the kernel's work list (``work_list``; sparse/panels.py work_units):
+    # unit u covers unit_slots[units[u, 1]:units[u, 2]], the slots
+    # (step * G + g) with real selections, in step order, of one key
+    # units[u, 0] (~key when the key has several units; split_tiles lists
+    # those keys); heaviest first; a key without selections has one empty
+    # unit, which writes its zero rows
+    unit_slots: np.ndarray   # (n_live_slots,) int32
+    units: np.ndarray        # (n_units, 3) int32 [key or ~key, first, end]
+    split_tiles: np.ndarray  # (n_split,) int32 keys
 
 
 def geometry(plan) -> Tuple[int, int, int, int, int]:
@@ -64,6 +83,56 @@ def geometry(plan) -> Tuple[int, int, int, int, int]:
 
 def _t(a):
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+
+
+def _np(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def unit_geometry(plan) -> Tuple[int, int]:
+    """(window blocks per tile, rows of a key's output block) of a
+    FusedPlan or RangesPlan: a key is a tile of R rows, or in window mode
+    one of a tile's ceil(R / 128) window blocks of (up to) 128 rows."""
+    nwb = -(-plan.R // _L)
+    return (nwb, _L) if getattr(plan, "window", False) else (1, plan.R)
+
+
+def slot_selections(plan, seg) -> np.ndarray:
+    """Window-row selections of each group slot's real lanes (int64,
+    steps * G): the set bits of multi-hot lanes' masks, or the count of
+    one-hot lanes. Takes the plan's numpy arrays or placed tensors."""
+    real = _np(seg.lrow) < geometry(plan)[4]
+    if not plan.multihot:
+        return real.sum(1).astype(np.int64)
+    out = np.zeros(real.shape[0], np.int64)
+    for s0 in range(0, real.shape[0], 4096):  # (slots, 4, 128) words, in chunks
+        words = _np(seg.lidx[s0:s0 + 4096]).view(np.uint32)
+        bits = np.bitwise_count(words) * real[s0:s0 + 4096, None, :]
+        out[s0:s0 + 4096] = bits.reshape(bits.shape[0], -1).sum(1)
+    return out
+
+
+def unit_keys(plan, seg) -> Tuple[np.ndarray, int]:
+    """Each step's unit key (-1 on steps that compute nothing) and the
+    segment's number of keys: the step's tile, or in window mode its
+    window block ``tile * ceil(R / 128) + ctrl[10]``."""
+    ctrl = _np(seg.ctrl)[:, 0, :].astype(np.int64)
+    nwb, _rows = unit_geometry(plan)
+    key = ctrl[:, C_TILE]
+    if getattr(plan, "window", False):
+        key = np.where(key >= 0, key * nwb + ctrl[:, C_WIN], -1)
+    return key, seg.n_tiles * nwb
+
+
+def work_list(plan, seg):
+    """The kernel's work list for one segment, ``(unit_slots, units,
+    split_tiles)`` (see StagedWindows): each key's slots with real
+    selections cut into units of at most sparse/panels.py UNIT_EDGES
+    selections (sparse/panels.py work_units); a denser single slot is a
+    unit alone."""
+    key, n_keys = unit_keys(plan, seg)
+    return panels.work_units(key, slot_selections(plan, seg), plan.T // _L, n_keys,
+                             panels.UNIT_EDGES)
 
 
 def used_window_rows(plan, seg) -> Tuple[np.ndarray, np.ndarray]:
@@ -189,12 +258,16 @@ def segment_windows(plan, seg) -> StagedWindows:  # noqa: C901
             offsets[v] = n_staged
             n_staged += cur[1]
         step_win[i] = (win_range[rpar] if ranges else -1, offsets[v], ext[v])
+    unit_slots, units, split_tiles = work_list(plan, seg)
     return StagedWindows(
         step_win=step_win,
         range_rows=(np.stack(range_rows) if range_rows
                     else np.zeros((0, n_rq), np.int64)).astype(np.int32),
         staged_rows=(np.concatenate(staged) if staged
                      else np.zeros(0, np.int64)).astype(np.int32),
+        unit_slots=unit_slots,
+        units=units,
+        split_tiles=split_tiles,
     )
 
 

@@ -42,7 +42,9 @@ from of_spmm_tpu_torch.ops import make_operator, place_operator, spmm
 from of_spmm_tpu_torch.ops.autograd import SpmmOperator
 from of_spmm_tpu_torch.ops.cuda import build as cuda_build
 from of_spmm_tpu_torch.ops.cuda.fused import fused_spmm, fused_spmm_torch
+from of_spmm_tpu_torch.ops.cuda.staged import staged_spmm_units_torch
 from of_spmm_tpu_torch.sparse import fused as tfused
+from of_spmm_tpu_torch.sparse import panels as tpanels
 from of_spmm_tpu_torch.sparse import staged_windows
 from of_spmm_tpu_torch.sparse.formats import CSR
 from of_spmm_tpu_torch.sparse.fused_sim import simulate
@@ -270,6 +272,49 @@ def test_plain_version_matches_jax_kernel(case, d):
     sim = simulate(tfused.build_fused_plan(csr, **kw), x)
     _close(sim, jsimulate(jplan, x))
     _close(sim, got)
+
+
+@pytest.mark.parametrize("case", ["window_rank1", "window_general", "virtual_tiles_chunks",
+                                  "rank1_rows"])
+def test_unit_plain_version_matches_jax_kernel(case, monkeypatch):
+    """The kernel's split into work units (sparse/staged_windows.py
+    work_list), run by its plain version ``staged_spmm_units_torch`` at a
+    selection cap low enough that tiles (window blocks in window mode)
+    split (partials, row-scaled, summed per key), against the JAX Pallas
+    kernel in interpret mode, the unsplit plain version and the dense
+    product."""
+    make, kw = PLAN_CASES[case]
+    csr, jcsr, dense = make()
+    monkeypatch.setattr(tpanels, "UNIT_EDGES", 64)
+    plan = _placed(tfused.build_fused_plan(csr, **kw))
+    assert sum(int(s.windows.split_tiles.shape[0]) for s in plan.segments) > 1
+    x = np.random.default_rng(9).standard_normal((csr.shape[1], 8)).astype(np.float32)
+    got = staged_spmm_units_torch(plan, torch.from_numpy(x)).numpy()
+    if case != "rank1_rows":  # rows staging runs slowly in interpret mode
+        want = spmm_fused(jfused.build_fused_plan(jcsr, **kw), jnp.asarray(x), interpret=True)
+        _close(got, np.asarray(want))
+    _close(got, fused_spmm_torch(plan, torch.from_numpy(x)).numpy())
+    _close(got, dense @ x)
+
+
+def test_zero_matrix_jax_kernel_gives_nan_port_gives_zeros():
+    """A reference fault the port does not copy (ROADMAP.md Queue 3): on a
+    50 x 50 matrix without nonzeros the JAX kernel in interpret mode
+    returns NaN in every row (one segment of two pad steps, every lane on
+    the row sentinel). The port's plain version and its unit version give
+    zeros; the kernel writes them through the tile's empty work unit, as
+    the wrapper no longer zeroes Y."""
+    csr, jcsr = CSR.from_dense(np.zeros((50, 50), np.float32)), JCSR.from_dense(
+        np.zeros((50, 50), np.float32))
+    x = np.random.default_rng(1).standard_normal((50, 8)).astype(np.float32)
+    want = np.asarray(spmm_fused(jfused.build_fused_plan(jcsr), jnp.asarray(x), interpret=True))
+    assert want.shape == (50, 8) and np.isnan(want).all()
+    plan = _placed(tfused.build_fused_plan(csr))
+    win = plan.segments[0].windows
+    assert win.unit_slots.shape[0] == 0 and win.units.tolist() == [[0, 0, 0]]
+    for fn in (fused_spmm_torch, staged_spmm_units_torch):
+        got = fn(plan, torch.from_numpy(x)).numpy()
+        assert got.shape == (50, 8) and not got.any()
 
 
 def test_plain_version_wide_features_and_segments():

@@ -42,6 +42,8 @@ from of_spmm_tpu_torch.ops import make_operator, place_operator, spmm
 from of_spmm_tpu_torch.ops.autograd import SpmmOperator
 from of_spmm_tpu_torch.ops.cuda import build as cuda_build
 from of_spmm_tpu_torch.ops.cuda.ranges import ranges_spmm, ranges_spmm_torch
+from of_spmm_tpu_torch.ops.cuda.staged import staged_spmm_units_torch
+from of_spmm_tpu_torch.sparse import panels as tpanels
 from of_spmm_tpu_torch.sparse import ranges as tranges
 from of_spmm_tpu_torch.sparse import staged_windows
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
@@ -260,6 +262,28 @@ def test_plain_version_matches_jax_kernel_edges(case):
     got = ranges_spmm_torch(plan, torch.from_numpy(x)).numpy()
     want = spmm_ranges(jranges.build_ranges_plan(jcsr, **kw), jnp.asarray(x), interpret=True)
     _close(got, np.asarray(want))
+    _close(got, dense @ x)
+
+
+@pytest.mark.parametrize("case", ["overflow_pieces", "top_end", "hot_skew",
+                                  "single_range_general"])
+def test_unit_plain_version_matches_jax_kernel(case, monkeypatch):
+    """The kernel's split into work units (sparse/staged_windows.py
+    work_list), run by its plain version ``staged_spmm_units_torch`` at a
+    selection cap low enough that tiles split (partials, row-scaled,
+    summed per tile), against the JAX Pallas kernel in interpret mode,
+    the unsplit plain version and the dense product."""
+    make, kw = PLAN_CASES[case]
+    csr, jcsr, dense = make()
+    monkeypatch.setattr(tpanels, "UNIT_EDGES", 64)
+    plan = _placed(tranges.build_ranges_plan(csr, **kw))
+    split = sum(int(s.windows.split_tiles.shape[0]) for s in plan.segments)
+    assert split > 1 or case == "top_end"  # x of 100 rows: one slot per tile
+    x = np.random.default_rng(9).standard_normal((csr.shape[1], 8)).astype(np.float32)
+    got = staged_spmm_units_torch(plan, torch.from_numpy(x)).numpy()
+    want = spmm_ranges(jranges.build_ranges_plan(jcsr, **kw), jnp.asarray(x), interpret=True)
+    _close(got, np.asarray(want))
+    _close(got, ranges_spmm_torch(plan, torch.from_numpy(x)).numpy())
     _close(got, dense @ x)
 
 
