@@ -166,6 +166,11 @@ PANEL_WIDTHS = (128, 256, 60, 7)  # the panel kernel: float4 and scalar paths
 # kBatch, kListCap, kChunk of csrc/panels.cu and csrc/staged_spmm.cuh
 PANEL_BATCH, PANEL_LIST, PANEL_CHUNK = 8, 4096, 8
 UNIT_CAPS = (2048, 4096, 8192, 16384, 65536)  # work-unit edge caps the panel phases time
+BUCKET_CAPS = (1024, 2048, 4096, 16384)  # padded slots per unit the bucket phases time
+BUCKET_SMALL_CAP = 256  # a cap below the widest rows: each is a unit alone
+EXPANSION_CAPS = (2048, 8192, 16384)  # lanes per unit the expansion phases time
+EXPANSION_SMALL_CAP = 512  # hub blocks cut into several units
+EXPANSION_WARPS, EXPANSION_CHUNK = 16, 32  # csrc/expansion.cuh: warps, lanes a warp takes
 STAGED_CAPS = (2048, 8192, 16384)  # work-unit selection caps the fused and ranges phases time
 # flash_attention against its plain version, |k - p| <= atol + rtol |p| in
 # the working type: bf16 / fp16 are looser because the kernel sums in
@@ -210,6 +215,16 @@ MICROBENCH_MAIN = {"microbench_blockfma_a": "A", "microbench_blockfma_b": "B",
                    "gather2_twosided": "TILE=1024 CW=256 R=256",
                    "dyngather_take_along": "tala_eq C=2048 T=2048",
                    "dyngather_smem_cap": "largest that works"}
+# the microbenchmark kernels that no one PyTorch call computes: why
+LIBRARY_NONE = {
+    "microbench_mxu": "none: each variant folds a window read, a one-hot gather and a "
+                      "per-variant reduction of the lanes into one tile; no one call",
+    "microbench_cond": "none: per step a 0/1 bit-matrix product with the window for each "
+                       "group, weighted by the step's run mask, then the halves added; "
+                       "a bmm, an einsum and an add, not one call",
+    "dyngather_smem_cap": "none: it probes the opt-in shared-memory limit of a launch; "
+                          "its result is a copy of its input",
+}
 # the gather kernels against their plain versions: bit-exact where the
 # kernel moves values (row gathers, one-hot products: 1 x v plus zeros, the
 # hi + lo add in float32), elementwise 1e-5 + 1e-4|p| where it sums
@@ -366,58 +381,61 @@ def _bound(nbytes: int, nops: int, peak_bw: float, peak_fp32: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_figures(plan, n_cols: int, d: int, gen, peak_bw: float, peak_fp32: float) -> dict:
+def kernel_figures(plan, work, n_cols: int, d: int, gen, peak_bw: float,
+                   peak_fp32: float) -> dict:
     """Each kernel over all its launches in one SpMM of a tiered plan at
     width d: its launches (counted over one such SpMM), its time, its
     plain version's, the one PyTorch call that computes the same function,
     and the bound of that work.
 
     The bucket phase's function is X -> the concatenation of every
-    bucket's partial rows; its library call is torch.sparse.mm with one
-    CSR holding every bucket's entries (tier offsets applied). The
-    gather phase's is the finish's row gathers from that concatenation;
-    its library call is torch.index_select (indices clamped into range:
-    index_select has no zero-fill).
+    bucket's partial rows (one launch over the plan's work list ``work``);
+    its library call is torch.sparse.mm with one CSR holding every
+    bucket's entries (tier offsets applied). The gather phase's is the
+    finish's row gathers from that concatenation; its library call is
+    torch.index_select (indices clamped into range: index_select has no
+    zero-fill). The bound counts each bucket's cols and vals, the X rows
+    they reference and the partial rows once; the work list (a few KB)
+    stays out of it.
     """
     dev = torch.device("cuda", 0)
     x = torch.randn((n_cols, d), generator=gen).to(dev)
-    buckets = [(0 if t.tier < 0 else t.tier * plan.tier_size, b)
-               for t in plan.tiers for b in t.buckets]
+    buckets = kernels.plan_buckets(plan)
     cat = torch.empty((plan.n_ell_rows, d), device=dev)
 
-    def run_buckets(fn):
+    def run_plain():
         r0 = 0
-        for o, b in buckets:
-            fn(b.cols, b.vals, x, o, out=cat[r0:r0 + b.n_ell_rows])
-            r0 += b.n_ell_rows
+        for c, v, o in buckets:
+            kernels.bucket_spmm_torch(c, v, x, o, out=cat[r0:r0 + c.shape[0]])
+            r0 += c.shape[0]
 
     with torch.inference_mode():
         kernels.reset_launch_counts()
-        run_buckets(kernels.bucket_spmm)
+        kernels.bucket_spmm_plan(plan, x, work, out=cat)
         bucket_launches = kernels.LAUNCHES["bucket_spmm"]
-        bucket_ms = time_cuda(lambda: run_buckets(kernels.bucket_spmm), iters=20)
-        bucket_plain_ms = time_cuda(lambda: run_buckets(kernels.bucket_spmm_torch), iters=5)
+        bucket_ms = time_cuda(lambda: kernels.bucket_spmm_plan(plan, x, work, out=cat), iters=20)
+        bucket_plain_ms = time_cuda(run_plain, iters=5)
         rows_l, cols_l, vals_l = [], [], []
         r0 = 0
-        for o, b in buckets:
-            r, k = (b.vals != 0).nonzero(as_tuple=True)
+        for c, v, o in buckets:
+            r, k = (v != 0).nonzero(as_tuple=True)
             rows_l.append(r + r0)
-            cols_l.append(b.cols[r, k].long() + o)
-            vals_l.append(b.vals[r, k])
-            r0 += b.n_ell_rows
+            cols_l.append(c[r, k].long() + o)
+            vals_l.append(v[r, k])
+            r0 += c.shape[0]
         cols_all = torch.cat(cols_l)
         ell_csr = torch.sparse_coo_tensor(
             torch.stack([torch.cat(rows_l), cols_all]), torch.cat(vals_l),
             (plan.n_ell_rows, n_cols), check_invariants=False).coalesce().to_sparse_csr()
-        run_buckets(kernels.bucket_spmm)
+        kernels.bucket_spmm_plan(plan, x, work, out=cat)
         bucket_lib_err = rel_err(torch.sparse.mm(ell_csr, x), cat)
         bucket_lib_ms = time_cuda(lambda: torch.sparse.mm(ell_csr, x), iters=20)
-        bucket_bytes = (sum(b.n_ell_rows * b.width * 8 for _, b in buckets)  # cols + vals
+        bucket_bytes = (sum(c.numel() * 8 for c, _, _ in buckets)  # cols + vals
                         + int(torch.unique(cols_all).numel()) * d * 4  # X rows read once
                         + plan.n_ell_rows * d * 4)  # partial rows written once
         bucket_ops = 2 * int(cols_all.numel()) * d
 
-        run_buckets(kernels.bucket_spmm)
+        kernels.bucket_spmm_plan(plan, x, work, out=cat)
         fin = plan.finish
         gidx = [fin.pos] + ([fin.extra_idx] if fin.extra_idx.shape[0] else [])
         kernels.reset_launch_counts()
@@ -446,6 +464,73 @@ def kernel_figures(plan, n_cols: int, d: int, gen, peak_bw: float, peak_fp32: fl
                         "library": "torch.index_select", "library_ms": gather_lib_ms,
                         "bytes": gather_bytes, "bound_ms": g_bound, "bound_by": g_by},
     }
+
+
+def bucket_check(plan, work, x: torch.Tensor, what: str) -> float:
+    """The one-launch bucket kernel on a plan against its plain version
+    bucket by bucket; returns max |k - p|."""
+    got = kernels.bucket_spmm_plan(plan, x, work)
+    want = torch.cat([kernels.bucket_spmm_torch(c, v, x, o)
+                      for c, v, o in kernels.plan_buckets(plan)])
+    torch.cuda.synchronize()
+    return check_close(got, want, what)
+
+
+def bucket_cases(rng):
+    """Placed plans beside the arxiv plan that cover what the one-launch
+    bucket kernel meets: a relabeled binned plan with rows split across
+    ELL rows, and a small tiered plan with several tiers, a cold tier and
+    rows split across tiers (finish.extra_rids non-empty). Yields (name,
+    operator); raises if a plan lacks what it is here for."""
+    n = 3000
+    dense = (rng.random((n, n)) < 0.004) * rng.standard_normal((n, n))
+    dense[[5, 700]] = rng.standard_normal((2, n))  # rows wider than the widest bucket
+    op = make_operator(CSR.from_dense(dense.astype(np.float32)), layout="binned")
+    if not (op.relabeled and op.binned.has_split_rows):
+        raise AssertionError("binned case is not relabeled or has no split rows")
+    yield "binned (relabeled, split rows)", op
+    dense = (rng.random((2000, 5000)) < 0.01) * rng.standard_normal((2000, 5000))
+    dense[[3, 1500]] = rng.standard_normal((2, 5000))
+    op = make_operator(CSR.from_dense(dense.astype(np.float32)), layout="tiered",
+                       tier_size=1024)
+    plan = op.binned
+    if not (len(plan.tiers) > 2 and plan.finish.extra_rids.shape[0]):
+        raise AssertionError("tiered case has too few tiers or no rows split across tiers")
+    yield "tiered (several tiers, rows split across tiers)", op
+
+
+def bucket_cap_sweep(plan, x: torch.Tensor, want: torch.Tensor) -> list:
+    """bucket_spmm over a plan with its work list cut at each of
+    BUCKET_CAPS: units, time, and the error against the plain version
+    ``want`` (the launches here are outside every main-path count)."""
+    rows = []
+    with torch.inference_mode():
+        for cap in BUCKET_CAPS:
+            w = kernels.bucket_work(plan, cap)
+            err = check_close(kernels.bucket_spmm_plan(plan, x, w), want,
+                              f"bucket_spmm at cap {cap}")
+            rows.append({"cap": cap, "units": int(w.units.shape[0]),
+                         "ms": time_cuda(lambda: kernels.bucket_spmm_plan(plan, x, w), iters=20),
+                         "max_abs_err": err})
+    return rows
+
+
+def bucket_load(plan, work) -> dict:
+    """How the bucket kernel's work falls on its blocks and warps: units,
+    the heaviest unit's slots, and the slots of one row the busiest warp
+    walks in sequence (a chunk of 32), beside the first design's (one
+    warp a row: the widest bucket's width) and its launches (one per
+    bucket)."""
+    widths = np.array([c.shape[1] for c, _, _ in kernels.plan_buckets(plan)])
+    units = work.units.cpu().numpy().astype(np.int64)
+    slots = units[:, 2] * widths[units[:, 0]]
+    return {"buckets": int(widths.shape[0]), "units": int(units.shape[0]),
+            "cap": kernels.BUCKET_UNIT_SLOTS,
+            "unit_slots_max": int(slots.max()) if slots.size else 0,
+            "unit_slots_min": int(slots.min()) if slots.size else 0,
+            "row_slots_per_warp_max": int(min(32, widths.max())) if widths.size else 0,
+            "first_design_row_slots_per_warp_max": int(widths.max()) if widths.size else 0,
+            "first_design_launches": int(widths.shape[0])}
 
 
 def expect_device_assert(code: str, what: str) -> None:
@@ -1056,12 +1141,24 @@ def expansion_cases(rng):
     if plan.rank1 or len(plan.groups) < 2:
         raise AssertionError("v2 forced-general case is rank-1 or has one group")
     yield "expansion2_spmm", "rank1=False on rank-1 values+groups", place_plan(plan, dev)
+    for kname, build in (("expansion_spmm", build_expansion_plan),
+                         ("expansion2_spmm", build_expansion2_plan)):
+        plan = place_plan(build(hubs), dev, max_lanes=EXPANSION_SMALL_CAP)
+        if int(plan.work.split_keys.shape[0]) < 4:
+            raise AssertionError(f"{kname} hub case cuts too few blocks into units")
+        yield kname, f"hub blocks split into units (E={EXPANSION_SMALL_CAP})", plan
 
 
 def lane_load(plan) -> dict:
-    """How the expansion kernels' work falls on their blocks: real lanes
-    (lanes that add a row) per 128-lane group slot (one block each) and
-    per step, counted on the host from the placed plan."""
+    """How the expansion kernels' work falls on their blocks and warps,
+    counted on the host from the placed plan: real lanes (lanes that add
+    a row) per 128-lane group slot and per step (the first design ran one
+    block per slot, every real lane a float4 atomic row add into a zeroed
+    Y); the work list (LaneWork): units (one block each), E, the heaviest
+    unit, the split output blocks, the lanes of the busiest warp (16
+    warps take a unit's lanes 32 at a time, round robin), and the rows
+    the kernel adds into Y with atomics (the rows of split blocks' units)
+    and stores (the rest); nothing zeroes Y as a whole."""
     per_slot = []
     for g in plan.groups:
         real = g.lrow < plan.R
@@ -1071,12 +1168,44 @@ def lane_load(plan) -> dict:
         per_slot.append(real.sum(1).cpu().numpy())
     per_slot = np.concatenate(per_slot).astype(np.int64)
     per_step = per_slot.reshape(plan.n_steps, -1).sum(1)
+    units = plan.work.units.cpu().numpy().astype(np.int64)
+    size = units[:, 2] - units[:, 1]
+    nwb = -(-plan.R // 128)
+    key = np.where(units[:, 0] < 0, ~units[:, 0], units[:, 0])
+    height = np.minimum(128, plan.R - key % nwb * 128)
+    rows = np.clip(plan.n_rows - (key // nwb * plan.R + key % nwb * 128), 0, height)
+    split = units[:, 0] < 0
+    per_warp = EXPANSION_WARPS * EXPANSION_CHUNK
+    warp_max = max((int(np.minimum(EXPANSION_CHUNK, n - np.arange(0, n, per_warp)).sum())
+                    for n in size.tolist() if n), default=0)
     return {"lanes_per_step": per_slot.shape[0] // max(plan.n_steps, 1) * 128,
             "real_lanes": int(per_slot.sum()), "real_slots": int((per_slot > 0).sum()),
             "slots": int(per_slot.shape[0]),
             "step_real_lanes_mean": float(per_step.mean()),
             "step_real_lanes_min": int(per_step.min()),
-            "step_real_lanes_max": int(per_step.max())}
+            "step_real_lanes_max": int(per_step.max()),
+            "E": plan.work.E, "units": int(units.shape[0]), "unit_lanes_max": int(size.max()),
+            "split_keys": int(plan.work.split_keys.shape[0]), "warp_lanes_max": warp_max,
+            "atomic_rows": int(rows[split].sum()), "stored_rows": int(rows[~split].sum()),
+            "first_design_atomic_rows": int(per_slot.sum()), "y_zeroed_bytes": 0}
+
+
+def expansion_cap_sweep(name: str, plan, x: torch.Tensor, want: torch.Tensor) -> list:
+    """An expansion kernel with the plan's work list cut at each of
+    EXPANSION_CAPS: units, split blocks, time, and the error against the
+    plain version ``want`` (the launches here are outside every main-path
+    count)."""
+    kernel = EXPANSION[name][0]
+    rows = []
+    with torch.inference_mode():
+        for cap in EXPANSION_CAPS:
+            p = ekernels.with_lane_cap(plan, cap)
+            err = check_close(kernel(p, x), want, f"{name} at E={cap}")
+            rows.append({"E": cap, "units": int(p.work.units.shape[0]),
+                         "split_keys": int(p.work.split_keys.shape[0]),
+                         "ms": time_cuda(lambda: kernel(p, x), iters=20), "max_abs_err": err})
+            del p
+    return rows
 
 
 def expansion_figures(name: str, plan, sp: torch.Tensor, d: int, gen, peak_bw: float,
@@ -1132,14 +1261,13 @@ def expansion_main_path(a_hat: CSR, cfg, x: torch.Tensor, model: GCN,
     sp = op.binned
     if not isinstance(sp, ExpansionPlan) or not op.transpose_aliased:
         raise AssertionError("ogbn-arxiv should plan as an aliased expansion operator")
-    n_launch = sum(1 for g in sp.groups if g.n_steps)
     with torch.inference_mode():
         kernels.reset_launch_counts()
         logits = model(op, x)
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         expected = {k: 0 for k in launches}
-        expected["expansion_spmm"] = 3 * n_launch
+        expected["expansion_spmm"] = 3  # one launch per SpMM
         if launches != expected:
             raise AssertionError(f"expansion main path launches {launches}, expected {expected}")
         want = model(op, x, impl="torch")
@@ -1168,6 +1296,11 @@ def expansion_main_path(a_hat: CSR, cfg, x: torch.Tensor, model: GCN,
             spmm_rows.append({"layer": layer, "d": d, **{k: round(v, 4) for k, v in rep.items()}})
     fig = expansion_figures("expansion_spmm", sp, torch_csr(a_hat, dev), 128, gen, peak_bw,
                             peak_fp32)
+    h = torch.randn((cfg.n_nodes, 128), generator=gen).to(dev)
+    with torch.inference_mode():
+        fig["unit_cap_sweep"] = expansion_cap_sweep(
+            "expansion_spmm", sp, h, ekernels.expansion_spmm_torch(sp, h))
+    del h
     mem = plan_memory_report(sp, d=256)
     fields = dict(graph="ogbn-arxiv (synthetic, symmetrized, self-loops)", n_nodes=cfg.n_nodes,
                   nnz=a_hat.nnz, dims=GCN_DIMS, layout="expansion", **expansion_shape(sp),
@@ -1205,15 +1338,17 @@ def expansion_scale(pa: CSR, px: torch.Tensor, p_sparse: torch.Tensor, gen, peak
                 n_nodes=pa.shape[0], nnz=pa.nnz, layout="expansion", **expansion_shape(plan),
                 padding_efficiency=plan.padding_efficiency(pa.nnz), lane_load=lane_load(plan),
                 make_operator_seconds=round(t_op, 2), rel_err_vs_torch=err,
-                rel_err_vs_torch_sparse_mm=lib_err, **fig)
+                rel_err_vs_torch_sparse_mm=lib_err, **fig,
+                unit_cap_sweep=expansion_cap_sweep("expansion_spmm", plan, px, y_plain))
 
 
 def expansion2_run(graph: str, a: CSR, tiered_op, widths, gen, peak_bw: float,
-                   peak_fp32: float):
+                   peak_fp32: float, sweep: bool = False):
     """spmm_expansion2 on one graph, as tools/bench_expansion2.py drives
     the JAX package's: the plan and its placement timed, then per width
     one SpMM through the entry point against the kernel's plain version
-    and the tiered SpMM, and its time. Returns (the launches of the
+    and the tiered SpMM, and its time (with ``sweep``, also at each of
+    EXPANSION_CAPS at the first width). Returns (the launches of the
     SpMMs, max abs err, the phase's fields, the kernel's figures at the
     first width)."""
     dev = torch.device("cuda", 0)
@@ -1227,7 +1362,6 @@ def expansion2_run(graph: str, a: CSR, tiered_op, widths, gen, peak_bw: float,
     del plan
     if not placed.rank1:
         raise AssertionError(f"{graph}: the normalized adjacency should plan rank-1")
-    n_launch = sum(1 for g in placed.groups if g.n_steps)
     xs = [torch.randn((a.shape[1], d), generator=gen).to(dev) for d in widths]
     rows, err = [], 0.0
     with torch.inference_mode():
@@ -1236,7 +1370,7 @@ def expansion2_run(graph: str, a: CSR, tiered_op, widths, gen, peak_bw: float,
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         expected = {k: 0 for k in launches}
-        expected["expansion2_spmm"] = n_launch * len(widths)
+        expected["expansion2_spmm"] = len(widths)  # one launch per SpMM
         if launches != expected:
             raise AssertionError(f"{graph} spmm_expansion2 launches {launches}, "
                                  f"expected {expected}")
@@ -1254,6 +1388,10 @@ def expansion2_run(graph: str, a: CSR, tiered_op, widths, gen, peak_bw: float,
                          **{k: round(v, 4) for k, v in rep.items()}})
     fig = expansion_figures("expansion2_spmm", placed, torch_csr(a, dev), widths[0], gen,
                             peak_bw, peak_fp32)
+    if sweep:
+        with torch.inference_mode():
+            fig["unit_cap_sweep"] = expansion_cap_sweep(
+                "expansion2_spmm", placed, xs[0], e2kernels.expansion2_spmm_torch(placed, xs[0]))
     mem = plan_memory_report(placed, d=widths[0])
     fields = dict(graph=graph, n_nodes=a.shape[0], nnz=a.nnz, **expansion_shape(placed),
                   padding_efficiency=placed.padding_efficiency(a.nnz),
@@ -1508,7 +1646,32 @@ def blockfma_phase(dev) -> tuple:
                 err = max(err, check_close(got, want, f"blockfma {v} C={C} T={T} K={K}"))
             row["max_abs_err"] = err
             row["plain_ms"] = time_cuda(lambda: plain(*a), iters=3)
+            lib_name, lib = blockfma_library(v, *a)
+            check_close(lib(), plain(*a), f"{lib_name} for blockfma {v}")
+            row["library"], row["library_ms"] = lib_name, time_cuda(lib, iters=10)
     return rows, launches
+
+
+def blockfma_library(variant: str, starts: torch.Tensor, w: torch.Tensor, tier: torch.Tensor):
+    """(name, call) of the one PyTorch call that computes a blockfma
+    variant's function, its index arrays built here, outside the call:
+    A as embedding_bag over the (8R, K) slot rows (row 8r + j's slot k
+    reads tier[s_k + j]) with the weights; B as torch.sparse.mm on the CSR
+    of its slots (slot k of step r adds v tier[c] into row 8r + c % 8)."""
+    R8 = starts.shape[0]
+    s = kblockfma._slots(starts, starts.shape[1] * kblockfma.ROWS)  # (R, K)
+    j = torch.arange(kblockfma.ROWS, device=tier.device)
+    if variant == "A":
+        idx = (s[:, None, :] + j[None, :, None]).reshape(R8, -1)
+        return ("torch.nn.functional.embedding_bag",
+                lambda: F.embedding_bag(idx, tier, per_sample_weights=w, mode="sum"))
+    R, K = s.shape
+    v = w.view(R, kblockfma.ROWS, K // kblockfma.ROWS).permute(0, 2, 1).reshape(R, K)
+    rows = torch.arange(R, device=tier.device)[:, None] * kblockfma.ROWS + s % kblockfma.ROWS
+    sp = torch.sparse_coo_tensor(torch.stack([rows.reshape(-1), s.reshape(-1)]), v.reshape(-1),
+                                 (R8, tier.shape[0]), check_invariants=False
+                                 ).coalesce().to_sparse_csr()
+    return "torch.sparse.mm", lambda: torch.sparse.mm(sp, tier)
 
 
 def mxu_phase(dev) -> tuple:
@@ -1590,6 +1753,24 @@ def proto_phase(dev) -> tuple:
             row["max_abs_err"] = err[mode]
             row["plain_ms"] = time_cuda(lambda: kproto.proto_fused_torch(
                 mode, *args, **size, staged=staged_p), iters=3)
+        # fused mode's function in one PyTorch call: torch.sparse.mm on the
+        # CSR of its lanes (lane l adds X row src(l) into row t(l) R + lrow)
+        scols, lidx, lrow, blk, xp = args
+        G = blk.shape[-1]
+        t, src = kproto.lane_sources(scols, lidx, blk, S, tproto.SPT, TILES, 0, TILES * tproto.SPT,
+                                     False)
+        dst = t * R + lrow[tproto.SPT * G:(tproto.SPT + TILES * tproto.SPT) * G].reshape(-1).long()
+        sp = torch.sparse_coo_tensor(torch.stack([dst, src]), torch.ones(dst.shape[0], device=dev),
+                                     (TILES * R, xp.shape[0]), check_invariants=False
+                                     ).coalesce().to_sparse_csr()
+        del t, src, dst
+        check_close(torch.sparse.mm(sp, xp), kproto.proto_fused_torch(
+            "fused", *args, **size, staged=staged_p), "torch.sparse.mm for proto_fused fused")
+        for row in rows:
+            row["library"], row["library_ms"] = None, None
+            if row["variant"] == "fused":
+                row["library"] = "torch.sparse.mm"
+                row["library_ms"] = time_cuda(lambda: torch.sparse.mm(sp, xp), iters=10)
     return rows, launches
 
 
@@ -1661,8 +1842,15 @@ def gather_case(kernel: str, dev, seed: int, **p) -> tuple:
             bases, lidx, rows, vals, hi, lo = on(tgather2.inputs_twosided(TILE, CW, p["R"], T,
                                                                          seed=seed))
             args = (bases, lidx, rows, vals, hi, lo, CW, p["R"])
+            li = lidx.view(-1).long()
+            inside = (li >= 0) & (li < CW)
+            src = bases.view(-1).long().repeat_interleave(TILE) + li
+            sp = torch.sparse_coo_tensor(
+                torch.stack([rows.view(-1).long()[inside], src[inside]]), vals.view(-1)[inside],
+                (p["R"], hi.shape[0]), check_invariants=False).coalesce().to_sparse_csr()
+            table = hi.float() + lo.float()
             return (lambda: kgather2.twosided(*args), lambda: kgather2.twosided_torch(*args),
-                    None)
+                    ("torch.sparse.mm", lambda: torch.sparse.mm(sp, table)))
         *made, _ = tgather2.inputs_window_pair(TILE, CW, T, U=p["U"], seed=seed)
         bases, lidx, hi, lo = on(made)
         src = bases.view(-1).long().repeat_interleave(TILE) + lidx.view(-1).long()
@@ -1711,8 +1899,9 @@ def gather_rows_check(dev, rows: list) -> None:
             row["max_abs_err"] = gather_check(k, run(), want, f"{k} {row['variant']}")
             row["plain_ms"] = time_cuda(plain, iters=3)
             row["library"], row["library_ms"] = None, None
-            if lib is not None:
-                check_close(lib[1](), want, f"{lib[0]} for {k} {row['variant']}")
+            if lib is not None:  # twosided: lanes summed in another order (normwise)
+                (check_norm if k == "gather2_twosided" else check_close)(
+                    lib[1](), want, f"{lib[0]} for {k} {row['variant']}")
                 row["library"], row["library_ms"] = lib[0], time_cuda(lib[1], iters=10)
             del run, plain, lib, want
             if k not in small_err:
@@ -1785,7 +1974,8 @@ def microbench_entry(name: str, rows: list, launches: dict) -> dict:
              "launches_scope": "one run of the entry point at its default size",
              "max_abs_err": max(r["max_abs_err"] for r in rows),
              **{k: main_row[k] for k in keys}, "library_ms": main_row.get("library_ms"),
-             **({"library": main_row["library"]} if main_row.get("library") else {}),
+             **({"library": main_row["library"]} if main_row.get("library")
+                else {"library": LIBRARY_NONE[name]} if name in LIBRARY_NONE else {}),
              **{k: main_row[k] for k in ("onehot_macs", "onehot_mac_fraction") if k in main_row},
              "times_scope": f"variant {MICROBENCH_MAIN[name]} at the tool's default size"}
     if "gather" not in tool_of(name):
@@ -1904,7 +2094,8 @@ def main() -> int:
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         expected = {k: 0 for k in SOURCES}
-        expected.update(bucket_spmm=3 * n_buckets, gather_rows=3 * (1 + (n_extra > 0)))
+        # one bucket_spmm launch per SpMM, whatever the buckets
+        expected.update(bucket_spmm=3, gather_rows=3 * (1 + (n_extra > 0)))
         if launches != expected:
             raise AssertionError(f"main path launches {launches}, expected {expected}")
         want = model(op, x, impl="torch")
@@ -1915,25 +2106,31 @@ def main() -> int:
     if gcn_err > MAIN_PATH_REL_TOL:
         raise AssertionError(f"GCN logits vs impl=torch: rel err {gcn_err}")
 
-    # every kernel at the shapes the main path gives it, against its plain version
+    # every kernel at the shapes the main path gives it, against its plain
+    # version: the whole arxiv plan in one launch (and cut at a small unit
+    # cap), a binned and a small tiered plan, at d = 128, 256 and 60
+    bucket_plans = [("arxiv tiered", plan, op.work),
+                    (f"arxiv tiered, cap {BUCKET_SMALL_CAP}", plan,
+                     kernels.bucket_work(plan, BUCKET_SMALL_CAP))]
+    bucket_plans += [(name, bop.binned, bop.work) for name, bop in bucket_cases(
+        np.random.default_rng(1))]
     with torch.inference_mode():
-        for d in sorted(set(GCN_DIMS[:-1])):
+        for d in FEATURE_WIDTHS:
+            for name, bplan, bwork in bucket_plans:
+                xd = torch.randn((bplan.shape[1], d), generator=gen).to(dev)
+                e = bucket_check(bplan, bwork, xd, f"bucket_spmm {name} d={d}")
+                max_err["bucket_spmm"] = max(max_err["bucket_spmm"], e)
             xd = torch.randn((cfg.n_nodes, d), generator=gen).to(dev)
-            parts = []
-            for t in plan.tiers:
-                o = 0 if t.tier < 0 else t.tier * plan.tier_size
-                for b in t.buckets:
-                    got = kernels.bucket_spmm(b.cols, b.vals, xd, o)
-                    e = check_close(got, kernels.bucket_spmm_torch(b.cols, b.vals, xd, o),
-                                    f"arxiv bucket K={b.width} tier={t.tier} d={d}")
-                    max_err["bucket_spmm"] = max(max_err["bucket_spmm"], e)
-                    parts.append(got)
-            cat = torch.cat(parts)
+            cat = kernels.bucket_spmm_plan(plan, xd, op.work)
             for idx in (plan.finish.pos, plan.finish.extra_idx):
                 if not torch.equal(kernels.gather_rows(cat, idx),
                                    kernels.gather_rows_torch(cat, idx)):
                     raise AssertionError(f"arxiv finish gather d={d} not bit-exact")
         torch.cuda.synchronize()
+    bucket_plan_cases = [{"plan": name, "buckets": len(kernels.plan_buckets(bplan)),
+                          "units": int(bwork.units.shape[0]), "ell_rows": bwork.n_ell_rows}
+                         for name, bplan, bwork in bucket_plans]
+    del bucket_plans
 
     # times: forward, each layer's SpMM, and each kernel over one SpMM at d=128
     with torch.inference_mode():
@@ -1951,7 +2148,8 @@ def main() -> int:
          n_nodes=cfg.n_nodes, nnz=a_hat.nnz, dims=GCN_DIMS, layout="tiered",
          buckets=n_buckets,
          cold_buckets=sum(len(t.buckets) for t in plan.tiers if t.tier < 0),
-         ell_rows=plan.n_ell_rows, finish_extras=n_extra,
+         ell_rows=plan.n_ell_rows, finish_extras=n_extra, bucket_load=bucket_load(plan, op.work),
+         bucket_plan_cases=bucket_plan_cases,
          graph_seconds=round(t_graph, 2), plan_seconds=round(t_plan, 2),
          launches_per_forward=launches,
          logits_rel_err_vs_torch=gcn_err, forward_ms=round(fwd_ms, 4),
@@ -1983,8 +2181,14 @@ def main() -> int:
     emit("reference", graph="cora", layout="binned (relabeled)", dims=cmodel.feature_dims,
          rel_err_vs_dense_float64=cora_err, launches=cora_launches)
 
-    a_fig = kernel_figures(plan, cfg.n_nodes, 128, gen, peak_bw, peak_fp32)
-    emit("kernel_times", graph="ogbn-arxiv", **a_fig)
+    a_fig = kernel_figures(plan, op.work, cfg.n_nodes, 128, gen, peak_bw, peak_fp32)
+    h = torch.randn((cfg.n_nodes, 128), generator=gen).to(dev)
+    with torch.inference_mode():
+        h_want = torch.cat([kernels.bucket_spmm_torch(c, v, h, o)
+                            for c, v, o in kernels.plan_buckets(plan)])
+    emit("kernel_times", graph="ogbn-arxiv", **a_fig,
+         bucket_cap_sweep=bucket_cap_sweep(plan, h, h_want))
+    del h, h_want
 
     # -- 5. scale: one SpMM on products-small ---------------------------------
     t0 = time.perf_counter()
@@ -2019,8 +2223,14 @@ def main() -> int:
          rel_err_vs_torch=p_err, spmm_ms=p_ms, plain_ms=p_plain_ms,
          torch_sparse_mm_ms=p_lib_ms, torch_sparse_mm_rel_err=p_lib_err,
          **{k: round(v, 4) for k, v in rep.items() if k != "ms"})
+    with torch.inference_mode():
+        p_cat = torch.cat([kernels.bucket_spmm_torch(c, v, px, o)
+                           for c, v, o in kernels.plan_buckets(pop.binned)])
     emit("kernel_times", graph="products-small",
-         **kernel_figures(pop.binned, pcfg.n_nodes, 128, gen, peak_bw, peak_fp32))
+         **kernel_figures(pop.binned, pop.work, pcfg.n_nodes, 128, gen, peak_bw, peak_fp32),
+         bucket_load=bucket_load(pop.binned, pop.work),
+         bucket_cap_sweep=bucket_cap_sweep(pop.binned, px, p_cat))
+    del p_cat
 
     # -- 6. the panel kernel against its plain version -------------------------
     rng = np.random.default_rng(0)
@@ -2232,7 +2442,7 @@ def main() -> int:
          tiered_spmm_ms=p_ms)
     e2_launches, err, fields, e2_fig = expansion2_run(
         "ogbn-arxiv (synthetic, symmetrized, self-loops)", a_hat, op, (128, 256), gen, peak_bw,
-        peak_fp32)
+        peak_fp32, sweep=True)
     max_err["expansion2_spmm"] = max(max_err["expansion2_spmm"], err)
     emit("expansion2", **fields, expansion_spmm_ms=exp_fig["ms"])
     emit("expansion2_kernel_times", graph="ogbn-arxiv", **e2_fig)

@@ -4,11 +4,11 @@
 // expansion2_spmm replaces of_spmm_tpu/ops/pallas/expansion2.py::_kernel
 // (launched there by _group_call, one pallas_call per plan group) together
 // with its wrapper's tier-major, column-scaled staging (_stage) and row
-// scaling. It runs one group of an Expansion2Plan (sparse/expansion2.py):
-// per step, G groups of 128 lanes, each group on one 128-row staging block
-// (blk_of); padding lanes carry the row sentinel R. Rank-1 plans carry no
-// values: the lane's scale is stage_scale[u] * row_scale[output row].
-// General plans carry each value as a bf16 pair.
+// scaling. It runs every group of an Expansion2Plan (sparse/expansion2.py)
+// in one launch: per step, G groups of 128 lanes, each group on one
+// 128-row staging block (blk_of); padding lanes carry the row sentinel R.
+// Rank-1 plans carry no values: the lane's scale is stage_scale[u] *
+// row_scale[output row]. General plans carry each value as a bf16 pair.
 //
 // The kernel, its bound and its design are in expansion.cuh, shared with
 // the expansion engine.
@@ -17,21 +17,20 @@
 
 extern "C" {
 
-// One group of a placed plan against x float32 (m, d); adds the group's
-// rows into out float32 (n, d), which the caller has zeroed. Every pointer
-// is a contiguous device array (see ofs_expansion::Args; val_hi/val_lo are
-// null on rank-1 plans, stage_scale and row_scale on general ones).
-// out_row0 is the group's first output row, groups_per_step = G, nblk is
-// unused. Returns a cudaError_t.
-int ofs_expansion2_spmm(const void* lidx, const void* lrow, const void* val_hi,
-                        const void* val_lo, const void* blk, const void* tile_of,
-                        const void* stage_row, const void* stage_scale, const void* row_scale,
-                        const void* x, void* out, int64_t m, int64_t n, int64_t d,
-                        int64_t out_row0, int64_t n_steps, int64_t n_staged,
-                        int groups_per_step, int nblk, int R, int device, void* stream) {
-  return ofs_expansion::run<true>(lidx, lrow, val_hi, val_lo, blk, tile_of, stage_row,
-                                  stage_scale, row_scale, x, out, m, n, d, out_row0, n_steps,
-                                  n_staged, groups_per_step, nblk, R, device, stream);
+// One SpMM of a placed plan against x float32 (m, d) into out float32
+// (n, d): the zeroing of the split keys' rows, then one launch over every
+// work unit of every group. table int64 (groups, 8), lanes, units and
+// split_keys int32 are the plan's LaneWork (sparse/expansion.py;
+// ops/cuda/expansion.py place_plan; the table's val_hi / val_lo are 0 on
+// rank-1 plans, its stage_scale 0 on general ones); row_scale is null on
+// general plans; tile_lanes and nblk are unused. Every pointer is a
+// contiguous device array. Returns a cudaError_t.
+int ofs_expansion2_spmm(const void* table, const void* lanes, const void* units,
+                        const void* split_keys, const void* row_scale, const void* x, void* out,
+                        int64_t m, int64_t n, int64_t d, int64_t n_units, int64_t n_split, int R,
+                        int tile_lanes, int nblk, int device, void* stream) {
+  return ofs_expansion::run<true>(table, lanes, units, split_keys, row_scale, x, out, m, n, d,
+                                  n_units, n_split, R, tile_lanes, nblk, device, stream);
 }
 
 const char* ofs_error_string(int code) {

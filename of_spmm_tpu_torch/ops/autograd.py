@@ -29,7 +29,7 @@ from of_spmm_tpu_torch.ops.cuda.expansion import expansion_spmm, expansion_spmm_
 from of_spmm_tpu_torch.ops.cuda.fused import fused_spmm, fused_spmm_torch
 from of_spmm_tpu_torch.ops.cuda.panels import panel_spmm, panel_spmm_torch
 from of_spmm_tpu_torch.ops.cuda.ranges import ranges_spmm, ranges_spmm_torch
-from of_spmm_tpu_torch.ops.cuda.spmm import bucket_spmm, gather_rows
+from of_spmm_tpu_torch.ops.cuda.spmm import bucket_spmm_plan, bucket_work, gather_rows
 from of_spmm_tpu_torch.sparse.binned import BinnedEll, bin_rows, bin_rows_relabeled
 from of_spmm_tpu_torch.sparse.expansion import ExpansionPlan, build_expansion_plan
 from of_spmm_tpu_torch.sparse import staged_windows
@@ -58,6 +58,11 @@ class SpmmOperator:
     # order chosen for a slice-concat finish; None = identity.
     old_from_new: Any = None  # x_int = x[old_from_new]
     new_from_old: Any = None  # y = y_int[new_from_old]
+    # binned and tiered plans: the bucket kernel's work list of each plan
+    # (ops/cuda/spmm.py BucketWork), built by place_operator; None = built
+    # per call
+    work: Any = None
+    work_t: Any = None
 
     @property
     def relabeled(self) -> bool:
@@ -91,6 +96,7 @@ class SpmmOperator:
             binned=self.binned_t, binned_t=self.binned,
             shape=(self.shape[1], self.shape[0]),
             old_from_new=self.old_from_new, new_from_old=self.new_from_old,
+            work=self.work_t, work_t=self.work,
         )
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
@@ -221,7 +227,10 @@ def place_operator(op: SpmmOperator, device) -> SpmmOperator:
     sparse/panels.py attach_windows, which panel plans follow by expanding
     their compact masks on ``device`` with one scatter-add; fused and
     ranges: sparse/staged_windows.py attach_windows; expansion:
-    ops/cuda/expansion.py place_plan, each group's ``stage_row``)."""
+    ops/cuda/expansion.py place_plan, each group's ``stage_row`` and the
+    plan's work list). Binned and tiered plans get the bucket kernel's
+    work list once their arrays are on ``device`` (ops/cuda/spmm.py
+    bucket_work)."""
     device = torch.device(device)
     if isinstance(op.binned, (PanelPlan, FusedPlan, RangesPlan, ExpansionPlan)):
         ready = {}
@@ -236,7 +245,12 @@ def place_operator(op: SpmmOperator, device) -> SpmmOperator:
                 ready[id(p)] = staged_windows.attach_windows(p)
         op = dataclasses.replace(op, binned=ready[id(op.binned)],
                                  binned_t=ready[id(op.binned_t)])
-    return place_arrays(op, device)
+    op = place_arrays(dataclasses.replace(op, work=None, work_t=None), device)
+    if isinstance(op.binned, (BinnedEll, TieredEll)):
+        work = bucket_work(op.binned)
+        op = dataclasses.replace(op, work=work, work_t=work if op.binned_t is op.binned
+                                 else bucket_work(op.binned_t))
+    return op
 
 
 def _select_impl(impl: str, x: torch.Tensor) -> str:
@@ -247,18 +261,20 @@ def _select_impl(impl: str, x: torch.Tensor) -> str:
     return impl
 
 
-def _spmm_binned_kernels(binned: BinnedEll, x: torch.Tensor) -> torch.Tensor:
-    """Every bucket through the bucket kernel, then the plan's finish (its
-    gather through the gather kernel)."""
+def _spmm_binned_kernels(binned: BinnedEll, x: torch.Tensor, work=None) -> torch.Tensor:
+    """Every bucket through one launch of the bucket kernel, then the
+    plan's finish (its gather through the gather kernel)."""
     if not binned.buckets:
         return torch.zeros((binned.n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
     xa = x.to(torch.float32).contiguous()
-    contribs = [bucket_spmm(b.cols, b.vals, xa) for b in binned.buckets]
-    out = ref.combine_contribs(binned, contribs, torch.float32, gather_fn=gather_rows)
+    cat = bucket_spmm_plan(binned, xa, work)
+    bounds = np.cumsum([0] + [b.n_ell_rows for b in binned.buckets]).tolist()
+    contribs = [cat[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    out = ref.combine_contribs(binned, contribs, torch.float32, gather_fn=gather_rows, cat=cat)
     return out.to(x.dtype)
 
 
-def _spmm_impl(plan, x: torch.Tensor, impl: str) -> torch.Tensor:
+def _spmm_impl(plan, x: torch.Tensor, impl: str, work=None) -> torch.Tensor:
     for plan_type, kernel, plain in ((PanelPlan, panel_spmm, panel_spmm_torch),
                                      (FusedPlan, fused_spmm, fused_spmm_torch),
                                      (RangesPlan, ranges_spmm, ranges_spmm_torch),
@@ -268,10 +284,11 @@ def _spmm_impl(plan, x: torch.Tensor, impl: str) -> torch.Tensor:
             return (kernel if impl == "cuda" else plain)(plan, xa).to(x.dtype)
     if isinstance(plan, TieredEll):
         if impl == "cuda":
-            return ref.spmm_tiered(plan, x, bucket_fn=bucket_spmm, gather_fn=gather_rows)
+            return ref.spmm_tiered(plan, x, buckets_fn=lambda p, xa: bucket_spmm_plan(p, xa, work),
+                                   gather_fn=gather_rows)
         return ref.spmm_tiered(plan, x)
     if impl == "cuda":
-        return _spmm_binned_kernels(plan, x)
+        return _spmm_binned_kernels(plan, x, work)
     return ref.spmm_binned(plan, x)
 
 
@@ -286,7 +303,7 @@ def spmm_internal(op: SpmmOperator, x: torch.Tensor, impl: str = "auto") -> torc
         raise NotImplementedError(
             "spmm has no backward yet (ROADMAP.md Queue 1, next slice); run "
             "inference under torch.no_grad() or torch.inference_mode()")
-    return _spmm_impl(op.binned, x, _select_impl(impl, x))
+    return _spmm_impl(op.binned, x, _select_impl(impl, x), op.work)
 
 
 def spmm(op: SpmmOperator, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:

@@ -4,10 +4,14 @@ launcher (layout="expansion").
 ``spmm_expansion(plan, x)`` computes Y = A @ X for an ExpansionPlan
 (sparse/expansion.py), with the JAX package's name and result
 (of_spmm_tpu/ops/pallas/expansion.py::spmm_expansion): ``expansion_spmm``
-launches the kernel in ``csrc/expansion.cu`` once per plan group. It
-replaces the TPU kernel ``_expansion_kernel`` together with its wrapper's
-tier-major staging; design notes are in csrc/expansion.cuh, which this
-engine and expansion2 (ops/cuda/expansion2.py) share.
+launches the kernel in ``csrc/expansion.cu`` once per SpMM, one block per
+work unit of the plan's work list (LaneWork, sparse/expansion.py
+lane_work). It replaces the TPU kernel ``_expansion_kernel`` together with
+its wrapper's tier-major staging; design notes are in csrc/expansion.cuh,
+which this engine and expansion2 (ops/cuda/expansion2.py) share.
+``expansion_units_torch`` repeats the kernel's split into units (partial
+sums, row-scaled, added per output block) in plain PyTorch, for both
+engines.
 
 The wrappers dispatch on the device of ``x``: on the CPU they run the
 plain version (what the CPU tests hold against the JAX package); on the
@@ -23,7 +27,8 @@ dtype and the result cast back.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 
@@ -46,7 +51,7 @@ def build() -> Dict[str, object]:
 def bind(fn) -> None:
     """argtypes of ofs_expansion_spmm / ofs_expansion2_spmm (same signature)."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn.argtypes = [p] * 11 + [i64] * 6 + [i32] * 4 + [p]
+    fn.argtypes = [p] * 7 + [i64] * 5 + [i32] * 4 + [p]
     fn.restype = i32
 
 
@@ -60,24 +65,62 @@ def _lib() -> ctypes.CDLL:
 
 def is_placed(plan, device: torch.device) -> bool:
     """Whether every group of ``plan`` has its provenance and its arrays
-    as tensors on ``device``."""
-    return all(g.stage_row is not None and isinstance(g.lrow, torch.Tensor)
-               and g.lrow.device == device and isinstance(g.stage_row, torch.Tensor)
-               for g in plan.groups)
+    as tensors on ``device``, and the plan its work list there."""
+    return (plan.work is not None and isinstance(plan.work.table, torch.Tensor)
+            and plan.work.table.device == device
+            and all(g.stage_row is not None and isinstance(g.lrow, torch.Tensor)
+                    and g.lrow.device == device and isinstance(g.stage_row, torch.Tensor)
+                    for g in plan.groups))
 
 
-def place_plan(plan, device):
-    """An ExpansionPlan or Expansion2Plan with each group's provenance
-    (``stage_row``) attached on the host and every array a tensor on
-    ``device``."""
+def _group_ptrs(plan) -> tuple:
+    """Per group: its lane index, row, value (0 without) and block arrays,
+    stage_row, stage_scale (0 without) pointers and its staged rows; the
+    rows of the kernel's device table (csrc/expansion.cuh Args)."""
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    v2 = isinstance(plan, expansion2.Expansion2Plan)
+    return tuple((ptr(g.lidx if v2 else g.win_lidx), ptr(g.lrow), ptr(g.val_hi), ptr(g.val_lo),
+                  ptr(g.blk_of if v2 else g.base_blk), ptr(g.stage_row),
+                  ptr(getattr(g, "stage_scale", None)), int(g.stage_row.shape[0]))
+                 for g in plan.groups)
+
+
+def _with_table(plan):
+    """The placed plan with its work list's device table (LaneWork.table,
+    .ptrs) built from its groups' arrays."""
+    rows = _group_ptrs(plan)
+    dev = plan.work.lanes.device
+    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 8).to(dev)
+    return dataclasses.replace(plan, work=dataclasses.replace(plan.work, table=table,
+                                                              ptrs=rows))
+
+
+def _attach(plan, max_lanes: Optional[int] = None):
+    """The plan's provenance and work list derived anew on the host."""
     if isinstance(plan, ExpansionPlan):
-        plan = attach_stage_rows(plan)
-    elif isinstance(plan, expansion2.Expansion2Plan):
-        plan = expansion2.attach_stage_rows(plan)
-    else:
-        raise TypeError(f"place_plan takes an ExpansionPlan or Expansion2Plan, "
-                        f"got {type(plan).__name__}")
-    return place_arrays(plan, torch.device(device))
+        return attach_stage_rows(dataclasses.replace(plan, work=None), max_lanes)
+    if isinstance(plan, expansion2.Expansion2Plan):
+        return expansion2.attach_stage_rows(dataclasses.replace(plan, work=None), max_lanes)
+    raise TypeError(f"place_plan takes an ExpansionPlan or Expansion2Plan, "
+                    f"got {type(plan).__name__}")
+
+
+def place_plan(plan, device, max_lanes: Optional[int] = None):
+    """An ExpansionPlan or Expansion2Plan with each group's provenance
+    (``stage_row``) and the plan's work list (units of at most
+    ``max_lanes`` lanes; sparse/expansion.py UNIT_LANES by default)
+    derived on the host, and every array a tensor on ``device``."""
+    return _with_table(place_arrays(_attach(plan, max_lanes), torch.device(device)))
+
+
+def with_lane_cap(plan, cap: int):
+    """The placed plan with its work list cut again at ``cap`` lanes per
+    unit (derived on the host from a copy of its arrays)."""
+    host = place_arrays(dataclasses.replace(plan, work=None), torch.device("cpu"))
+    work = place_arrays(_attach(host, cap).work, plan.work.lanes.device)
+    return _with_table(dataclasses.replace(plan, work=work))
 
 
 def check_plan(plan, x: torch.Tensor, plan_type, what: str) -> None:
@@ -86,11 +129,15 @@ def check_plan(plan, x: torch.Tensor, plan_type, what: str) -> None:
     require(x, "x", torch.float32, 2)
     if x.shape[0] != plan.shape[1]:
         raise ValueError(f"x has {x.shape[0]} rows, the plan {plan.shape[1]} columns")
+    if plan.work is None or not isinstance(plan.work.lanes, torch.Tensor):
+        raise ValueError("the plan is not placed: run ops.place_plan (it attaches the "
+                         "staged rows' provenance and the work list)")
     for g in plan.groups:
         if g.stage_row is None or not isinstance(g.lrow, torch.Tensor):
             raise ValueError("the plan is not placed: run ops.place_plan (it attaches the "
                              "staged rows' provenance)")
         same_device(x, g.lrow, g.stage_row)
+    same_device(x, plan.work.lanes, plan.work.units)
 
 
 def bf16_tensor_value(bits: torch.Tensor) -> torch.Tensor:
@@ -134,43 +181,98 @@ def expansion_spmm_torch(plan: ExpansionPlan, x: torch.Tensor) -> torch.Tensor:
     return out[:n]
 
 
-def launch_groups(plan, x: torch.Tensor, lib, fn, name: str, lanes, nblk: int,
-                  groups_per_step: int) -> torch.Tensor:
-    """Zero Y and launch ``fn`` (a bound ofs_expansion*_spmm of ``lib``)
-    once per group with steps; ``lanes(g)`` is the group's (lane index,
-    staging block) arrays."""
+def resolve_lanes(plan, g, e: torch.Tensor):
+    """(X row, multiplier, output row within the group's tiles) of the
+    lanes ``e`` (int64 indices into group ``g``'s lane arrays), as the
+    kernel resolves them: the staged row through the step's window (v1)
+    or the lane group's block (v2), the value's bf16 pair or the staged
+    row's column scale."""
+    v2 = isinstance(plan, expansion2.Expansion2Plan)
+    if v2:
+        li = g.lidx.reshape(-1).long()[e]
+        u = g.blk_of.long()[e // _L] * _L + li % _L
+        tile = g.tile_of.long()[e // (plan.G * _L)]
+    else:
+        li = g.win_lidx.reshape(-1).long()[e]
+        step = e // plan.TILE
+        u = g.base_blk.long()[step * (plan.CW // _L) + li // _L] * _L + li % _L
+        tile = g.tile_of.long()[step]
+    if g.val_hi is not None:
+        mul = (bf16_tensor_value(g.val_hi) + bf16_tensor_value(g.val_lo)).reshape(-1)[e]
+    else:
+        mul = torch.ones(e.shape, dtype=torch.float32, device=e.device)
+    if getattr(g, "stage_scale", None) is not None:
+        mul = mul * g.stage_scale[u]
+    return g.stage_row.long()[u], mul, tile * plan.R + g.lrow.reshape(-1).long()[e]
+
+
+def expansion_units_torch(plan, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's work split in plain PyTorch, on a placed plan of
+    either engine: each work unit's partial sum over its lanes
+    (LaneWork), times row_scale (v2 rank-1), added into the rows of its
+    128-row output block below n. Equal to the engine's plain version up
+    to the order of the sums."""
+    n, d = plan.n_rows, x.shape[1]
+    dev = x.device
+    work = plan.work
+    nwb = -(-plan.R // _L)
+    out = torch.zeros((n, d), dtype=torch.float32, device=dev)
+    units = work.units.long()
+    lanes = work.lanes.long()
+    first_tile = [0]
+    for g in plan.groups:
+        first_tile.append(first_tile[-1] + g.n_tiles)
+    row_scale = getattr(plan, "row_scale", None)
+    for u, (key, a, b, gi) in enumerate(units.tolist()):
+        key = ~key if key < 0 else key
+        g = plan.groups[gi]
+        src, mul, orow = resolve_lanes(plan, g, lanes[a:b])
+        orow = orow + first_tile[gi] * plan.R
+        row0 = key // nwb * plan.R + key % nwb * _L
+        if bool(((orow < row0) | (orow >= row0 + _L)).any()):
+            raise AssertionError(f"unit {u} holds a lane outside its output block")
+        part = torch.zeros((_L, d), dtype=torch.float32, device=dev)
+        scatter_lanes(part, x, src, orow - row0, mul)
+        rows = torch.arange(row0, row0 + min(_L, plan.R - key % nwb * _L), device=dev)
+        rows = rows[rows < n]
+        part = part[:rows.shape[0]]
+        if row_scale is not None:
+            part = part * row_scale[rows][:, None]
+        out.index_add_(0, rows, part)
+    return out
+
+
+def launch(plan, x: torch.Tensor, lib, fn, name: str, tile_lanes: int,
+           nblk: int) -> torch.Tensor:
+    """Y through one call of ``fn`` (a bound ofs_expansion*_spmm of
+    ``lib``): the split keys' rows zeroed, then one launch over every work
+    unit of the plan. Y is not zeroed as a whole."""
     n, m = plan.shape
     d = x.shape[1]
     dev = x.device
-    out = torch.zeros((n, d), dtype=torch.float32, device=dev)
-    if n == 0 or d == 0:
+    work = plan.work
+    out = torch.empty((n, d), dtype=torch.float32, device=dev)  # every row has a unit
+    if n == 0 or d == 0 or work.units.shape[0] == 0:
         return out
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    row_scale = getattr(plan, "row_scale", None)
-    row0 = 0
-    for g in plan.groups:
-        if g.n_steps:
-            lidx, blk = lanes(g)
-            rc = fn(ptr(lidx), ptr(g.lrow), ptr(g.val_hi), ptr(g.val_lo), ptr(blk),
-                    ptr(g.tile_of), ptr(g.stage_row), ptr(getattr(g, "stage_scale", None)),
-                    ptr(row_scale), x.data_ptr(), out.data_ptr(), m, n, d, row0, g.n_steps,
-                    int(g.stage_row.shape[0]), groups_per_step, nblk, plan.R,
-                    dev.index or 0, stream(dev))
-            raise_if(lib, rc, name)
-            LAUNCHES[name] += 1
-        row0 += g.n_tiles * plan.R
+    if work.table.device != dev or work.ptrs != _group_ptrs(plan):
+        raise ValueError("the work list was built for other arrays: place the plan again "
+                         "(ops.place_plan)")
+    rs = getattr(plan, "row_scale", None)
+    rc = fn(work.table.data_ptr(), work.lanes.data_ptr(), work.units.data_ptr(),
+            work.split_keys.data_ptr(), None if rs is None else rs.data_ptr(), x.data_ptr(),
+            out.data_ptr(), m, n, d, int(work.units.shape[0]), int(work.split_keys.shape[0]),
+            plan.R, tile_lanes, nblk, dev.index or 0, stream(dev))
+    raise_if(lib, rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
 def expansion_spmm(plan: ExpansionPlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X (float32, (n, d)) for a placed ExpansionPlan of A and
-    float32 ``x`` (m, d). On the card this launches the kernel once per
-    group; on the CPU it runs ``expansion_spmm_torch``. A staged row that
-    names a row outside x stops the kernel with a device-side assertion
-    that the next synchronization raises."""
+    float32 ``x`` (m, d). On the card this launches the kernel once; on
+    the CPU it runs ``expansion_spmm_torch``. A staged row that names a
+    row outside x stops the kernel with a device-side assertion that the
+    next synchronization raises."""
     check_plan(plan, x, ExpansionPlan, "expansion_spmm")
     dev = x.device
     if dev.type == "cpu":
@@ -178,8 +280,8 @@ def expansion_spmm(plan: ExpansionPlan, x: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"expansion_spmm runs on cuda or cpu tensors, got {dev}")
     lib = _lib()
-    return launch_groups(plan, x, lib, lib.ofs_expansion_spmm, "expansion_spmm",
-                         lambda g: (g.win_lidx, g.base_blk), plan.CW // _L, plan.TILE // _L)
+    return launch(plan, x, lib, lib.ofs_expansion_spmm, "expansion_spmm", plan.TILE,
+                  plan.CW // _L)
 
 
 def spmm_expansion(plan: ExpansionPlan, x: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,12 @@ its launcher.
 (sparse/expansion2.py), with the JAX package's name and result
 (of_spmm_tpu/ops/pallas/expansion2.py::spmm_expansion2):
 ``expansion2_spmm`` launches the kernel in ``csrc/expansion2.cu`` once per
-plan group. It replaces the TPU kernel ``_kernel`` together with its
-wrapper's column-scaled tier-major staging and row scaling; design notes
-are in csrc/expansion.cuh, shared with the v1 engine
-(ops/cuda/expansion.py, which also holds the launcher both use).
+SpMM, one block per work unit of the plan's work list. It replaces the
+TPU kernel ``_kernel`` together with its wrapper's column-scaled
+tier-major staging and row scaling; design notes are in
+csrc/expansion.cuh, shared with the v1 engine (ops/cuda/expansion.py,
+which also holds the launcher and the unit-by-unit plain version,
+``expansion_units_torch``, both use).
 
 The wrappers dispatch on the device of ``x``: on the CPU they run the
 plain version; on the card they launch the kernel or raise, and never
@@ -25,7 +27,7 @@ import torch
 
 from of_spmm_tpu_torch.ops.cuda import build as _build
 from of_spmm_tpu_torch.ops.cuda.expansion import (
-    bf16_tensor_value, bind, check_plan, is_placed, launch_groups, place_plan, scatter_lanes)
+    bf16_tensor_value, bind, check_plan, is_placed, launch, place_plan, scatter_lanes)
 from of_spmm_tpu_torch.sparse.expansion2 import Expansion2Plan
 
 SOURCE = "expansion2.cu"
@@ -79,8 +81,8 @@ def expansion2_spmm_torch(plan: Expansion2Plan, x: torch.Tensor) -> torch.Tensor
 
 def expansion2_spmm(plan: Expansion2Plan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X (float32, (n, d)) for a placed Expansion2Plan of A and
-    float32 ``x`` (m, d). On the card this launches the kernel once per
-    group (row_scale folded into each lane's add); on the CPU it runs
+    float32 ``x`` (m, d). On the card this launches the kernel once
+    (row_scale folded into each output row once); on the CPU it runs
     ``expansion2_spmm_torch``. A staged row that names a row outside x
     stops the kernel with a device-side assertion that the next
     synchronization raises."""
@@ -91,8 +93,7 @@ def expansion2_spmm(plan: Expansion2Plan, x: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"expansion2_spmm runs on cuda or cpu tensors, got {dev}")
     lib = _lib()
-    return launch_groups(plan, x, lib, lib.ofs_expansion2_spmm, "expansion2_spmm",
-                         lambda g: (g.lidx, g.blk_of), 0, plan.G)
+    return launch(plan, x, lib, lib.ofs_expansion2_spmm, "expansion2_spmm", plan.G * _L, 0)
 
 
 def spmm_expansion2(plan: Expansion2Plan, x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """The SpMM path's two CUDA kernels, their plain versions and launchers.
 
-- ``bucket_spmm``: one padded-ELL bucket's partial rows,
+- ``bucket_spmm``: padded-ELL buckets' partial rows,
   ``out[r] = sum_k vals[r, k] * x[row_offset + cols[r, k]]``. Replaces the
   TPU kernel ``of_spmm_tpu/ops/pallas/spmm.py::_bucket_kernel``.
+  ``bucket_spmm_plan`` runs every bucket of a placed TieredEll or
+  BinnedEll plan in one launch and writes their concatenation (the buffer
+  the finish gathers from); ``bucket_spmm`` runs one bucket.
 - ``gather_rows``: ``out[i] = table[idx[i]]``, zero rows for indices
   outside the table. Replaces ``::_gather_kernel``.
 
@@ -10,6 +13,12 @@ Both kernels live in ``csrc/spmm.cu`` (design notes there). They are
 compiled with ``nvcc -arch=sm_90a`` into a shared library at first use and
 bound with ctypes (ops/cuda/build.py); the build goes to ``_build/``
 beside the package, keyed by the source hash.
+
+The bucket kernel's work list (``BucketWork``, built at placement by
+``bucket_work``): a device table of the plan's buckets and the buckets cut
+into units of whole ELL rows (``bucket_units``), tier by tier, heaviest
+first within a tier.
+``bucket_spmm_units_torch`` repeats that split in plain PyTorch.
 
 Each wrapper dispatches on the device of the tensors it is given: on the
 CPU it runs the plain PyTorch version beside it (what the CPU tests
@@ -22,8 +31,10 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from of_spmm_tpu_torch.ops.cuda.build import (  # noqa: F401  (LAUNCHES, reset: re-exported)
@@ -32,6 +43,8 @@ from of_spmm_tpu_torch.ops.cuda import build as _build
 from of_spmm_tpu_torch.utils.config import FLAGS
 
 SOURCE = "spmm.cu"
+BUCKET_UNIT_SLOTS = 2048  # padded slots per work unit of the bucket kernel
+UNIT_ROWS = 128           # ELL rows per unit at most: the kernel's accumulator tile
 
 
 def build() -> Dict[str, object]:
@@ -41,7 +54,7 @@ def build() -> Dict[str, object]:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.ofs_bucket_spmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i32, p]
+    lib.ofs_bucket_spmm.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
     lib.ofs_bucket_spmm.restype = i32
     lib.ofs_gather_rows.argtypes = [p, p, p, i64, i64, i64, i32, p]
     lib.ofs_gather_rows.restype = i32
@@ -73,6 +86,118 @@ def bucket_spmm_torch(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class BucketWork:
+    """The bucket kernel's work list for one plan (placement data, port
+    only): ``table`` int64 (n_buckets, 6), per bucket its cols and vals
+    pointers, K, ELL rows, row_offset and first row in the concatenation;
+    ``units`` int32 (n_units, 3) [bucket, first ELL row, rows]
+    (``bucket_units``); ``ptrs`` the cols and vals pointers the table
+    holds, so a launch can refuse a table whose arrays have moved."""
+
+    table: torch.Tensor
+    units: torch.Tensor
+    ptrs: Tuple[int, ...]
+    n_ell_rows: int
+
+
+def bucket_units(widths, rows, cap: Optional[int] = None, tiers=None) -> np.ndarray:
+    """The buckets (K = ``widths[b]``, ``rows[b]`` ELL rows, column tier
+    ``tiers[b]``, all 0 by default) cut into work units of whole ELL rows:
+    (n_units, 3) int32 [bucket, first row, rows]. A unit holds at most
+    UNIT_ROWS rows and ``cap`` padded slots (BUCKET_UNIT_SLOTS by
+    default); a row wider than ``cap`` is a unit alone. Units run tier by
+    tier, the warm tiers in order and the cold tier (-1, rows of the
+    whole of X) last, so that one tier's slice of X is read while its
+    units run; within a tier heaviest first (by slots; stable, so ties
+    keep bucket and row order), so that its wide rows start at once."""
+    cap = BUCKET_UNIT_SLOTS if cap is None else int(cap)
+    if cap < 1:
+        raise ValueError(f"unit slot cap {cap} must be positive")
+    widths = np.asarray(widths, np.int64).reshape(-1)
+    tiers = np.zeros_like(widths) if tiers is None else np.asarray(tiers, np.int64).reshape(-1)
+    parts = [np.zeros((0, 3), np.int64)]
+    for b, (K, R) in enumerate(zip(widths, np.asarray(rows, np.int64).reshape(-1))):
+        per = max(1, min(UNIT_ROWS, cap // max(int(K), 1)))
+        r0 = np.arange(0, int(R), per, dtype=np.int64)
+        parts.append(np.stack([np.full_like(r0, b), r0, np.minimum(per, R - r0)], 1))
+    units = np.concatenate(parts)
+    tier = tiers[units[:, 0]]
+    order = np.lexsort((-(units[:, 2] * widths[units[:, 0]]),
+                        np.where(tier < 0, np.iinfo(np.int64).max, tier)))
+    return units[order].astype(np.int32)
+
+
+def plan_buckets(plan) -> Tuple[tuple, ...]:
+    """(cols, vals, row_offset) of every bucket of a TieredEll (tier order;
+    row_offset 0 for tier -1, tier * tier_size otherwise) or a BinnedEll
+    (row_offset 0), in the order of the concatenation buffer."""
+    if hasattr(plan, "tiers"):
+        return tuple((b.cols, b.vals, 0 if t.tier < 0 else t.tier * plan.tier_size)
+                     for t in plan.tiers for b in t.buckets)
+    return tuple((b.cols, b.vals, 0) for b in plan.buckets)
+
+
+def plan_tiers(plan) -> Tuple[int, ...]:
+    """The column tier of every bucket in ``plan_buckets`` order (-1: the
+    cold tier; 0 for every bucket of a BinnedEll)."""
+    if hasattr(plan, "tiers"):
+        return tuple(t.tier for t in plan.tiers for _b in t.buckets)
+    return (0,) * len(plan.buckets)
+
+
+def _work_for(buckets, device, cap: Optional[int] = None, tiers=None) -> BucketWork:
+    rows = [int(c.shape[0]) for c, _, _ in buckets]
+    widths = [int(c.shape[1]) for c, _, _ in buckets]
+    first = np.r_[0, np.cumsum(rows)].astype(np.int64)
+    ptrs = tuple(p for c, v, _ in buckets for p in (c.data_ptr(), v.data_ptr()))
+    table = [[c.data_ptr(), v.data_ptr(), K, R, int(o), int(f)]
+             for (c, v, o), K, R, f in zip(buckets, widths, rows, first)]
+    return BucketWork(
+        table=torch.tensor(table, dtype=torch.int64).reshape(-1, 6).to(device),
+        units=torch.from_numpy(bucket_units(widths, rows, cap, tiers)).to(device),
+        ptrs=ptrs, n_ell_rows=int(first[-1]))
+
+
+def bucket_work(plan, cap: Optional[int] = None) -> BucketWork:
+    """The work list of a placed TieredEll or BinnedEll plan, on its
+    arrays' device (``cap``: the unit slot cap, BUCKET_UNIT_SLOTS by
+    default)."""
+    buckets = plan_buckets(plan)
+    for c, v, _ in buckets:
+        if not isinstance(c, torch.Tensor) or not isinstance(v, torch.Tensor):
+            raise TypeError("the plan's arrays must be torch tensors (ops.place_operator)")
+    dev = buckets[0][0].device if buckets else torch.device("cpu")
+    return _work_for(buckets, dev, cap, plan_tiers(plan))
+
+
+def _check_bucket(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> None:
+    require(cols, "cols", torch.int32, 2)
+    require(vals, "vals", torch.float32, 2)
+    if vals.shape != cols.shape:
+        raise ValueError(f"vals {tuple(vals.shape)} != cols {tuple(cols.shape)}")
+    same_device(cols, vals, x)
+
+
+def _out_buffer(out: Optional[torch.Tensor], rows: int, x: torch.Tensor) -> torch.Tensor:
+    if out is None:
+        return torch.empty((rows, x.shape[1]), dtype=torch.float32, device=x.device)
+    require(out, "out", torch.float32, 2)
+    same_device(x, out)
+    if tuple(out.shape) != (rows, x.shape[1]):
+        raise ValueError(f"out must be {(rows, x.shape[1])}, got {tuple(out.shape)}")
+    return out
+
+
+def _launch(lib: ctypes.CDLL, work: BucketWork, x: torch.Tensor, out: torch.Tensor) -> None:
+    dev = x.device
+    rc = lib.ofs_bucket_spmm(work.table.data_ptr(), work.units.data_ptr(), x.data_ptr(),
+                             out.data_ptr(), int(work.units.shape[0]), x.shape[0], x.shape[1],
+                             dev.index or 0, stream(dev))
+    raise_if(lib, rc, "bucket_spmm")
+    LAUNCHES["bucket_spmm"] += 1
+
+
 def bucket_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
                 row_offset: int = 0,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -82,38 +207,81 @@ def bucket_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     float32 (R, K); ``x`` float32 (n, d). ``out``, if given, is a
     contiguous float32 (R, d) view to write into (a slice of a
     preallocated concatenation buffer). On the card this launches the
-    kernel; on the CPU it runs ``bucket_spmm_torch``. A column that points
-    outside ``x`` is an error on both: ``index_select`` raises on the CPU,
-    and the kernel stops with a device-side assertion that the next
-    synchronization raises.
+    kernel on a one-bucket plan; on the CPU it runs ``bucket_spmm_torch``.
+    A column that points outside ``x`` is an error on both:
+    ``index_select`` raises on the CPU, and the kernel stops with a
+    device-side assertion that the next synchronization raises.
     """
-    require(cols, "cols", torch.int32, 2)
-    require(vals, "vals", torch.float32, 2)
     require(x, "x", torch.float32, 2)
-    if vals.shape != cols.shape:
-        raise ValueError(f"vals {tuple(vals.shape)} != cols {tuple(cols.shape)}")
-    R, K = cols.shape
-    d = x.shape[1]
-    dev = same_device(cols, vals, x)
-    if out is None:
-        out = torch.empty((R, d), dtype=torch.float32, device=dev)
-    else:
-        require(out, "out", torch.float32, 2)
-        same_device(x, out)
-        if tuple(out.shape) != (R, d):
-            raise ValueError(f"out must be {(R, d)}, got {tuple(out.shape)}")
+    _check_bucket(cols, vals, x)
+    R = cols.shape[0]
+    dev = x.device
+    out = _out_buffer(out, R, x)
     if dev.type == "cpu":
         return bucket_spmm_torch(cols, vals, x, row_offset, out)
     if dev.type != "cuda":
         raise ValueError(f"bucket_spmm runs on cuda or cpu tensors, got {dev}")
-    if R == 0 or d == 0:
+    if R == 0 or x.shape[1] == 0:
         return out
-    lib = _lib()
-    rc = lib.ofs_bucket_spmm(cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                             out.data_ptr(), R, K, d, int(row_offset),
-                             x.shape[0], dev.index or 0, stream(dev))
-    raise_if(lib, rc, "bucket_spmm")
-    LAUNCHES["bucket_spmm"] += 1
+    _launch(_lib(), _work_for(((cols, vals, int(row_offset)),), dev), x, out)
+    return out
+
+
+def bucket_spmm_plan(plan, x: torch.Tensor, work: Optional[BucketWork] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The concatenation (total ELL rows, d) float32 of every bucket's
+    partial rows of a placed TieredEll or BinnedEll plan against float32
+    ``x``, in ``plan_buckets`` order. On the card this is one launch of
+    the kernel over ``work`` (the plan's work list from placement, or
+    built here for this call); on the CPU it runs ``bucket_spmm_torch``
+    bucket by bucket. ``out``, if given, is the buffer to write."""
+    require(x, "x", torch.float32, 2)
+    buckets = plan_buckets(plan)
+    for c, v, _ in buckets:
+        _check_bucket(c, v, x)
+    dev = x.device
+    out = _out_buffer(out, sum(int(c.shape[0]) for c, _, _ in buckets), x)
+    if dev.type == "cpu":
+        r0 = 0
+        for c, v, o in buckets:
+            bucket_spmm_torch(c, v, x, o, out[r0:r0 + c.shape[0]])
+            r0 += c.shape[0]
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"bucket_spmm runs on cuda or cpu tensors, got {dev}")
+    if out.shape[0] == 0 or x.shape[1] == 0:
+        return out
+    if work is None:
+        work = _work_for(buckets, dev, tiers=plan_tiers(plan))
+    elif work.ptrs != tuple(p for c, v, _ in buckets for p in (c.data_ptr(), v.data_ptr())) \
+            or work.table.device != dev:
+        raise ValueError("the work list was built for other arrays: place the operator "
+                         "again (ops.place_operator)")
+    _launch(_lib(), work, x, out)
+    return out
+
+
+def bucket_spmm_units_torch(plan, x: torch.Tensor, work: BucketWork) -> torch.Tensor:
+    """The kernel's work split in plain PyTorch: each unit of ``work``
+    computes its ELL rows (padding slots skipped) and writes them once
+    into the concatenation, which starts as NaN, so a row no unit writes,
+    or a unit that writes outside its rows, shows. Equal to
+    ``bucket_spmm_plan``'s plain version up to the order of the sums."""
+    buckets = plan_buckets(plan)
+    table = work.table.cpu().numpy()
+    out = torch.full((work.n_ell_rows, x.shape[1]), float("nan"), dtype=torch.float32,
+                     device=x.device)
+    for b, r0, n in work.units.cpu().numpy().tolist():
+        cols, vals, off = buckets[b]
+        c, v = cols[r0:r0 + n].long(), vals[r0:r0 + n]
+        keep = v != 0
+        rows = torch.arange(n, device=x.device)[:, None].expand_as(c)[keep]
+        part = torch.zeros((n, x.shape[1]), dtype=torch.float32, device=x.device)
+        part.index_add_(0, rows, x.index_select(0, c[keep] + off) * v[keep][:, None])
+        dst = int(table[b, 5]) + r0
+        if not bool(torch.isnan(out[dst:dst + n]).all()):
+            raise AssertionError(f"unit ({b}, {r0}, {n}) writes a row twice")
+        out[dst:dst + n] = part
     return out
 
 

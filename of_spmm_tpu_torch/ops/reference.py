@@ -147,7 +147,8 @@ def spmm_binned(binned: BinnedEll, x: torch.Tensor) -> torch.Tensor:
 
 
 def combine_contribs(binned: BinnedEll, contribs, acc: torch.dtype,
-                     gather_fn: Optional[Callable] = None) -> torch.Tensor:
+                     gather_fn: Optional[Callable] = None,
+                     cat: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Turn per-bucket ELL-row partial results into output rows.
 
     Relabeled layout: slice each bucket's first-chunk rows into place,
@@ -155,7 +156,9 @@ def combine_contribs(binned: BinnedEll, contribs, acc: torch.dtype,
     apply the plan-time permutation (one gather; empty rows hit the
     sentinel and become zeros) plus a scatter-add for split-row extras.
     Neither: per-bucket scatter-add. ``gather_fn(table, idx)`` replaces
-    the finish gather (the port's gather kernel).
+    the finish gather (the port's gather kernel). ``cat``, if given, is
+    the contribs' concatenation already (the bucket kernel writes one
+    buffer), which the finish gathers from without copying.
     """
     if not contribs:
         return torch.zeros((binned.n_rows, 0), dtype=acc)
@@ -176,7 +179,8 @@ def combine_contribs(binned: BinnedEll, contribs, acc: torch.dtype,
         return out
     if isinstance(fin, Finish):
         g = gather_fn or gather
-        cat = contribs[0] if len(contribs) == 1 else torch.cat(contribs, dim=0)
+        if cat is None:
+            cat = contribs[0] if len(contribs) == 1 else torch.cat(contribs, dim=0)
         out = g(cat, _t(fin.pos, dev))
         if fin.extra_rids.shape[0]:
             out.index_add_(0, _t(fin.extra_rids, dev), g(cat, _t(fin.extra_idx, dev)))
@@ -212,16 +216,16 @@ def _tier_bucket_contrib(xt: torch.Tensor, cols, vals: torch.Tensor,
                       for r0 in range(0, R, rows_per)], dim=0)
 
 
-def spmm_tiered(tiled, x: torch.Tensor, bucket_fn: Optional[Callable] = None,
+def spmm_tiered(tiled, x: torch.Tensor, buckets_fn: Optional[Callable] = None,
                 gather_fn: Optional[Callable] = None) -> torch.Tensor:
     """Column-tiered SpMM (see sparse/tiled.py): each bucket gathers from
     its tier's slice of X (tier -1: all of X), and the plan-time Finish
     assembles output rows from the concatenated bucket results.
 
-    ``bucket_fn(cols, vals, x, row_offset, out)``: optional engine for
-    every bucket (the port's bucket kernel). It reads float32 ``x`` at rows
-    ``row_offset + cols`` and writes the bucket's float32 partial rows
-    into ``out``, a slice of one preallocated concatenation buffer.
+    ``buckets_fn(tiled, x)``: optional engine for every bucket at once
+    (the port's bucket kernel, one launch). It reads float32 ``x`` at rows
+    ``row_offset + cols`` of each bucket and returns the float32
+    concatenation of every bucket's partial rows, in tier order.
     ``gather_fn(table, idx)``: optional engine for the finish gathers,
     with out-of-range -> 0 semantics (the port's gather kernel).
     """
@@ -231,17 +235,10 @@ def spmm_tiered(tiled, x: torch.Tensor, bucket_fn: Optional[Callable] = None,
         return torch.zeros((tiled.n_rows, d), dtype=x.dtype, device=dev)
     ts = tiled.tier_size
     buckets = [(t.tier, b) for t in tiled.tiers for b in t.buckets]
-    total_ell_rows = sum(b.n_ell_rows for _, b in buckets)
-    if bucket_fn is not None:
-        acc = torch.float32
-        xa = x.to(acc).contiguous()
-        cat = torch.empty((total_ell_rows, d), dtype=acc, device=dev)
-        off = 0
-        for tier, b in buckets:
-            bucket_fn(b.cols, b.vals, xa, 0 if tier < 0 else tier * ts,
-                      out=cat[off:off + b.n_ell_rows])
-            off += b.n_ell_rows
+    if buckets_fn is not None:
+        cat = buckets_fn(tiled, x.to(torch.float32).contiguous())
     else:
+        total_ell_rows = sum(b.n_ell_rows for _, b in buckets)
         acc = _acc_dtype(torch.promote_types(x.dtype, _t(buckets[0][1].vals, dev).dtype))
         xa = x.to(acc)
         max_slots = int(FLAGS.get("OFS_SPMM_MAX_GATHER_SLOTS"))

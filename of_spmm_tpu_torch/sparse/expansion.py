@@ -34,7 +34,10 @@ staged table that XLA gathers before the kernel, one take per tier. The
 Hopper kernel gathers X rows itself, so placement derives per group
 ``stage_row[u]``, the X row that staged row ``u`` holds (the tier clamp
 and the take's clip included), and refuses a plan whose lanes name a
-staged row outside the table.
+staged row outside the table. It also derives the kernel's work list
+(``lane_work``, shared with v2): the real lanes sorted by 128-row output
+block and row, cut into balanced work units with the panel engine's
+``work_units``.
 
 Reference semantics: gather x segment-sum
 (oneflow/user/ops/gather_op.cpp, unsorted_segment_sum_op.cpp).
@@ -48,6 +51,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from of_spmm_tpu_torch.sparse import panels
 from of_spmm_tpu_torch.sparse.formats import CSR
 
 DEFAULT_R = 512          # output rows per tile
@@ -56,6 +60,7 @@ DEFAULT_CW = 512         # staging window rows per step (multiple of 128)
 STAGE_TIER = 32768       # columns per staging tier
 DEFAULT_STAGE_BUDGET = 4 * 1024 * 1024  # staged rows per group
 _BLK = 128               # window block granularity
+UNIT_LANES = 2048        # real lanes per work unit of the kernel (port only)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +88,66 @@ class ExpansionGroup:
 
 
 @dataclasses.dataclass(frozen=True)
+class LaneWork:
+    """The expansion kernel's work list (port only, both engines; built by
+    ``lane_work``). A key is a 128-row output block, ``tile * ceil(R /
+    128) + row // 128`` with tiles counted over the whole plan. ``lanes``
+    lists every real lane (a lane that adds a row: below the row sentinel,
+    value not 0) by its index in its group's lane arrays, group by group,
+    sorted by key and then output row. Unit u covers
+    ``lanes[units[u, 1]:units[u, 2]]`` of group ``units[u, 3]``, all of
+    key ``units[u, 0]`` (``~key`` when the key has several units;
+    ``split_keys`` lists those keys); a key without lanes has one empty
+    unit, which writes its zero rows. The units of one key run together
+    (they read the same tile's X rows, which L2 then holds), keys
+    heaviest first by their lanes (hub tiles start at once), a key's
+    units heaviest first.
+    ``table`` and ``ptrs`` are set on the card (ops/cuda/expansion.py
+    place_plan): each group's array pointers."""
+
+    lanes: np.ndarray       # (n_real,) int32
+    units: np.ndarray       # (n_units, 4) int32 [key or ~key, first, end, group]
+    split_keys: np.ndarray  # (n_split,) int32
+    E: int                  # lanes per unit at most (a key's run cut greedily)
+    table: Optional[np.ndarray] = None  # (n_groups, 8) int64
+    ptrs: Tuple[int, ...] = ()
+
+
+def lane_work(plan, reals, lanes_per_step: int, max_lanes: Optional[int] = None) -> LaneWork:
+    """The work list of an ExpansionPlan or Expansion2Plan (see LaneWork):
+    ``reals[g]`` marks group g's real lanes, ``lanes_per_step`` is a
+    step's lanes (TILE, or G * 128). Each key's run of lanes is cut into
+    units of at most ``max_lanes`` lanes (UNIT_LANES by default) by
+    sparse/panels.py ``work_units``, each lane a slot of one count, and
+    the units are ordered key by key, heaviest key first."""
+    E = UNIT_LANES if max_lanes is None else int(max_lanes)
+    nwb = -(-plan.R // _BLK)
+    keys, lanes = [np.zeros(0, np.int64)], [np.zeros(0, np.int64)]
+    first_tile = [0]
+    for g, real in zip(plan.groups, reals):
+        e = np.nonzero(np.asarray(real).reshape(-1))[0]
+        lrow = np.asarray(g.lrow).reshape(-1)[e].astype(np.int64)
+        tile = first_tile[-1] + np.asarray(g.tile_of).astype(np.int64)[e // lanes_per_step]
+        key = tile * nwb + lrow // _BLK
+        order = np.lexsort((lrow, key))
+        keys.append(key[order])
+        lanes.append(e[order])
+        first_tile.append(first_tile[-1] + g.n_tiles)
+    key = np.concatenate(keys)
+    _slots, units, split = panels.work_units(key, np.ones(key.shape[0], np.int64), 1,
+                                             first_tile[-1] * nwb, E)
+    k = np.where(units[:, 0] < 0, ~units[:, 0], units[:, 0]).astype(np.int64)
+    size = (units[:, 2] - units[:, 1]).astype(np.int64)
+    key_lanes = np.bincount(k, weights=size, minlength=first_tile[-1] * nwb)
+    order = np.lexsort((-size, k, -key_lanes[k]))
+    units, k = units[order], k[order]
+    group = np.searchsorted(np.asarray(first_tile), k // nwb, side="right") - 1
+    return LaneWork(lanes=np.concatenate(lanes).astype(np.int32),
+                    units=np.concatenate([units, group[:, None]], 1).astype(np.int32),
+                    split_keys=split.astype(np.int32), E=E)
+
+
+@dataclasses.dataclass(frozen=True)
 class ExpansionPlan:
     """The one-hot expansion SpMM plan of one direction of A."""
 
@@ -92,6 +157,7 @@ class ExpansionPlan:
     TILE: int
     CW: int
     stage_tier: int = STAGE_TIER
+    work: Optional[LaneWork] = None  # port only: the kernel's work list (placement)
 
     @property
     def n_rows(self) -> int:
@@ -355,17 +421,20 @@ def lane_stage_pos(group: ExpansionGroup, CW: int) -> Tuple[np.ndarray, np.ndarr
     return u, val != 0
 
 
-def attach_stage_rows(plan: ExpansionPlan) -> ExpansionPlan:
+def attach_stage_rows(plan: ExpansionPlan, max_lanes: Optional[int] = None) -> ExpansionPlan:
     """The plan with each group's ``stage_row`` derived (vectorised numpy),
     after checking that every lane with a value names a staged row of its
-    group that holds a row of X."""
-    groups = []
+    group that holds a row of X, and with the kernel's work list
+    (``lane_work``, units of at most ``max_lanes`` lanes)."""
+    groups, reals = [], []
     for g in plan.groups:
         rows = stage_rows(g.stage_idx, g.stage_tier_ptr, plan.stage_tier, plan.n_cols)
         u, real = lane_stage_pos(g, plan.CW)
         check_lanes(u, real, rows, "expansion plan")
         groups.append(dataclasses.replace(g, stage_row=rows))
-    return dataclasses.replace(plan, groups=tuple(groups))
+        reals.append(real)
+    return dataclasses.replace(plan, groups=tuple(groups),
+                               work=lane_work(plan, reals, plan.TILE, max_lanes))
 
 
 def plan_memory_report(plan, d: int = 128, hbm_limit: Optional[int] = None) -> dict:

@@ -22,7 +22,7 @@ Padding lanes carry the row sentinel R; a tile without nonzeros gets one
 step of padding groups.
 
 Placement (``attach_stage_rows``, port only) derives each group's
-``stage_row`` as for v1 (sparse/expansion.py).
+``stage_row`` and the kernel's work list as for v1 (sparse/expansion.py).
 
 Reference semantics: gather x segment-sum
 (oneflow/user/ops/gather_op.cpp:51-82,
@@ -37,7 +37,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 from of_spmm_tpu_torch.sparse.expansion import (
-    bf16_pair_bits, bf16_value, check_lanes, group_tiles, stage_rows, tile_pass1)
+    LaneWork, bf16_pair_bits, bf16_value, check_lanes, group_tiles, lane_work, stage_rows,
+    tile_pass1)
 from of_spmm_tpu_torch.sparse.formats import CSR
 
 DEFAULT_R = 512      # output rows per tile
@@ -76,6 +77,7 @@ class Expansion2Plan:
     R: int
     G: int
     stage_tier: int = STAGE_TIER
+    work: Optional[LaneWork] = None  # port only: the kernel's work list (placement)
 
     @property
     def n_rows(self) -> int:
@@ -304,14 +306,18 @@ def lane_stage_pos(group: Expansion2Group, R: int) -> Tuple[np.ndarray, np.ndarr
     return u, real
 
 
-def attach_stage_rows(plan: Expansion2Plan) -> Expansion2Plan:
+def attach_stage_rows(plan: Expansion2Plan, max_lanes: Optional[int] = None) -> Expansion2Plan:
     """The plan with each group's ``stage_row`` derived (vectorised numpy;
     sparse/expansion.py ``stage_rows``), after checking that every real
-    lane names a staged row of its group that holds a row of X."""
-    groups = []
+    lane names a staged row of its group that holds a row of X, and with
+    the kernel's work list (sparse/expansion.py ``lane_work``, units of at
+    most ``max_lanes`` lanes)."""
+    groups, reals = [], []
     for g in plan.groups:
         rows = stage_rows(g.stage_idx, g.stage_tier_ptr, plan.stage_tier, plan.n_cols)
         u, real = lane_stage_pos(g, plan.R)
         check_lanes(u, real, rows, "expansion2 plan")
         groups.append(dataclasses.replace(g, stage_row=rows))
-    return dataclasses.replace(plan, groups=tuple(groups))
+        reals.append(real)
+    return dataclasses.replace(plan, groups=tuple(groups),
+                               work=lane_work(plan, reals, plan.G * _L, max_lanes))
