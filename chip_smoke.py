@@ -99,7 +99,8 @@ from of_spmm_tpu_torch.tools import microbench_mxu as tmxu
 from of_spmm_tpu_torch.tools import proto_fused as tproto
 from of_spmm_tpu_torch.utils.roofline import (
     AttentionTraffic, ExpansionTraffic, PanelTraffic, SpmmTraffic, StagedTraffic, detect_peak_bw,
-    WARMUP_CALLS, detect_peak_fp32, detect_peak_tensor16, spmm_report, time_cuda, wall_ms)
+    WARMUP_CALLS, detect_peak_fp32, detect_peak_tensor16, detect_peak_tf32, spmm_report, time_cuda,
+    wall_ms)
 
 SOURCES = {
     "bucket_spmm": "of_spmm_tpu_torch/csrc/spmm.cu",
@@ -1556,15 +1557,19 @@ def flash_grad(flash: MultiheadAttention, dense: MultiheadAttention, x: torch.Te
             "tolerance": f"|f-d| <= {GRAD_TOL} + {GRAD_TOL}|d|", "grads": errs}
 
 
-def flash_scale(gen, peak_bw: float, peak_fp32: float, peak_t16: float) -> list:
+def flash_scale(gen, peak_bw: float, peak_fp32: float, peak_t16: float,
+                peak_tf32: float) -> list:
     """flash_attention at BERT-base's attention shape (BH = 96, T = 512,
     d = 64), float32, bfloat16 and float16, non-causal and causal: its
-    time (float32 on the CUDA cores, bf16 / fp16 on the tensor cores), its
-    plain version's, torch's scaled_dot_product_attention on the same
-    (B, H, T, d) tensors (timed only; the port never calls it), and the
-    bound of the work (AttentionTraffic: bytes over HBM bandwidth,
-    operations over the type's peak: CUDA cores for float32, tensor cores
-    for bfloat16)."""
+    time (float32 on the tensor cores in 3xTF32, bf16 / fp16 in their own
+    type), its plain version's, torch's scaled_dot_product_attention on
+    the same (B, H, T, d) tensors (timed only; the port never calls it),
+    and the bound of the work (AttentionTraffic: bytes over HBM bandwidth,
+    operations over the type's peak: for float32 the faster of the CUDA
+    cores and three TF32 products on the tensor cores, for bfloat16 /
+    float16 the tensor cores). The CUDA-core bound stays beside it
+    (bound_ms_operations, fraction_of_cuda_core_bound). Raises if a row
+    reads above its bound, which would mean a miscounted bound."""
     dev = torch.device("cuda", 0)
     BH, T, d = BERT_BATCH * 12, BERT_SEQ, 64
     qkv = [torch.randn((BH, T, d), generator=gen) for _ in range(3)]
@@ -1586,19 +1591,29 @@ def flash_scale(gen, peak_bw: float, peak_fp32: float, peak_t16: float) -> list:
                     lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
                     iters=50)
                 traffic = AttentionTraffic(BH, T, T, d, q.element_size(), causal)
-                peak = peak_fp32 if dtype == torch.float32 else peak_t16
-                bound, by = traffic.bound(peak_bw, peak)
-                rows.append({"dtype": dtype_name(dtype), "causal": causal, "BH": BH, "T": T,
-                             "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                             "library": "torch.nn.functional.scaled_dot_product_attention",
-                             "library_max_abs_err": float((lib.reshape(BH, T, d).float()
-                                                           - want.float()).abs().max()),
-                             "max_abs_err": err, "bytes": traffic.bytes,
-                             "flops": traffic.flops,
-                             "bound_ms_bytes": traffic.bytes / peak_bw * 1e3,
-                             "bound_ms_operations": traffic.flops / peak * 1e3,
-                             "peak_tflops": peak / 1e12, "bound_ms": bound, "bound_by": by,
-                             "fraction_of_bound": bound / ms})
+                fp32 = dtype == torch.float32
+                peak = peak_fp32 if fp32 else peak_t16
+                bound, term = traffic.bound(peak_bw, peak, peak_tf32 if fp32 else None)
+                row = {"dtype": dtype_name(dtype), "causal": causal, "BH": BH, "T": T,
+                       "d": d, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "library": "torch.nn.functional.scaled_dot_product_attention",
+                       "library_max_abs_err": float((lib.reshape(BH, T, d).float()
+                                                     - want.float()).abs().max()),
+                       "max_abs_err": err, "bytes": traffic.bytes,
+                       "flops": traffic.flops,
+                       "bound_ms_bytes": traffic.bytes / peak_bw * 1e3,
+                       "bound_ms_operations": traffic.flops / peak * 1e3,
+                       "peak_tflops": peak / 1e12, "bound_ms": bound,
+                       "bound_by": "bytes" if term == "bytes" else "operations",
+                       "bound_term": term, "fraction_of_bound": bound / ms}
+                if fp32:
+                    row.update(bound_ms_operations_tf32x3=3 * traffic.flops / peak_tf32 * 1e3,
+                               peak_tf32_tflops=peak_tf32 / 1e12,
+                               fraction_of_cuda_core_bound=traffic.bound(peak_bw, peak)[0] / ms)
+                rows.append(row)
+    over = [r for r in rows if r["fraction_of_bound"] > 1.0]
+    if over:
+        raise AssertionError(f"flash_attention reads above its bound (a miscounted bound): {over}")
     return rows
 
 
@@ -2009,11 +2024,11 @@ def main() -> int:
     if cap != (9, 0):
         raise RuntimeError(f"{name} has compute capability {cap}; the kernels are built for sm_90a")
     peak_bw, peak_fp32 = detect_peak_bw(name), detect_peak_fp32(name)
-    peak_t16 = detect_peak_tensor16(name)
+    peak_t16, peak_tf32 = detect_peak_tensor16(name), detect_peak_tf32(name)
     emit("device", name=name, capability=list(cap), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
          peak_hbm_gb_s=peak_bw / 1e9, peak_fp32_tflops=peak_fp32 / 1e12,
-         peak_bf16_tensor_tflops=peak_t16 / 1e12)
+         peak_bf16_tensor_tflops=peak_t16 / 1e12, peak_tf32_tensor_tflops=peak_tf32 / 1e12)
 
     # -- 2. build: one nvcc per source, started together, beside the host
     #       planner's g++ build ------------------------------------------------
@@ -2464,7 +2479,7 @@ def main() -> int:
     emit("transformer_main_path", **fields)
     emit("flash_grad", **flash_grad(fa_mha, dense_mha, fa_x))
     del fa_mha, fa_x, dense_mha
-    fa_rows = flash_scale(gen, peak_bw, peak_fp32, peak_t16)
+    fa_rows = flash_scale(gen, peak_bw, peak_fp32, peak_t16, peak_tf32)
     emit("flash_scale", rows=fa_rows)
     fa_main = next(r for r in fa_rows if r["dtype"] == "float32" and not r["causal"])
     max_err["flash_attention"] = max(max_err["flash_attention"],
@@ -2528,10 +2543,11 @@ def main() -> int:
                            "(12 launches each)",
          "max_abs_err": max_err["flash_attention"],
          **{f: fa_main[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "bound_term": fa_main["bound_term"],
          "max_abs_err_by_dtype": fcases["max_abs_err"],
          "times_scope": "one call at (BH, T, d) = (96, 512, 64), float32, non-causal",
          "by_dtype": {f"{r['dtype']}{' causal' if r['causal'] else ''}":
-                      {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      {f: r[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_term",
                                          "library_ms", "fraction_of_bound")}
                       for r in fa_rows}})
     for kname, variant in MICROBENCH_MAIN.items():

@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) flash-attention forward kernel.
+// Hand-written Hopper (sm_90a) flash-attention forward kernels.
 //
 // flash_attention replaces of_spmm_tpu/ops/pallas/flash_attention.py::
 // _flash_kernel (launched there by _flash_fwd). For each of BH heads it
@@ -15,51 +15,66 @@
 //
 // What bounds it on the H100. Attention does 4 d operations per (query,
 // key) pair and reads each input once: at BERT-base width (d = 64,
-// T = 512) that is 256 operations per 4-byte element moved, far above
-// the ~20 at which float32 on the CUDA cores (67 TFLOP/s against
-// 3.35 TB/s) stops being bound by bytes, so float32 is bound by
-// operations (0.0962 ms at (BH, T, d) = (96, 512, 64)). In bf16 and fp16
-// the tensor cores (989 TFLOP/s) move the line to ~295 operations per
-// byte: at (96, 512, 64) the operations take 0.0065 ms and the bytes
-// 0.0075 ms, so the two are all but level and the bytes bound it.
+// T = 512) that is 256 operations per 4-byte element moved. In bf16 and
+// fp16 the tensor cores (989 TFLOP/s against 3.35 TB/s) need ~295
+// operations per byte: at (BH, T, d) = (96, 512, 64) the operations take
+// 0.0065 ms and the bytes 0.0075 ms, so the two are all but level and the
+// bytes bound it. In float32 the tensor cores bound it: TF32 keeps 10
+// mantissa bits, too few for the float32 bar of 1e-5 + 1e-4|p|, so each
+// product is taken as three TF32 products, x ~ hi + lo with hi = tf32(x)
+// and lo = tf32(x - hi), a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b (the
+// lo·lo term is below 2^-22 of the product). That keeps float32's
+// accuracy, and three products at 495 TFLOP/s (0.0390 ms at (96, 512,
+// 64)) still beat one on the CUDA cores at 67 (0.0962 ms). The kernel
+// issues mma.sync, which reaches well below 495 TFLOP/s (only wgmma is
+// rated at it), so it cannot reach that bound (PERF.md).
 //
-// float32 (flash_fwd_kernel): the scores and P V run in float32 on the
-// CUDA cores (TF32 would break the float32 bar of 1e-5 + 1e-4|p|). One
-// block of 256 threads per (head, 64-query tile) loops over 64-key
-// tiles, which replaces the TPU grid's sequential KV axis; blocks of the
-// heaviest (causal: last) query tiles are issued first. Shared memory
-// holds Q^T and K^T (d-major, 68-float rows so float4 reads are aligned
-// and spread over the banks), then V in K's place, and P^T. Thread
-// (ty, tx) of the 16 x 16 grid owns a 4 x 4 register tile of the scores
-// (rows 4ty.., keys 4tx..) and 4 rows x d/16 columns of the accumulator,
-// so each shared-memory read feeds four multiply-adds. A row's
-// statistics are reduced over the 16 lanes that share it with shuffles.
-// The head width is a template bound (16, 32, 64, 128 or 256, d padded
-// up to it): 1 <= d <= 256.
+// Both kernels take FlashAttention-2's layout: one block of 4 warps per
+// (head, 64-query tile), blocks of the heaviest (causal: last) query tiles
+// issued first, each warp owning 16 query rows; a loop over KV tiles
+// replaces the TPU grid's sequential KV axis. K and V tiles come into
+// shared memory with 16-byte cp.async copies, double-buffered, so the
+// next tile loads while this one computes and one barrier an iteration
+// suffices (plain loads when d is not a whole number of 16-byte chunks or
+// a pointer is not 16-byte aligned). Rows are padded by one 16-byte chunk
+// so that ldmatrix's eight row addresses fall on distinct banks. The
+// online softmax (row max, row sum, in the log2 domain: ex2.approx, 2
+// ulp, of scores pre-scaled by log2 e; tiles that no row of a warp sees
+// in part skip the mask) runs on the accumulator fragments in registers,
+// the row statistics reduced over the 4 lanes of a row. The head width is
+// padded up to DP (16, 32, 48, 64, 80, 96, 128, 192, 256); zero columns
+// change nothing. O leaves through the warp's rows of the Q tile, in
+// 16-byte stores. Left for later: wgmma with its operands in shared
+// memory, TMA copies on an mbarrier, and warp specialisation.
 //
-// bfloat16 and float16 (flash_tc_kernel), FlashAttention-2's layout on
-// the tensor cores: one block of 4 warps per (head, 64-query tile), the
-// heaviest tiles first as above, each warp owning 16 query rows. K and V
-// tiles of 64 keys come into shared memory with 16-byte cp.async copies,
-// double-buffered, so the next tile loads while this one computes and one
-// barrier an iteration suffices (plain loads when d % 8 != 0 or a pointer
-// is not 16-byte aligned). S = Q K^T
-// and O += P V run as mma.sync m16n8k16 (T in, float32 accumulate) with
-// operands from ldmatrix (.trans for V); rows of DP + 8 elements put
-// ldmatrix's eight row addresses on distinct banks. The online softmax
-// (row max, row sum, in the log2 domain: ex2.approx of scores
-// pre-scaled by log2 e; tiles that no row of a warp sees in part skip
-// the mask) runs on the accumulator fragments in registers, the row
-// statistics reduced over the 4 lanes of a row. P is rounded to T in
-// registers and is, as it lies, the A operand of P V. The head width is
-// padded up to DP, a multiple of 16 (16, 32, 48, 64, 80, 96, 128, 192,
-// 256); zero columns change nothing. Up to DP = 128 each warp keeps its
-// Q fragments in registers for the whole loop; above, it re-reads them
-// from shared memory at every k-step (the 16 x DP float32 output
-// accumulator alone takes DP / 2 registers a thread). O leaves through
-// the warp's rows of the Q tile, in 16-byte stores. Left for later: wgmma
-// with its operands in shared memory, TMA copies on an mbarrier, and
-// warp specialisation (a producer warp keeping the copies in flight).
+// float32 (flash_f32_kernel): S = Q K^T and O += P V run as mma.sync
+// m16n8k8 TF32 (float32 accumulate), three per product, lo·hi and hi·lo
+// first, then hi·hi. The split is integer arithmetic on the float's bits
+// (split_tf32), which no compiler folds. Q and K fragments come from
+// ldmatrix (b16 view: lane l gets 32-bit word l % 4 of row l / 4, which
+// is the TF32 A and B layout), and each is split as it is loaded: Q again
+// at every KV tile (kept split in registers, at DP = 64 it took 194
+// registers a thread against 157 and ran no faster), K and V once a warp
+// (split once a tile into hi / lo planes in shared memory instead, they
+// need a second barrier a tile and more shared memory, and ran no faster
+// once the split took three integer operations; PERF.md). P V takes P's
+// score fragment as its A operand as it lies, by reading key 2t of each
+// 8-key group as column t and key 2t + 1 as column t + 4; V's B fragments
+// follow that order with scalar shared loads (rows of DP + 4 floats put a
+// warp's 32 loads on distinct banks). P stays float32 and is split in
+// registers. KV tiles are 64 keys up to DP = 64 and 32 above, so that Q
+// and two stages of K and V fit in shared memory (200 KB at DP = 256).
+// Registers a thread (nvcc -Xptxas -v, sm_90a, CUDA 12.8): DP = 64: 157,
+// DP = 128: 185, DP = 256: 230, no spills. At DP = 64 shared memory (87
+// KB a block) allows two blocks an SM.
+//
+// bfloat16 and float16 (flash_tc_kernel): mma.sync m16n8k16 (T in,
+// float32 accumulate) with operands from ldmatrix (.trans for V), KV
+// tiles of 64 keys. P is rounded to T in registers and is, as it lies,
+// the A operand of P V. Up to DP = 128 each warp keeps its Q fragments in
+// registers for the whole loop; above, it re-reads them from shared
+// memory at every k-step (the 16 x DP float32 output accumulator alone
+// takes DP / 2 registers a thread).
 //
 // Launchers take torch's current stream, allocate nothing, and return
 // cudaGetLastError() so the caller can raise.
@@ -70,20 +85,16 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kBQ = 64;         // query rows per block
-constexpr int kBK = 64;         // keys per KV tile
-constexpr int kThreads = 256;   // a 16 x 16 grid of threads
-constexpr int kLd = kBQ + 4;    // row stride of Q^T, K^T and P^T (floats)
+constexpr int kBK = 64;         // keys per KV tile (bf16 / fp16; float32 below)
 constexpr float kMasked = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
-static_assert(kBQ == 64 && kBK == 64, "the 4 x 4 register tiles assume 64 x 64");
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-// round to T (nearest even) and back: P's rounding before P V
+// round to T (nearest even): P's rounding before P V
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -95,218 +106,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
 
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  out[0] = t.x;
-  out[1] = t.y;
-  out[2] = t.z;
-  out[3] = t.w;
-}
-
-// VW consecutive floats from shared memory (16, 8 or 4 bytes aligned)
-template <int VW>
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-  if constexpr (VW == 4) {
-    load4(p, out);
-  } else if constexpr (VW == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x;
-    out[1] = t.y;
-  } else {
-    out[0] = *p;
-  }
-}
-
-// max or sum over the 16 lanes (one half-warp) that hold one query row
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(kFullMask, x, off);
-  return x;
-}
-
-template <int DMAX>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * DMAX * kLd + kBK * kLd);
-}
-
-// One block per (head blockIdx.x, query tile); see the file comment.
-template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, int64_t tq, int64_t tk, int d, float scale,
-                 int causal) {
-  constexpr int NC = DMAX / 16;           // accumulator columns per thread
-  constexpr int VW = NC < 4 ? NC : 4;     // read VW of them at once
-  constexpr int G = NC / VW;              // in G groups
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // Q^T [DMAX][kLd]
-  float* kv = qt + DMAX * kLd;                  // K^T [DMAX][kLd], then V [kBK][DMAX]
-  float* pt = kv + DMAX * kLd;                  // P^T [kBK][kLd]
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int64_t bh = blockIdx.x;
-  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kBQ;
-  const T* qh = q + bh * tq * d;
-  const T* kh = k + bh * tk * d;
-  const T* vh = v + bh * tk * d;
-
-  // the Q tile, transposed; rows past Tq are zero (computed, never stored)
-  for (int e = tid; e < kBQ * d; e += kThreads) {
-    const int r = e / d, c = e - r * d;
-    qt[c * kLd + r] = q0 + r < tq ? to_f(qh[q0 * d + e]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-
-  int64_t n_tiles = (tk + kBK - 1) / kBK;
-  if (causal) {
-    const int64_t q_last = (q0 + kBQ < tq ? q0 + kBQ : tq) - 1;
-    n_tiles = n_tiles < q_last / kBK + 1 ? n_tiles : q_last / kBK + 1;
-  }
-  for (int64_t t = 0; t < n_tiles; ++t) {
-    const int64_t k0 = t * kBK;
-    const int nk = static_cast<int>(tk - k0 < kBK ? tk - k0 : kBK);
-    __syncthreads();  // Q^T is written; the last tile's P V is done with kv and pt
-    for (int e = tid; e < kBK * d; e += kThreads) {
-      const int r = e / d, c = e - r * d;
-      kv[c * kLd + r] = r < nk ? to_f(kh[k0 * d + e]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores: rows 4ty + i, keys 4tx + j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < d; ++c) {
-      float a[4], b[4];
-      load4(qt + c * kLd + ty * 4, a);
-      load4(kv + c * kLd + tx * 4, b);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-    __syncthreads();  // every thread is done with K^T: V goes in its place
-    for (int e = tid; e < nk * d; e += kThreads) {
-      const int r = e / d, c = e - r * d;
-      kv[r * DMAX + c] = to_f(vh[k0 * d + e]);
-    }
-
-    // online softmax; s becomes P, rounded to T
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t qpos = q0 + ty * 4 + i;
-      bool keep[4];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = tx * 4 + j;
-        keep[j] = kj < nk && (!causal || k0 + kj <= qpos);
-        s[i][j] = keep[j] ? s[i][j] * scale : kMasked;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // m_next >= -1e30 once a tile is seen; exp(-inf) = 0 on the first
-      const float m_next = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_next);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = keep[j] ? expf(s[i][j] - m_next) : 0.f;
-        sum += p;
-        s[i][j] = to_f(from_f<T>(p));
-      }
-      l[i] = alpha * l[i] + row_sum(sum);
-      m[i] = m_next;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * kLd + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-
-    // acc += P V: rows 4ty + i, columns g * 16 VW + tx VW + w
-    for (int j = 0; j < nk; ++j) {
-      float a[4];
-      load4(pt + j * kLd + ty * 4, a);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float b[VW];
-        load_vec<VW>(kv + j * DMAX + g * 16 * VW + tx * VW, b);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int w = 0; w < VW; ++w)
-            acc[i][g * VW + w] = fmaf(a[i], b[w], acc[i][g * VW + w]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t r = q0 + ty * 4 + i;
-    if (r >= tq) continue;
-    const float div = l[i] == 0.f ? 1.f : l[i];
-    T* orow = out + (bh * tq + r) * d;
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int w = 0; w < VW; ++w) {
-        const int c = g * 16 * VW + tx * VW + w;
-        if (c < d) orow[c] = from_f<T>(acc[i][g * VW + w] / div);
-      }
-  }
-}
-
-template <typename T, int DMAX>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int64_t bh,
-                   int64_t tq, int64_t tk, int d, float scale, int causal,
-                   cudaStream_t stream) {
-  const auto kernel = flash_fwd_kernel<T, DMAX>;
-  constexpr size_t smem = smem_bytes<DMAX>();
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(bh), static_cast<unsigned>((tq + kBQ - 1) / kBQ));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), tq, tk, d, scale, causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* out, int64_t bh,
-                     int64_t tq, int64_t tk, int d, float scale, int causal,
-                     cudaStream_t s) {
-  if (d <= 16) return launch<T, 16>(q, k, v, out, bh, tq, tk, d, scale, causal, s);
-  if (d <= 32) return launch<T, 32>(q, k, v, out, bh, tq, tk, d, scale, causal, s);
-  if (d <= 64) return launch<T, 64>(q, k, v, out, bh, tq, tk, d, scale, causal, s);
-  if (d <= 128) return launch<T, 128>(q, k, v, out, bh, tq, tk, d, scale, causal, s);
-  return launch<T, 256>(q, k, v, out, bh, tq, tk, d, scale, causal, s);
-}
-
 // ---------------------------------------------------------------------------
-// bf16 / fp16: the tensor-core kernel (FlashAttention-2's layout)
+// The tensor-core kernels' shared pieces, and the bf16 / fp16 kernel
 // ---------------------------------------------------------------------------
 
 constexpr int kTcWarps = 4;                  // 16 query rows each
@@ -373,7 +174,7 @@ __device__ __forceinline__ void mma16816<__half>(float (&d)[4], const uint32_t (
 }
 
 // 2^x in one instruction (ex2.approx: 2 ulp, 2^-inf = 0), as
-// FlashAttention does; float32's kernel keeps expf
+// FlashAttention does
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -404,24 +205,25 @@ constexpr size_t tc_smem_bytes() {
   return sizeof(uint16_t) * (1 + 2 * kTcStages) * kBQ * (DP + 8);  // Q, K's, V's
 }
 
-// Rows [row0, row0 + 64) of a (rows, d) head into a 64 x DP tile of
-// shared memory (row stride DP + 8 elements: ldmatrix's eight row
-// addresses fall on distinct banks); rows past `rows` and columns past d
-// are zeros. vec: 16-byte cp.async copies (d % 8 == 0, aligned), which
-// the caller waits for; else plain loads and stores.
-template <typename T, int DP>
+// Rows [row0, row0 + ROWS) of a (rows, d) head into a ROWS x DP tile of
+// shared memory (row stride DP plus one 16-byte chunk: ldmatrix's eight
+// row addresses fall on distinct banks); rows past `rows` and columns past
+// d are zeros. vec: 16-byte cp.async copies (d a whole number of chunks,
+// aligned), which the caller waits for; else plain loads and stores.
+template <typename T, int DP, int ROWS = kBQ>
 __device__ __forceinline__ void load_tile(T* s, const T* __restrict__ g, int64_t row0,
                                           int64_t rows, int d, bool vec) {
-  constexpr int LD = DP + 8;
+  constexpr int EC = 16 / sizeof(T);  // elements a chunk
+  constexpr int LD = DP + EC;
   if (vec) {
-    constexpr int CH = DP / 8;  // 16-byte chunks a row
-    for (int e = threadIdx.x; e < kBQ * CH; e += kTcThreads) {
-      const int r = e / CH, c = (e - r * CH) * 8;
+    constexpr int CH = DP / EC;  // 16-byte chunks a row
+    for (int e = threadIdx.x; e < ROWS * CH; e += kTcThreads) {
+      const int r = e / CH, c = (e - r * CH) * EC;
       const bool ok = row0 + r < rows && c < d;
       cp_async16(s + r * LD + c, ok ? g + (row0 + r) * d + c : g, ok ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < kBQ * DP; e += kTcThreads) {
+    for (int e = threadIdx.x; e < ROWS * DP; e += kTcThreads) {
       const int r = e / DP, c = e - r * DP;
       s[r * LD + c] = row0 + r < rows && c < d ? g[(row0 + r) * d + c] : from_f<T>(0.f);
     }
@@ -639,19 +441,290 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+// x ~ hi + lo for the tensor cores, which read only an operand's TF32 bits
+// (sign, exponent, 10 mantissa bits) and drop the 13 below: hi = x plus
+// half a TF32 ulp, read as x rounded to nearest, ties away (what
+// cvt.rna.tf32.f32 gives), and lo = x - that value exactly, read
+// truncated; |x - (hi + lo)| <= 2^-21 |x| as read. Integer arithmetic on
+// the bits, which no compiler folds. cvt.rna.tf32.f32 itself compiles on
+// sm_90 to a compare, an add, a mask and a select; with two of them a
+// split the kernel ran slower (PERF.md). A NaN in x stays NaN in hi or
+// lo, and an inf makes lo NaN, so either reaches the products.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) + 0x1000u;
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
+
+// d += a b on the tensor cores: m16n8k8, TF32 in, float32 accumulate
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32: the small terms lo·hi and hi·lo first, then hi·hi
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma1688(d, al, bh[0], bh[1]);
+  mma1688(d, ah, bl[0], bl[1]);
+  mma1688(d, ah, bh[0], bh[1]);
+}
+
+// keys per KV tile: 64, or 32 above DP = 64 so that two stages fit
+template <int DP>
+constexpr int kF32Keys = DP <= 64 ? 64 : 32;
+
+template <int DP>
+constexpr size_t f32_smem_bytes() {
+  return sizeof(float) * (kBQ + 2 * kTcStages * kF32Keys<DP>) * (DP + 4);  // Q, K's, V's
+}
+
+// One block of 4 warps per (head blockIdx.x, 64-query tile); warp w owns
+// query rows 16 w.. of the tile. See the file comment. The explicit
+// minimum of one block an SM leaves ptxas its full register budget, and
+// the kernel ran faster so (PERF.md).
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int64_t tq, int64_t tk,
+                 int d, float scale_log2, int causal, int vec_in, int vec_out) {
+  constexpr int BK = kF32Keys<DP>;
+  constexpr int LD = DP + 4;
+  constexpr int KS = DP / 8;           // k-steps of Q K^T over the head width
+  constexpr int NO = DP / 8;           // n-tiles of the output
+  constexpr int NS = BK / 8;           // n-tiles of the scores, k-steps of P V
+  static_assert(4 * NS <= 32 && NS % 2 == 0, "one mask bit per score; n-tiles in pairs");
+  static_assert(DP % 8 == 0 && DP <= 256, "head width padded to a multiple of 8");
+  extern __shared__ float4 smem4[];
+  float* sq = reinterpret_cast<float*>(smem4);
+  float* sk = sq + kBQ * LD;           // kTcStages buffers of K, then of V
+  float* sv = sk + kTcStages * BK * LD;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator row, column pair
+  const int64_t bh = blockIdx.x;
+  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kBQ;
+  const float* qh = q + bh * tq * d;
+  const float* kh = k + bh * tk * d;
+  const float* vh = v + bh * tk * d;
+  const bool vec = vec_in != 0;
+
+  int64_t n_tiles = (tk + BK - 1) / BK;
+  if (causal) {
+    const int64_t q_last = (q0 + kBQ < tq ? q0 + kBQ : tq) - 1;
+    n_tiles = n_tiles < q_last / BK + 1 ? n_tiles : q_last / BK + 1;
+  }
+  load_tile<float, DP>(sq, qh, q0, tq, d, vec);
+#pragma unroll
+  for (int p = 0; p < kTcStages - 1; ++p) {  // one copy group per KV tile, Q in the first
+    if (p < n_tiles) {
+      load_tile<float, DP, BK>(sk + p * BK * LD, kh, p * BK, tk, d, vec);
+      load_tile<float, DP, BK>(sv + p * BK * LD, vh, p * BK, tk, d, vec);
+    }
+    cp_async_commit();
+  }
+
+  // ldmatrix addressing: lane l names row l % 8 of 8 x 8 matrix l / 8
+  // (b16 view: 8 rows of 4 floats)
+  const int mat = lane >> 3, mrow = lane & 7;
+  const float* q_frag = sq + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 4;
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const int64_t row_g[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+
+  for (int64_t t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kTcStages - 2>();  // tile t has landed
+    __syncthreads();  // for every thread; and tile t - 1's buffer is free
+    const int64_t ahead = t + kTcStages - 1;  // loads while this tile computes
+    if (ahead < n_tiles) {
+      const int nb = static_cast<int>(ahead % kTcStages);
+      load_tile<float, DP, BK>(sk + nb * BK * LD, kh, ahead * BK, tk, d, vec);
+      load_tile<float, DP, BK>(sv + nb * BK * LD, vh, ahead * BK, tk, d, vec);
+    }
+    cp_async_commit();
+    const int buf = static_cast<int>(t % kTcStages);
+    const float* kb = sk + buf * BK * LD;
+    const float* vb = sv + buf * BK * LD;
+
+    // S = Q K^T: 16 rows x BK keys a warp
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4], ah[4], al[4];
+      ldmatrix_x4(a, q_frag + kk * 8);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(a[i]), ah[i], al[i]);
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t b[4];  // keys of n-tiles j, j + 1; head columns kk*8 .. +7
+        ldmatrix_x4(b, kb + ((j + (mat >> 1)) * 8 + mrow) * LD + kk * 8 + (mat & 1) * 4);
+        uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split_tf32(__uint_as_float(b[i]), bh[i >> 1][i & 1], bl[i >> 1][i & 1]);
+        }
+        mma3(s[j], ah, al, bh[0], bl[0]);
+        mma3(s[j + 1], ah, al, bh[1], bl[1]);
+      }
+    }
+
+    // online softmax on the fragments (log2 domain); s becomes P. Bit
+    // 4 j + i of `keep` says whether score s[j][i] is seen; a tile that
+    // every row of the warp sees whole needs no mask.
+    const int64_t k0 = t * BK;
+    uint32_t keep = 0xffffffffu;
+    if (k0 + BK > tk || (causal && k0 + BK - 1 > q0 + warp * 16)) {
+      const int key_end = static_cast<int>(tk - k0 < BK ? tk - k0 : BK);
+      int last[2];  // the last key offset each of this thread's rows sees
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t r = row_g[h] - k0;
+        last[h] = !causal ? BK : r < 0 ? -1 : r > BK ? BK : static_cast<int>(r);
+      }
+      keep = 0u;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kl = j * 8 + 2 * t4 + (i & 1);
+          keep |= static_cast<uint32_t>(kl < key_end && kl <= last[i >> 1]) << (4 * j + i);
+        }
+    }
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = (keep >> (4 * j + i)) & 1u ? s[j][i] * scale_log2 : kMasked;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFullMask, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFullMask, mx[h], 2));
+      // m_next >= -1e30 once a tile is seen; exp2(-inf) = 0 on the first
+      const float m_next = fmaxf(m_run[h], mx[h]);
+      alpha[h] = exp2_approx(m_run[h] - m_next);
+      m_run[h] = m_next;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = (keep >> (4 * j + i)) & 1u ? exp2_approx(s[j][i] - m_run[i >> 1]) : 0.f;
+        sum[i >> 1] += p;
+        s[j][i] = p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(kFullMask, sum[h], 1);
+      sum[h] += __shfl_xor_sync(kFullMask, sum[h], 2);
+      l_run[h] = alpha[h] * l_run[h] + sum[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V, 8 keys a k-step. P's scores (row g / g + 8, keys 2 t4 and
+    // 2 t4 + 1) are its A operand when column t4 stands for key 2 t4 and
+    // column t4 + 4 for key 2 t4 + 1; V's B rows t4 and t4 + 4 follow.
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(s[kk][0], ah[0], al[0]);
+      split_tf32(s[kk][2], ah[1], al[1]);
+      split_tf32(s[kk][1], ah[2], al[2]);
+      split_tf32(s[kk][3], ah[3], al[3]);
+      const float* vrow = vb + (kk * 8 + 2 * t4) * LD + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bh[2], bl[2];
+        split_tf32(vrow[n * 8], bh[0], bl[0]);
+        split_tf32(vrow[LD + n * 8], bh[1], bl[1]);
+        mma3(o[n], ah, al, bh, bl);
+      }
+    }
+  }
+
+  // O / l through the warp's own 16 rows of the Q tile, then out in whole
+  // rows. With no KV tile, another warp's Q copy may still be landing in
+  // these rows: every thread waits for its own, then for the others.
+  cp_async_wait<0>();
+  __syncthreads();
+  float div[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) div[h] = l_run[h] == 0.f ? 1.f : l_run[h];
+  float* so = sq + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<float2*>(so + g * LD + n * 8 + 2 * t4) =
+        make_float2(o[n][0] / div[0], o[n][1] / div[0]);
+    *reinterpret_cast<float2*>(so + (g + 8) * LD + n * 8 + 2 * t4) =
+        make_float2(o[n][2] / div[1], o[n][3] / div[1]);
+  }
+  __syncwarp();
+  const int64_t r0 = q0 + warp * 16;
+  float* oh = out + (bh * tq + r0) * d;
+  if (vec_out) {
+    constexpr int CH = DP / 4;
+    for (int e = lane; e < 16 * CH; e += 32) {
+      const int r = e / CH, c = (e - r * CH) * 4;
+      if (r0 + r < tq && c < d) {
+        *reinterpret_cast<float4*>(oh + r * d + c) =
+            *reinterpret_cast<const float4*>(so + r * LD + c);
+      }
+    }
+  } else {
+    for (int e = lane; e < 16 * d; e += 32) {
+      const int r = e / d, c = e - r * d;
+      if (r0 + r < tq) oh[r * d + c] = so[r * LD + c];
+    }
+  }
+}
+
 template <typename T, int DP>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int64_t bh,
                       int64_t tq, int64_t tk, int d, float scale, int causal,
                       cudaStream_t stream) {
-  const auto kernel = flash_tc_kernel<T, DP>;
-  constexpr size_t smem = tc_smem_bytes<DP>();
+  constexpr bool kF32 = std::is_same_v<T, float>;
+  const auto kernel = [] {
+    if constexpr (kF32) {
+      return flash_f32_kernel<DP>;
+    } else {
+      return flash_tc_kernel<T, DP>;
+    }
+  }();
+  constexpr size_t smem = kF32 ? f32_smem_bytes<DP>() : tc_smem_bytes<DP>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   auto a16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
-  const int vec_in = d % 8 == 0 && a16(q) && a16(k) && a16(v);
-  const int vec_out = d % 8 == 0 && a16(out);
+  constexpr int kChunk = 16 / sizeof(T);  // elements a 16-byte copy
+  const int vec_in = d % kChunk == 0 && a16(q) && a16(k) && a16(v);
+  const int vec_out = d % kChunk == 0 && a16(out);
   const dim3 grid(static_cast<unsigned>(bh), static_cast<unsigned>((tq + kBQ - 1) / kBQ));
   kernel<<<grid, kTcThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -696,7 +769,7 @@ int ofs_flash_attention(const void* q, const void* k, const void* v, void* out, 
   const int di = static_cast<int>(d);
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch_d<float>(q, k, v, out, bh, tq, tk, di, scale, causal, s));
+      return static_cast<int>(launch_tc_d<float>(q, k, v, out, bh, tq, tk, di, scale, causal, s));
     case 1:
       return static_cast<int>(
           launch_tc_d<__nv_bfloat16>(q, k, v, out, bh, tq, tk, di, scale, causal, s));

@@ -12,13 +12,18 @@ notes there).
 On the CPU the wrapper runs ``flash_attention_torch``; on the card it
 launches the kernel or raises, and never falls back. Each launch adds one
 to ``LAUNCHES["flash_attention"]`` (ops/cuda/build.py).
+
+The float32 kernel takes each product on the tensor cores as three TF32
+products (3xTF32). ``split_tf32`` and ``flash_attention_tf32x3_torch``
+repeat that arithmetic on the CPU for the tests; the wrapper never calls
+them.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -69,14 +74,41 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     _build.same_device(q, k, v)
 
 
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``x`` as the kernel's tensor cores read them:
+    hi = x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (to nearest,
+    ties away from zero, the 13 low bits cleared; inf and NaN unchanged),
+    lo = x - hi truncated to TF32 (the kernel passes x - hi whole and the
+    tensor core drops its 13 low bits). Emulated on the float's bits.
+    |x - (hi + lo)| <= 2^-21 |x| for finite x."""
+    bits = x.view(torch.int32)
+    # half a TF32 ulp added to the magnitude bits, then truncation, rounds
+    # ties away from zero; only a NaN's bits could carry into the sign
+    hi = torch.where(torch.isfinite(x), ((bits + 0x1000) & ~0x1FFF).view(torch.float32), x)
+    lo = ((x - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in float32 as the kernel's tensor cores take it: lo·hi and
+    hi·lo first, then hi·hi (a product of two TF32 values is exact in
+    float32)."""
+    a_hi, a_lo = split_tf32(a.contiguous())
+    b_hi, b_lo = split_tf32(b.contiguous())
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
+
+
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool, block_q: int = 256, block_k: int = 256) -> torch.Tensor:
+                          causal: bool, block_q: int = 256, block_k: int = 256, *,
+                          matmul: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+                          = torch.matmul) -> torch.Tensor:
     """Plain version of the kernel, repeating the TPU kernel's arithmetic
     tile by tile (tiles of min(block, T) rows; T need not divide them):
     float32 scores times 1/sqrt(d), masked keys at -1e30, running float32
     row max m, row sum l and accumulator; P cast to v's dtype before P v;
     KV tiles wholly above the diagonal skipped; a row with l = 0 divided
-    by 1; the result in q's dtype."""
+    by 1; the result in q's dtype. ``matmul`` takes both float32 products
+    (Q K^T and P V)."""
     BH, Tq, d = q.shape
     Tk = k.shape[1]
     bq, bk = max(min(block_q, Tq), 1), max(min(block_k, Tk), 1)
@@ -94,7 +126,7 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if causal and k0 > q0 + bq - 1:
                 break
             k1 = min(k0 + bk, Tk)
-            s = torch.matmul(qt, kf[:, k0:k1].transpose(1, 2)) * scale
+            s = matmul(qt, kf[:, k0:k1].transpose(1, 2)) * scale
             if causal:
                 keep = torch.arange(k0, k1, device=q.device)[None, :] <= qpos
                 s = torch.where(keep, s, _NEG)
@@ -105,10 +137,19 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             if causal:
                 p = torch.where(keep, p, 0.0)
             row_sum = alpha * row_sum + p.sum(dim=2, keepdim=True)
-            acc = alpha * acc + torch.matmul(p.to(v.dtype).float(), vf[:, k0:k1])
+            acc = alpha * acc + matmul(p.to(v.dtype).float(), vf[:, k0:k1])
             m = m_next
         out[:, q0:q1] = (acc / torch.where(row_sum == 0.0, 1.0, row_sum)).to(q.dtype)
     return out
+
+
+def flash_attention_tf32x3_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 causal: bool, block_q: int = 256,
+                                 block_k: int = 256) -> torch.Tensor:
+    """``flash_attention_torch`` with each float32 product taken as three
+    TF32 products (``tf32x3_matmul``), the float32 kernel's arithmetic.
+    For the tests; never on the main path."""
+    return flash_attention_torch(q, k, v, causal, block_q, block_k, matmul=tf32x3_matmul)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -49,6 +49,15 @@ PEAK_TENSOR16_FLOPS: Dict[str, float] = {
     "H100 NVL": 835e12,
 }
 
+# Peak dense TF32 tensor-core rate (FLOP/s), same data sheet: SXM 495
+# TFLOP/s; PCIe and NVL half their bfloat16 / float16 entry.
+PEAK_TF32_FLOPS: Dict[str, float] = {
+    "H100 80GB HBM3": 495e12,
+    "H100 SXM": 495e12,
+    "H100 PCIe": 378e12,
+    "H100 NVL": 417.5e12,
+}
+
 # untimed calls before each measurement (build, caches, allocator)
 WARMUP_CALLS = 3
 
@@ -85,6 +94,11 @@ def detect_peak_tensor16(device_name: Optional[str] = None) -> float:
     return _lookup(PEAK_TENSOR16_FLOPS, _card_name(device_name))
 
 
+def detect_peak_tf32(device_name: Optional[str] = None) -> float:
+    """Dense TF32 tensor-core FLOP/s of the named card."""
+    return _lookup(PEAK_TF32_FLOPS, _card_name(device_name))
+
+
 @dataclasses.dataclass(frozen=True)
 class AttentionTraffic:
     """Least work of one attention forward over BH heads: q, k, v read
@@ -114,10 +128,17 @@ class AttentionTraffic:
     def flops(self) -> int:
         return 4 * self.bh * self.pairs * self.d
 
-    def bound(self, peak_bw: float, peak_flops: float):
-        """(least ms, "bytes" or "operations") at these peaks."""
-        t_bytes, t_ops = self.bytes / peak_bw * 1e3, self.flops / peak_flops * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    def bound(self, peak_bw: float, peak_flops: float, peak_tf32: Optional[float] = None):
+        """(least ms, the term that bounds it) at these peaks: "bytes", or
+        "operations" at ``peak_flops``. Float32 work passes ``peak_tf32``:
+        its operations may then also run on the tensor cores as three TF32
+        products each (3xTF32 keeps float32's accuracy), term "tf32x3", and
+        the faster of the two counts."""
+        t_bytes = self.bytes / peak_bw * 1e3
+        t_ops, by = self.flops / peak_flops * 1e3, "operations"
+        if peak_tf32 is not None and 3 * self.flops / peak_tf32 * 1e3 < t_ops:
+            t_ops, by = 3 * self.flops / peak_tf32 * 1e3, "tf32x3"
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, by)
 
 
 @dataclasses.dataclass(frozen=True)
