@@ -16,8 +16,17 @@ runs through its own entry points (build_expansion2_plan ->
 spmm_expansion2) on arxiv and products-small, as tools/bench_expansion2.py
 drives the JAX package's.
 
+Then training on the same path: one full-batch GCN training step on
+arxiv (loss_fn -> backward -> clip -> Adam; each SpMM's backward is the
+same kernel on the transpose plan) on every layout, its loss and grads
+against impl="torch" and its launches held exactly, then a few epochs of
+the training example's ``train``; the same for GraphSAGE on arxiv's
+mean adjacency (not symmetric: transpose plans of their own), and one
+GAT step on cora against the CPU.
+
 Then the attention path: the flash-attention kernel against its plain
-version on small cases (float32, bfloat16, float16), BERT-base inference
+version on small cases (float32, bfloat16, float16; no keys gives
+zeros), BERT-base inference
 (bert_base -> TransformerEncoder.forward, seeded weights, B = 8,
 T = 512, float32 with TF32 off) whose every block's attention input is
 run again through MultiheadAttention(flash=True) with the block's own
@@ -59,7 +68,9 @@ import torch.nn.functional as F
 
 from of_spmm_tpu_torch import native
 from of_spmm_tpu_torch.data import load_graph, random_features
-from of_spmm_tpu_torch.models import GCN, bert_base, normalized_adjacency
+from of_spmm_tpu_torch.examples.train_gcn import make_optimizer, train, train_step
+from of_spmm_tpu_torch.models import (
+    GAT, GCN, GraphSAGE, bert_base, mean_adjacency, normalized_adjacency)
 from of_spmm_tpu_torch.nn import MultiheadAttention
 from of_spmm_tpu_torch.ops import (
     make_operator, place_operator, place_plan, spmm_expansion2, spmm_internal)
@@ -163,6 +174,13 @@ FEATURE_WIDTHS = (128, 256, 60)
 STAGED_WIDTHS = (128, 256, 60, 7)  # the fused and ranges kernels: float4 and scalar paths
 GCN_DIMS = (128, 256, 256, 40)  # OGB's GCN baseline for ogbn-arxiv: 3 layers, hidden 256
 MAIN_PATH_REL_TOL = 1e-4
+# the training phases: every layout, the timed steps, the example's epochs
+TRAIN_LAYOUTS = ("tiered", "panels", "fused", "ranges", "expansion")
+TRAIN_STEPS, TRAIN_EPOCHS, TRAIN_LR = 20, 5, 1e-2
+GAT_HEADS, GAT_HIDDEN = 4, 8
+# the kernels a training step on each layout launches: kernel -> layout
+TRAIN_KERNELS = {"bucket_spmm": "tiered", "gather_rows": "tiered", "panel_spmm": "panels",
+                 "fused_spmm": "fused", "ranges_spmm": "ranges", "expansion_spmm": "expansion"}
 PANEL_WIDTHS = (128, 256, 60, 7)  # the panel kernel: float4 and scalar paths
 # kBatch, kListCap, kChunk of csrc/panels.cu and csrc/staged_spmm.cuh
 PANEL_BATCH, PANEL_LIST, PANEL_CHUNK = 8, 4096, 8
@@ -190,6 +208,7 @@ FLASH_CASES = ((6, 128, 128, 128, 128, 128, False), (6, 128, 128, 128, 128, 128,
                *((6, 256, 128, 64, 128, 128, c) for c in (False, True)),
                *((4, 160, 160, d, 256, 256, c) for d in (8, 32, 40, 64, 80, 128, 256)
                  for c in (False, True)))
+FLASH_NO_KEY_WIDTHS = (8, 64, 256)  # Tk = 0 cases: each type's output must be zeros
 BERT_BATCH, BERT_SEQ = 8, 512  # BERT-base attention: BH = 96 heads of d = 64
 GRAD_TOL = 2e-4  # tests/test_flash_attention.py's bar for the flash gradients
 # the microbenchmark kernels against their plain versions: elementwise
@@ -1402,6 +1421,257 @@ def expansion2_run(graph: str, a: CSR, tiered_op, widths, gen, peak_bw: float,
     return launches, err, fields, fig
 
 
+def spmm_launches(plan) -> dict:
+    """The kernel launches of one SpMM through a placed plan."""
+    if isinstance(plan, TieredEll):
+        return {"bucket_spmm": 1, "gather_rows": 1 + (int(plan.finish.extra_rids.shape[0]) > 0)}
+    if isinstance(plan, ExpansionPlan):
+        return {"expansion_spmm": 1}
+    name = {PanelPlan: "panel_spmm", FusedPlan: "fused_spmm", RangesPlan: "ranges_spmm"}[
+        type(plan)]
+    return {name: len(plan.segments)}
+
+
+def step_launches(op: SpmmOperator, n_fwd: int, n_bwd: int) -> dict:
+    """Every kernel's launches over n_fwd SpMMs on the forward plan and
+    n_bwd on the transpose plan (the backward's), zero for the others."""
+    want = {k: 0 for k in kernels.LAUNCHES}
+    for plan, n in ((op.binned, n_fwd), (op.binned_t, n_bwd)):
+        for k, c in spmm_launches(plan).items():
+            want[k] += n * c
+    return want
+
+
+class ReluMasks:
+    """Holds the ReLU (or, with ``leaky``, the leaky ReLU) derivative of
+    one forward fixed for another.
+
+    Two float32 forwards of one step (the kernels and the plain versions,
+    or the card and the CPU) differ in the last bits, so a unit whose
+    pre-activation lies within that of 0 takes the other branch in one of
+    them: at arxiv's width a few of 87M units do (pre-activations down to
+    1e-9), and each moves a weight's grad by up to 3e-4 max-relative; in
+    GAT on cora one attention score of 53K lies 6.9e-6 from 0, and its
+    flip moves the grad of a_dst (a sum that cancels) by 2e-3. Under
+    ``record()`` torch.relu (F.leaky_relu) keeps each call's mask
+    (h > 0); under ``replay()`` its i-th call returns h times mask_i's
+    slope (1 or 0, or the negative slope), so a comparison holds the
+    arithmetic of the two paths and not that coin flip. ``margin()`` is
+    the recorded forward's least |h|: how near 0 its nearest unit lay."""
+
+    def __init__(self, leaky: bool = False):
+        self.masks, self.margins = [], []
+        self.owner, self.name = (F, "leaky_relu") if leaky else (torch, "relu")
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        orig = getattr(self.owner, self.name)
+        setattr(self.owner, self.name, fn)
+        try:
+            yield self
+        finally:
+            setattr(self.owner, self.name, orig)
+
+    def record(self):
+        orig = getattr(self.owner, self.name)
+
+        def recording(h, *args, **kwargs):
+            self.masks.append((h > 0).detach())
+            self.margins.append(h.detach().abs().min())
+            return orig(h, *args, **kwargs)
+        return self._patched(recording)
+
+    def replay(self):
+        masks = iter(self.masks)
+
+        def replaying(h, negative_slope=0.01):
+            m = next(masks).to(h.device)
+            if self.name == "relu":
+                return h * m
+            return h * torch.where(m, torch.ones((), dtype=h.dtype, device=h.device),
+                                   torch.full((), negative_slope, dtype=h.dtype, device=h.device))
+        return self._patched(replaying)
+
+    def flips(self, other: "ReluMasks") -> int:
+        return sum(int((a.cpu() != b.cpu()).sum()) for a, b in zip(self.masks, other.masks))
+
+    def margin(self) -> float:
+        return float(f"{float(min(m.cpu() for m in self.margins)):.3e}")
+
+
+def grads_of(model: torch.nn.Module, fn) -> tuple:
+    """fn()'s loss and every parameter's grad after its backward."""
+    model.zero_grad(set_to_none=True)
+    loss = fn()
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def grad_errs(got: tuple, want: tuple, what: str) -> dict:
+    """The loss's and each grad's max-relative error; raises above
+    MAIN_PATH_REL_TOL or on a non-finite value."""
+    errs = {"loss": rel_err(got[0].reshape(1), want[0].reshape(1))}
+    errs.update({n: rel_err(g, want[1][n]) for n, g in got[1].items()})
+    finite = torch.isfinite(got[0]) and all(torch.isfinite(g).all() for g in got[1].values())
+    if not finite or max(errs.values()) > MAIN_PATH_REL_TOL:
+        raise AssertionError(f"{what}: loss and grads max-relative {errs}, finite {bool(finite)}")
+    return {k: float(f"{v:.3e}") for k, v in errs.items()}
+
+
+def train_step_figures(model: torch.nn.Module, op: SpmmOperator, x: torch.Tensor,
+                       y: torch.Tensor, d_bwd: int, gen) -> dict:
+    """One training step's times (forward + backward + clip + Adam; device
+    time over TRAIN_STEPS steps, and wall), its peak memory above what was
+    allocated before it, and the backward's two SpMMs at d_bwd timed alone
+    on the transpose plan. Trains ``model`` by those steps."""
+    dev = torch.device("cuda", 0)
+    opt, _ = make_optimizer(model, TRAIN_LR, TRAIN_STEPS)
+    step = lambda: train_step(model, op, x, y, opt)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = time_cuda(step, iters=TRAIN_STEPS)
+    wall = wall_ms(step, iters=TRAIN_STEPS)
+    g = torch.randn((op.shape[0], d_bwd), generator=gen).to(dev)
+    with torch.inference_mode():
+        bwd_ms = time_cuda(lambda: (spmm_internal(op.T, g), spmm_internal(op.T, g)),
+                           iters=TRAIN_STEPS)
+    return {"step_ms": round(ms, 4), "step_wall_ms": round(wall, 4),
+            "backward_spmms_ms": round(bwd_ms, 4), "step_peak_mib": round(peak / 2**20, 1)}
+
+
+def train_layouts(name: str, model_of, a: CSR, x: torch.Tensor, y: torch.Tensor, dims, gen,
+                  aliased: bool) -> tuple:
+    """One training step of ``model_of()`` on each of TRAIN_LAYOUTS: the
+    loss and every grad with the kernels against impl="torch" from the
+    same weights and the same ReLU derivatives (ReluMasks; the error with
+    the plain path's own ReLU branches and the units whose branch differs
+    are reported beside it), the launches of the step's forward and
+    backward held exactly (three forward SpMMs, two backward: the first
+    layer's input needs no grad), then the step's times. Returns (rows,
+    the launches of each layout's step, the operators)."""
+    rows, launches, ops = [], {}, {}
+    for layout in TRAIN_LAYOUTS:
+        t0 = time.perf_counter()
+        op = make_operator(a, layout=layout)
+        torch.cuda.synchronize()
+        t_op = time.perf_counter() - t0
+        if op.transpose_aliased != aliased:
+            raise AssertionError(f"{name} {layout}: transpose_aliased {op.transpose_aliased}, "
+                                 f"expected {aliased}")
+        model = model_of()
+        relu, own_relu = ReluMasks(), ReluMasks()
+        kernels.reset_launch_counts()
+        with relu.record():
+            got = grads_of(model, lambda: model.loss_fn(op, x, y))
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        expected = step_launches(op, len(dims) - 1, len(dims) - 2)
+        if counts != expected:
+            raise AssertionError(f"{name} {layout} step launches {counts}, expected {expected}")
+        with relu.replay():
+            errs = grad_errs(got, grads_of(model, lambda: model.loss_fn(op, x, y, impl="torch")),
+                             f"{name} {layout}")
+        with own_relu.record():
+            own = grads_of(model, lambda: model.loss_fn(op, x, y, impl="torch"))
+        own_errs = {n: float(f"{rel_err(g, own[1][n]):.3e}") for n, g in got[1].items()}
+        launches[layout] = counts
+        ops[layout] = op
+        rows.append({"layout": layout, "plan": type(op.binned).__name__,
+                     "transpose_plan": type(op.binned_t).__name__,
+                     "make_operator_seconds": round(t_op, 2), "loss": float(got[0]),
+                     "launches_per_step": {k: n for k, n in counts.items() if n},
+                     "rel_err_vs_torch": errs,
+                     "rel_err_vs_torch_own_relu": own_errs, "relu_flips": relu.flips(own_relu),
+                     "relu_margin": relu.margin(),
+                     **train_step_figures(model, op, x, y, dims[1], gen)})
+    return rows, launches, ops
+
+
+def train_main_path(a_hat: CSR, cfg, x: torch.Tensor, y: torch.Tensor, gen) -> tuple:
+    """GCN training on arxiv (the aliased normalized adjacency) on every
+    layout, then TRAIN_EPOCHS epochs of the example's ``train`` on the
+    tiered layout. Returns (the phase's fields, launches per layout)."""
+    state = GCN(GCN_DIMS, generator=torch.Generator().manual_seed(0)).state_dict()
+
+    def model_of():
+        m = GCN(GCN_DIMS)
+        m.load_state_dict(state)
+        return m
+
+    rows, launches, ops = train_layouts("GCN", model_of, a_hat, x, y, GCN_DIMS, gen, True)
+    model = model_of()
+    t0 = time.perf_counter()
+    losses = train(model, ops["tiered"], x, y, TRAIN_EPOCHS, TRAIN_LR)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    if losses.shape != (TRAIN_EPOCHS,) or not torch.isfinite(losses).all():
+        raise AssertionError(f"train on the tiered layout: losses {losses.tolist()}")
+    return dict(graph="ogbn-arxiv (synthetic, symmetrized, self-loops)", model="GCN",
+                dims=GCN_DIMS, n_nodes=cfg.n_nodes, nnz=a_hat.nnz,
+                step="loss_fn + backward + clip_grad_norm_(5.0) + Adam", tf32=False,
+                layouts=rows,
+                train={"layout": "tiered", "epochs": TRAIN_EPOCHS, "lr": TRAIN_LR,
+                       "schedule": "warmup(cosine_annealing(lr, epochs), 10)",
+                       "losses": [round(v, 6) for v in losses.tolist()],
+                       "seconds": round(t_train, 3)}), launches
+
+
+def sage_train(csr: CSR, cfg, x: torch.Tensor, y: torch.Tensor, gen) -> tuple:
+    """GraphSAGE training on arxiv's mean adjacency D^-1 A (not
+    symmetric: every layout builds its own transpose plan) on every
+    layout, then one GAT step (GAT_HEADS heads) on cora on the card
+    against the same step on the CPU with the card's leaky-ReLU branches
+    (ReluMasks; the error with the CPU's own branches and the scores
+    whose branch differs are reported beside it). Returns (the phase's
+    fields, launches per layout)."""
+    m_adj = mean_adjacency(csr)
+    state = GraphSAGE(GCN_DIMS, generator=torch.Generator().manual_seed(2)).state_dict()
+
+    def model_of():
+        m = GraphSAGE(GCN_DIMS)
+        m.load_state_dict(state)
+        return m
+
+    rows, launches, _ = train_layouts("GraphSAGE", model_of, m_adj, x, y, GCN_DIMS, gen, False)
+    ccsr, ccfg = load_graph("cora", symmetrize=True)
+    ca = normalized_adjacency(ccsr)
+    cx, cy = (torch.from_numpy(a) for a in random_features(ccfg))
+    dims = (ccfg.feature_dim, GAT_HIDDEN, ccfg.n_classes)
+    gat_cpu = GAT(dims, heads=GAT_HEADS, device="cpu", generator=torch.Generator().manual_seed(3))
+    gat = GAT(dims, heads=GAT_HEADS)
+    gat.load_state_dict(gat_cpu.state_dict())
+    cop, cop_cpu = make_operator(ca), make_operator(ca, device="cpu")
+    dev = torch.device("cuda", 0)
+    cxd, cyd = cx.to(dev), cy.long().to(dev)
+    branches, own_branches = ReluMasks(leaky=True), ReluMasks(leaky=True)
+    with branches.record():
+        got = grads_of(gat, lambda: gat.loss_fn(cop, cxd, cyd))
+    got = (got[0].cpu(), {n: g.cpu() for n, g in got[1].items()})
+    with branches.replay():
+        want = grads_of(gat_cpu, lambda: gat_cpu.loss_fn(cop_cpu, cx, cy.long()))
+    errs = grad_errs(got, want, "GAT on cora, card vs CPU")
+    with own_branches.record():
+        own = grads_of(gat_cpu, lambda: gat_cpu.loss_fn(cop_cpu, cx, cy.long()))
+    own_errs = {n: float(f"{rel_err(g, own[1][n]):.3e}") for n, g in got[1].items()}
+    opt, _ = make_optimizer(gat, TRAIN_LR, TRAIN_STEPS)
+    gat_ms = time_cuda(lambda: train_step(gat, cop, cxd, cyd, opt), iters=TRAIN_STEPS)
+    return dict(graph="ogbn-arxiv (synthetic, symmetrized), mean adjacency D^-1 A",
+                model="GraphSAGE", dims=GCN_DIMS, n_nodes=cfg.n_nodes, nnz=m_adj.nnz,
+                step="loss_fn + backward + clip_grad_norm_(5.0) + Adam", tf32=False,
+                layouts=rows,
+                gat={"graph": "cora (synthetic, symmetrized, self-loops)", "dims": dims,
+                     "heads": GAT_HEADS, "aggregation": "spmm_coo over op.coo_rows/coo_cols",
+                     "rel_err_vs_cpu": errs, "rel_err_vs_cpu_own_leaky_relu": own_errs,
+                     "leaky_relu_flips": branches.flips(own_branches),
+                     "leaky_relu_margin": branches.margin(),
+                     "step_ms": round(gat_ms, 4)}), launches
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
@@ -1436,6 +1706,18 @@ def flash_kernel_cases(gen) -> dict:
             e = check_flash(got, want, f"flash_attention BH={BH} Tq={Tq} Tk={Tk} d={d} "
                                        f"causal={causal}")
             errs[dtype_name(dtype)] = max(errs[dtype_name(dtype)], e)
+    # no keys: every row has l = 0 and is zero (every warp's output goes
+    # through Q-tile rows that other warps' Q copies fill)
+    for dtype in FLASH_TOL:
+        for d in FLASH_NO_KEY_WIDTHS:
+            q = torch.randn((4, 200, d), generator=gen).to(dev, dtype)
+            empty = torch.empty((4, 0, d), device=dev, dtype=dtype)
+            for causal in (False, True):
+                got = fakernels.flash_attention(q, empty, empty, causal)
+                torch.cuda.synchronize()
+                if not torch.equal(got, torch.zeros_like(q)):
+                    raise AssertionError(f"flash_attention {dtype_name(dtype)} d={d} "
+                                         f"causal={causal} with no keys: not zeros")
     x = torch.zeros((1, 1, 100, 64), device=dev)
     try:
         flash_attention(x, x, x, block_q=64, block_k=64)
@@ -1448,6 +1730,8 @@ def flash_kernel_cases(gen) -> dict:
             "dtypes": list(errs), "max_abs_err": errs,
             "tolerance": {dtype_name(dt): f"|k-p| <= {a} + {r}|p|"
                           for dt, (a, r) in FLASH_TOL.items()},
+            "no_keys": {"Tq": 200, "d": FLASH_NO_KEY_WIDTHS, "dtypes": list(errs),
+                        "result": "zeros"},
             "ragged_blocks_refused": refusal}
 
 
@@ -2467,6 +2751,16 @@ def main() -> int:
     max_err["expansion2_spmm"] = max(max_err["expansion2_spmm"], err)
     emit("expansion2_scale", **fields)
     emit("expansion2_kernel_times", graph="products-small", **e2p_fig)
+    del pop, pa, px, p_sparse
+
+    # -- 20.-21. training: GCN on arxiv on every layout (aliased transpose
+    #            plans) and the example's train; GraphSAGE on arxiv's mean
+    #            adjacency (built transpose plans) and one GAT step on cora --
+    y = torch.from_numpy(random_features(cfg)[1]).long().to(dev)
+    fields, train_launches = train_main_path(a_hat, cfg, x, y, gen)
+    emit("train_main_path", **fields)
+    fields, sage_launches = sage_train(csr, cfg, x, y, gen)
+    emit("sage_train", **fields)
 
     # -- 20.-23. the attention path: the flash kernel against its plain
     #            version, BERT-base inference with every block's attention
@@ -2532,7 +2826,12 @@ def main() -> int:
          "max_abs_err": max_err[k],
          **{f: figs[k][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "launches_per_spmm": figs[k]["launches"],
-         "times_scope": f"one SpMM on ogbn-arxiv at d={figs[k]['d']}"}
+         "times_scope": f"one SpMM on ogbn-arxiv at d={figs[k]['d']}",
+         **({"train_launches": train_launches[TRAIN_KERNELS[k]][k],
+             "sage_train_launches": sage_launches[TRAIN_KERNELS[k]][k],
+             "train_launches_scope": f"one training step on ogbn-arxiv "
+                                     f"(layout='{TRAIN_KERNELS[k]}'): GCN, GraphSAGE"}
+            if k in TRAIN_KERNELS else {})}
         for k in SOURCES if k not in MICROBENCH_MAIN and k != "flash_attention"]
     entries.append(
         {"name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],

@@ -5,9 +5,12 @@ mirror the JAX package's layout; every TPU kernel on a ported path becomes
 a kernel written by hand for Hopper (``csrc/*.cu``), with a plain PyTorch
 version beside it. The port imports neither JAX nor the JAX package.
 
-Ported so far: GCN inference on every SpMM layout of the JAX package,
-and the attention path (flash attention, multi-head attention and the
-BERT-style transformer encoder) for inference.
+Ported so far: the differentiable SpMM on every layout of the JAX package
+(its backward the same engine on the transpose plan), the edge-list ops,
+GCN, GraphSAGE and GAT with full-batch training
+(``python -m of_spmm_tpu_torch.examples.train_gcn``), and the attention
+path (flash attention, multi-head attention and the BERT-style
+transformer encoder) for inference.
 
     from of_spmm_tpu_torch.data import load_graph, random_features
     from of_spmm_tpu_torch.models import GCN, bert_base, normalized_adjacency

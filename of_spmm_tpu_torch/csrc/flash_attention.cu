@@ -408,8 +408,11 @@ flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 
   // O / l, rounded to T, through the warp's own 16 rows of the Q tile,
-  // then out in whole rows
-  cp_async_wait<0>();  // with no KV tile, the Q copy may still be landing
+  // then out in whole rows. With no KV tile, another warp's Q copy may
+  // still be landing in these rows: every thread waits for its own, then
+  // for the others.
+  cp_async_wait<0>();
+  __syncthreads();
   float div[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) div[h] = l_run[h] == 0.f ? 1.f : l_run[h];

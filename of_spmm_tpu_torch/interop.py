@@ -9,23 +9,84 @@ import numpy as np
 import torch
 
 
-def gcn_params_from_numpy(params: Mapping[str, Mapping[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
-    """The JAX GCN's ``{"layer_i": {"w": (fan_in, fan_out), "b": (fan_out,)}}``
-    (leaves converted with np.asarray) as a ``state_dict`` for
-    ``models.GCN``: both keep weights as (fan_in, fan_out)."""
+def _f32(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, dtype=np.float32))
+
+
+# each conv's parameter keys: (required, optional)
+_CONV_KEYS = {
+    "gcn": (("w",), ("b",)),
+    "sage": (("w_self", "w_neigh"), ("b",)),
+    "gat": (("w", "a_src", "a_dst"), ("b",)),
+    "gin": (("eps", "w1", "b1", "w2", "b2"), ()),
+}
+
+
+def _conv_params(kind: str, params: Mapping[str, np.ndarray], prefix: str = ""
+                 ) -> Dict[str, torch.Tensor]:
+    required, optional = _CONV_KEYS[kind]
+    keys = set(params)
+    if not set(required) <= keys or not keys <= set(required) | set(optional):
+        raise KeyError(f"{kind} conv params need keys {sorted(required)} "
+                       f"(optional {sorted(optional)}), got {sorted(keys)}")
+    return OrderedDict((prefix + k, _f32(params[k])) for k in (*required, *optional)
+                       if k in params)
+
+
+def gcn_conv_params_from_numpy(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX GCNConv's ``{"w"[, "b"]}`` as a ``state_dict`` for
+    ``nn.GCNConv``."""
+    return _conv_params("gcn", params)
+
+
+def sage_conv_params_from_numpy(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX SAGEConv's ``{"w_self", "w_neigh"[, "b"]}`` for
+    ``nn.SAGEConv``."""
+    return _conv_params("sage", params)
+
+
+def gat_conv_params_from_numpy(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX GATConv's ``{"w", "a_src", "a_dst"[, "b"]}`` for
+    ``nn.GATConv``."""
+    return _conv_params("gat", params)
+
+
+def gin_conv_params_from_numpy(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX GINConv's ``{"eps", "w1", "b1", "w2", "b2"}`` for
+    ``nn.GINConv``."""
+    return _conv_params("gin", params)
+
+
+def _layers(kind: str, params: Mapping[str, Mapping[str, np.ndarray]], module: str
+            ) -> Dict[str, torch.Tensor]:
     n = len(params)
     if sorted(params) != sorted(f"layer_{i}" for i in range(n)):
         raise KeyError(f"expected keys layer_0..layer_{n - 1}, got {sorted(params)}")
     sd: Dict[str, torch.Tensor] = OrderedDict()
     for i in range(n):
-        p = params[f"layer_{i}"]
-        sd[f"layers.{i}.w"] = torch.tensor(np.asarray(p["w"], dtype=np.float32))
-        sd[f"layers.{i}.b"] = torch.tensor(np.asarray(p["b"], dtype=np.float32))
+        sd.update(_conv_params(kind, params[f"layer_{i}"], f"{module}.{i}."))
     return sd
 
 
-def _f32(a) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, dtype=np.float32))
+def gcn_params_from_numpy(params: Mapping[str, Mapping[str, np.ndarray]]) -> Dict[str, torch.Tensor]:
+    """The JAX GCN's ``{"layer_i": {"w": (fan_in, fan_out), "b": (fan_out,)}}``
+    (leaves converted with np.asarray) as a ``state_dict`` for
+    ``models.GCN``: both keep weights as (fan_in, fan_out)."""
+    return _layers("gcn", params, "layers")
+
+
+def sage_params_from_numpy(params: Mapping[str, Mapping[str, np.ndarray]]
+                           ) -> Dict[str, torch.Tensor]:
+    """The JAX GraphSAGE's ``{"layer_i": {"w_self", "w_neigh", "b"}}`` as a
+    ``state_dict`` for ``models.GraphSAGE``."""
+    return _layers("sage", params, "layers")
+
+
+def gat_params_from_numpy(params: Mapping[str, Mapping[str, np.ndarray]]
+                          ) -> Dict[str, torch.Tensor]:
+    """The JAX GAT's ``{"layer_i": {"w", "a_src", "a_dst", "b"}}`` as a
+    ``state_dict`` for ``models.GAT`` (layer i becomes ``convs.i``)."""
+    return _layers("gat", params, "convs")
 
 
 def mha_params_from_numpy(params: Mapping[str, np.ndarray], prefix: str = ""

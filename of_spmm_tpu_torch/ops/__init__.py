@@ -1,12 +1,19 @@
-"""Op layer: reference oracles, CUDA kernels, the SpMM operator."""
+"""Op layer: reference oracles, CUDA kernels, the SpMM operator and its
+autograd pairing, the edge-list ops, the registry."""
 
 from of_spmm_tpu_torch.ops import reference
 from of_spmm_tpu_torch.ops.autograd import (
     SpmmOperator,
+    gather,
     make_operator,
     place_operator,
+    sddmm,
+    segment_softmax,
+    segment_sum,
     spmm,
+    spmm_coo,
     spmm_internal,
+    spmv,
 )
 from of_spmm_tpu_torch.ops.cuda.expansion import expansion_spmm, place_plan, spmm_expansion
 from of_spmm_tpu_torch.ops.cuda.expansion2 import expansion2_spmm, spmm_expansion2
@@ -14,6 +21,7 @@ from of_spmm_tpu_torch.ops.cuda.fused import fused_spmm
 from of_spmm_tpu_torch.ops.cuda.panels import panel_spmm
 from of_spmm_tpu_torch.ops.cuda.ranges import ranges_spmm
 from of_spmm_tpu_torch.ops.cuda.spmm import bucket_spmm, gather_rows
+from of_spmm_tpu_torch.ops.registry import OpDef, ShardingRule, all_ops, lookup, register_op
 
 __all__ = [
     "reference",
@@ -22,6 +30,17 @@ __all__ = [
     "place_operator",
     "spmm",
     "spmm_internal",
+    "gather",
+    "segment_sum",
+    "spmv",
+    "sddmm",
+    "spmm_coo",
+    "segment_softmax",
+    "OpDef",
+    "ShardingRule",
+    "all_ops",
+    "lookup",
+    "register_op",
     "bucket_spmm",
     "gather_rows",
     "panel_spmm",

@@ -1,4 +1,4 @@
-"""The SpMM operator: plan object, placement and the forward SpMM.
+"""The SpMM operator and the differentiable sparse ops.
 
 ``make_operator`` builds the plan of A (and of A^T, aliased when A is
 symmetric) on the host and places it on a device; ``spmm`` runs Y = A @ X
@@ -10,10 +10,16 @@ versions (ops/reference.py, ``panel_spmm_torch``, ``fused_spmm_torch``,
 ``ranges_spmm_torch``, ``expansion_spmm_torch``), ``"auto"`` the kernels
 for tensors on the card and the plain versions for tensors on the CPU.
 
-This slice is forward only. The differentiable gather <-> segment_sum
-pair and the transpose-plan backward come with the next slice; until
-then ``spmm`` refuses an input that requires grad while grad mode is on,
-rather than return a result whose gradient would be silently missing.
+Autograd follows the JAX package's pairing:
+
+- ``gather`` / ``segment_sum`` differentiate into each other (indices get
+  no gradient);
+- ``spmm(op, x)`` differentiates into the *same* engine run on the
+  transpose plan built at plan time (``op.binned_t`` with its work list
+  ``op.work_t``): no runtime transposition, no atomics beyond the
+  forward kernel's own. The plan arrays get no gradient; edge-weight
+  training goes through ``sddmm`` / ``spmm_coo`` on the operator's COO
+  pattern instead.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from of_spmm_tpu_torch.ops import reference as ref
 from of_spmm_tpu_torch.ops.cuda.expansion import expansion_spmm, expansion_spmm_torch, place_plan
@@ -42,18 +49,74 @@ from of_spmm_tpu_torch.utils.config import FLAGS
 from of_spmm_tpu_torch.utils.device import place_arrays, resolve_device
 
 
+# ---------------------------------------------------------------------------
+# The differentiable gather / segment_sum pair.
+# ---------------------------------------------------------------------------
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, params, indices):
+        ctx.save_for_backward(indices)
+        ctx.n = params.shape[0]
+        return ref.gather(params, indices)
+
+    @staticmethod
+    def backward(ctx, g):
+        (indices,) = ctx.saved_tensors
+        return ref.segment_sum(g, indices, ctx.n), None
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        ctx.save_for_backward(segment_ids)
+        return ref.segment_sum(data, segment_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (segment_ids,) = ctx.saved_tensors
+        return ref.gather(g, segment_ids), None, None
+
+
+def gather(params: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Differentiable row gather (axis 0; out of range -> a zero row); its
+    backward is segment_sum of the cotangent over ``indices``."""
+    return _Gather.apply(params, torch.as_tensor(indices, device=params.device))
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+                ) -> torch.Tensor:
+    """Differentiable unsorted segment sum (out-of-range ids dropped); its
+    backward is gather."""
+    return _SegmentSum.apply(data, torch.as_tensor(segment_ids, device=data.device),
+                             int(num_segments))
+
+
+# ---------------------------------------------------------------------------
+# SpmmOperator: the plan object bundling forward and transpose layouts.
+# ---------------------------------------------------------------------------
+
+
 @dataclasses.dataclass(frozen=True)
 class SpmmOperator:
-    """A sparse matrix prepared for repeated SpMM.
+    """A sparse matrix prepared for repeated (differentiable) SpMM.
 
     Holds the forward plan (``binned``: a BinnedEll, TieredEll,
-    PanelPlan, FusedPlan, RangesPlan or ExpansionPlan) and the transpose
-    plan built once at plan time. ``op @ x`` computes A @ x in node space.
+    PanelPlan, FusedPlan, RangesPlan or ExpansionPlan), the transpose
+    plan built once at plan time, and the COO pattern in node space and
+    CSR order (for ``spmv``, ``sddmm`` and GAT's ``spmm_coo``; empty
+    with ``keep_coo=False``). ``op @ x`` computes A @ x in node space;
+    its backward runs A^T @ g through the same engine on ``binned_t``.
     """
 
     binned: Any  # BinnedEll | TieredEll | PanelPlan | FusedPlan | RangesPlan | ExpansionPlan
     binned_t: Any
     shape: Tuple[int, int]
+    coo_rows: Any = None  # (nnz,) int32
+    coo_cols: Any = None  # (nnz,) int32
+    coo_vals: Any = None  # (nnz,) float32
+    nnz: int = 0
     # relabeling (square binned plans): the plans live in an internal row
     # order chosen for a slice-concat finish; None = identity.
     old_from_new: Any = None  # x_int = x[old_from_new]
@@ -92,10 +155,10 @@ class SpmmOperator:
 
     @property
     def T(self) -> "SpmmOperator":
-        return SpmmOperator(
-            binned=self.binned_t, binned_t=self.binned,
+        return dataclasses.replace(
+            self, binned=self.binned_t, binned_t=self.binned,
             shape=(self.shape[1], self.shape[0]),
-            old_from_new=self.old_from_new, new_from_old=self.new_from_old,
+            coo_rows=self.coo_cols, coo_cols=self.coo_rows,
             work=self.work_t, work_t=self.work,
         )
 
@@ -135,6 +198,7 @@ def make_operator(
     tier_size: Optional[int] = None,
     device=None,
     reorder=None,
+    keep_coo: bool = True,
 ) -> SpmmOperator:
     """Build the plan of A and A^T on the host and place it on ``device``.
 
@@ -148,6 +212,8 @@ def make_operator(
     alias the transpose plan for symmetric matrices.
     ``device=None`` means the card, and raises when there is none.
     ``reorder`` (the JAX package's locality relabeling) is not ported yet.
+    ``keep_coo=False`` keeps empty COO arrays (spmm-only use: the edge-list
+    ops then raise).
     """
     device = resolve_device(device)
     if reorder:
@@ -158,6 +224,11 @@ def make_operator(
         raise ValueError(f"layout must be auto|binned|tiered|{'|'.join(_ENGINES)}, "
                          f"got {layout!r}")
     csr = CSR.from_coo(a) if isinstance(a, COO) else a
+    coo = csr.to_coo()
+    if not keep_coo:
+        coo = COO.from_arrays(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                              np.zeros(0, np.float32), csr.shape)
+    pattern = dict(coo_rows=coo.rows, coo_cols=coo.cols, coo_vals=coo.vals, nnz=csr.nnz)
     if layout in _ENGINES:
         build = _ENGINES[layout]
         plan = build(csr)
@@ -165,8 +236,8 @@ def make_operator(
             plan_t = plan
         else:
             plan_t = build(csr.transpose())
-        return place_operator(SpmmOperator(binned=plan, binned_t=plan_t, shape=csr.shape),
-                              device)
+        return place_operator(SpmmOperator(binned=plan, binned_t=plan_t, shape=csr.shape,
+                                           **pattern), device)
     max_width = int(FLAGS.get("OFS_MAX_ELL_WIDTH"))
     ts = tier_size or DEFAULT_TIER_SIZE
     if layout == "auto":
@@ -201,7 +272,7 @@ def make_operator(
             plan_t = bin_rows(csr.transpose(), ladder=ladder, max_width=max_width)
     return place_operator(SpmmOperator(
         binned=plan, binned_t=plan_t, shape=csr.shape, old_from_new=ofn, new_from_old=nfo,
-    ), device)
+        **pattern), device)
 
 
 def _build_panels(csr: CSR) -> PanelPlan:
@@ -292,22 +363,93 @@ def _spmm_impl(plan, x: torch.Tensor, impl: str, work=None) -> torch.Tensor:
     return ref.spmm_binned(plan, x)
 
 
+class _SpmmFunction(torch.autograd.Function):
+    """Y = A @ X through the forward plan; dX = A^T @ dY through the same
+    engine on the transpose plan. The plan is data, not an input: it gets
+    no gradient (the JAX package's zero cotangents)."""
+
+    @staticmethod
+    def forward(ctx, x, op, impl):
+        ctx.op, ctx.impl = op, impl
+        return _spmm_impl(op.binned, x, impl, op.work)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        op = ctx.op
+        return _spmm_impl(op.binned_t, g.contiguous(), ctx.impl, op.work_t), None, None
+
+
 def spmm_internal(op: SpmmOperator, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Y = A @ X in the operator's internal row order (no conversions).
 
     For relabeled operators the caller supplies x = op.to_internal(x0) and
     maps results back with op.from_internal; models do this once per
-    forward instead of once per SpMM.
+    forward instead of once per SpMM. Differentiable in x: the backward
+    is A^T @ dY on ``op.binned_t``.
     """
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "spmm has no backward yet (ROADMAP.md Queue 1, next slice); run "
-            "inference under torch.no_grad() or torch.inference_mode()")
-    return _spmm_impl(op.binned, x, _select_impl(impl, x), op.work)
+    return _SpmmFunction.apply(x, op, _select_impl(impl, x))
 
 
 def spmm(op: SpmmOperator, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """Y = A @ X in node space."""
+    """Differentiable Y = A @ X in node space (relabeled operators map x in
+    and y out with index_select, whose own backward carries the
+    permutation)."""
     if op.relabeled:
         return op.from_internal(spmm_internal(op, op.to_internal(x), impl))
     return spmm_internal(op, x, impl)
+
+
+# ---------------------------------------------------------------------------
+# Edge-list ops over the operator's COO pattern (plain PyTorch, as the JAX
+# package's are plain XLA).
+# ---------------------------------------------------------------------------
+
+
+def _require_coo(op: SpmmOperator, what: str) -> None:
+    if op.coo_rows is None or (op.coo_rows.shape[0] == 0 and op.nnz > 0):
+        raise ValueError(f"{what} needs the COO pattern, but this operator was built "
+                         "with keep_coo=False (spmm-only)")
+
+
+def spmv(op: SpmmOperator, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable y = A @ x for a vector x, through the gather /
+    segment_sum pair."""
+    _require_coo(op, "spmv")
+    contrib = op.coo_vals * gather(x, op.coo_cols)
+    return segment_sum(contrib, op.coo_rows, op.shape[0])
+
+
+def sddmm(op: SpmmOperator, lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Pattern-restricted lhs @ rhs^T: out[e] = lhs[rows[e]] . rhs[cols[e]];
+    differentiable in lhs and rhs."""
+    _require_coo(op, "sddmm")
+    return torch.sum(gather(lhs, op.coo_rows) * gather(rhs, op.coo_cols), dim=-1)
+
+
+def spmm_coo(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+             n_rows: int) -> torch.Tensor:
+    """Y = A @ X for a COO pattern whose values are computed at run time
+    (GAT's attention weights): differentiable in both vals and x."""
+    return segment_sum(vals[:, None] * gather(x, cols), rows, n_rows)
+
+
+def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+                    ) -> torch.Tensor:
+    """Softmax over each segment (per destination row of an edge list),
+    stabilised by the per-segment max taken without gradient. An empty
+    segment's max is 0; the sum gets 1e-16, as in the JAX package."""
+    ids = torch.as_tensor(segment_ids, device=scores.device).long()
+    s = scores.detach()
+    valid = (ids >= 0) & (ids < num_segments)
+    idx = ids[valid].reshape((-1,) + (1,) * (s.dim() - 1)).expand_as(s[valid])
+    seg_max = torch.full((num_segments,) + tuple(s.shape[1:]), float("-inf"), dtype=s.dtype,
+                         device=s.device)
+    seg_max.scatter_reduce_(0, idx, s[valid], "amax", include_self=False)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, torch.zeros((), dtype=s.dtype,
+                                                                         device=s.device))
+    ex = torch.exp(scores - ref.gather(seg_max, ids))
+    denom = segment_sum(ex, ids, num_segments)
+    return ex / (gather(denom, ids) + 1e-16)

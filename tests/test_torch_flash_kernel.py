@@ -160,7 +160,9 @@ def test_flash_kernel_matches_plain_version_on_the_card():
 def test_flash_tensor_core_kernel_matches_plain_version_on_the_card(dtype):
     """bf16 / fp16 run the tensor-core kernel (mma.sync): every padded head
     width it instantiates, d % 8 != 0 (plain loads and stores), Tq != Tk
-    both ways, ragged 64-row tiles, causal and not, within 1e-2 + 1e-2|p|."""
+    both ways, ragged 64-row tiles, causal and not, within 1e-2 + 1e-2|p|;
+    no keys give zeros (every warp's output goes through Q-tile rows that
+    another warp's Q copy fills)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernel has no CPU mode)")
     dev = torch.device("cuda", 0)
@@ -178,6 +180,15 @@ def test_flash_tensor_core_kernel_matches_plain_version_on_the_card(dtype):
                 calls += 1
                 assert got.dtype == dtype
                 torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    # no keys: every row has l = 0 and is zero, at every head width
+    for d in (8, 64, 100, 256):
+        q = torch.randn((3, 200, d), generator=gen).to(dev, dtype)
+        empty = torch.empty((3, 0, d), device=dev, dtype=dtype)
+        for causal in (False, True):
+            got = fkernel.flash_attention(q, empty, empty, causal)
+            torch.cuda.synchronize()
+            calls += 1
+            assert torch.equal(got, torch.zeros_like(q))
     assert cuda_build.LAUNCHES["flash_attention"] == launches + calls
 
 

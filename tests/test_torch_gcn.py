@@ -80,13 +80,23 @@ def test_gcn_parameters_and_seed():
     assert float(a.layers[0].w.detach().abs().max()) <= limit
 
 
-def test_gcn_forward_requires_inference_mode():
-    csr = CSR.from_dense(np.eye(4, dtype=np.float32))
+def test_gcn_forward_with_grad_trains():
+    """With grad enabled the forward records a graph (the refusal of the
+    forward-only slices is gone): the loss has a grad_fn, every parameter
+    gets a finite grad, and an optimizer step lowers the loss."""
+    csr = CSR.from_dense(np.eye(4, dtype=np.float32) + np.eye(4, k=1, dtype=np.float32))
     op = make_operator(normalized_adjacency(csr), device="cpu")
-    model = GCN((3, 4, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="no_grad"):
-        model(op, torch.ones(4, 3))
+    model = GCN((3, 4, 2), device="cpu", generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((4, 3)).astype(np.float32))
+    y = torch.tensor([0, 1, 1, 0])
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    loss = model.loss_fn(op, x, y)
+    assert loss.grad_fn is not None
+    loss.backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+    opt.step()
     with torch.no_grad():
+        assert float(model.loss_fn(op, x, y)) < float(loss)
         assert model(op, torch.ones(4, 3)).shape == (4, 2)
 
 

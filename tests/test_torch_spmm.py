@@ -292,8 +292,10 @@ def test_impl_selection_and_refusals():
     np.testing.assert_allclose(spmm(op, x).numpy(), dense @ x.numpy(), rtol=RTOL, atol=1e-4)
     with pytest.raises(ValueError, match="impl"):
         spmm(op, x, impl="pallas")
-    with pytest.raises(NotImplementedError, match="backward"):
-        spmm(op, x.clone().requires_grad_())
+    xg = x.clone().requires_grad_()
+    spmm(op, xg).sum().backward()  # the backward: A^T @ ones
+    np.testing.assert_allclose(xg.grad.numpy(), np.broadcast_to(dense.sum(0)[:, None], (30, 4)),
+                               rtol=RTOL, atol=1e-4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_operator(CSR.from_dense(dense), reorder="bfs", device="cpu")
     with pytest.raises(ValueError, match="layout"):
