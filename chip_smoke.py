@@ -24,6 +24,18 @@ the training example's ``train``; the same for GraphSAGE on arxiv's
 mean adjacency (not symmetric: transpose plans of their own), and one
 GAT step on cora against the CPU.
 
+Then the locality reorder and SpGEMM: GCN inference on arxiv with its
+node ids shuffled by a seeded permutation (as bench.py --shuffled does)
+through make_operator(reorder="match") on the panels, fused and ranges
+layouts, against impl="torch" and the unshuffled logits, the reorder's
+seconds and band coverage, each layout's SpMM beside the unshuffled and
+the shuffled-without-reorder figures, and one backward; then the arxiv
+2-hop product A @ A: the host product and the symbolic phases timed on
+the host, the plain, product-form and padded numeric phases on the card
+against the host product, torch.sparse.mm beside them, the numeric
+again with new values on the reused plans, and an operator built from
+spgemm_device(A_hat, A_hat) on cora against two SpMMs.
+
 Then the attention path: the flash-attention kernel against its plain
 version on small cases (float32, bfloat16, float16; no keys gives
 zeros), BERT-base inference
@@ -73,7 +85,9 @@ from of_spmm_tpu_torch.models import (
     GAT, GCN, GraphSAGE, bert_base, mean_adjacency, normalized_adjacency)
 from of_spmm_tpu_torch.nn import MultiheadAttention
 from of_spmm_tpu_torch.ops import (
-    make_operator, place_operator, place_plan, spmm_expansion2, spmm_internal)
+    make_operator, place_operator, place_plan, place_spgemm_plan, spgemm, spgemm_device,
+    spgemm_numeric, spgemm_numeric_padded, spgemm_numeric_products, spgemm_symbolic,
+    spgemm_symbolic_padded, spgemm_symbolic_products, spmm, spmm_expansion2, spmm_internal)
 from of_spmm_tpu_torch.ops.autograd import SpmmOperator
 from of_spmm_tpu_torch.ops.cuda import expansion as ekernels
 from of_spmm_tpu_torch.ops.cuda import expansion2 as e2kernels
@@ -100,6 +114,7 @@ from of_spmm_tpu_torch.sparse.panels import (
     C_SBIG, C_TFIRST, C_TILE, UNIT_EDGES, PanelPlan, attach_windows, build_panels_plan,
     ensure_masks, work_units)
 from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
+from of_spmm_tpu_torch.sparse.reorder import locality_stats, reorder_locality
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
 from of_spmm_tpu_torch.tools import microbench_blockfma as tblockfma
 from of_spmm_tpu_torch.tools import microbench_cond as tcond
@@ -173,6 +188,15 @@ BUCKET_WIDTHS = (3, 5, 9, 17, 33, 64, 153, 256)
 FEATURE_WIDTHS = (128, 256, 60)
 STAGED_WIDTHS = (128, 256, 60, 7)  # the fused and ranges kernels: float4 and scalar paths
 GCN_DIMS = (128, 256, 256, 40)  # OGB's GCN baseline for ogbn-arxiv: 3 layers, hidden 256
+REORDER_SEED = 123  # bench.py --shuffled's permutation seed
+REORDER_METHOD = "match"  # bench.py --shuffled's reorder: multilevel heavy-edge matching
+REORDER_LAYOUTS = ("panels", "fused", "ranges")  # the layouts make_operator(reorder=) takes
+REORDER_GRAD_LAYOUT = "panels"  # the reordered layout whose backward is checked
+SPGEMM_PADDED_WIDTH = 512  # spgemm_symbolic_padded's default max_width
+SPGEMM_PADDED_MAX_BYTES = 8 << 30  # the padded form runs at arxiv when its plan fits this
+SPGEMM_SMALL_SEED, SPGEMM_SMALL_N, SPGEMM_SMALL_NNZ = 4, 20_000, 200_000  # else this one
+SPGEMM_VALUES_SEED = 5  # new values for the reused plans
+SPGEMM_COMPOSE_LAYOUTS = ("panels", "tiered")  # operators built from spgemm_device's C
 MAIN_PATH_REL_TOL = 1e-4
 # the training phases: every layout, the timed steps, the example's epochs
 TRAIN_LAYOUTS = ("tiered", "panels", "fused", "ranges", "expansion")
@@ -1672,6 +1696,358 @@ def sage_train(csr: CSR, cfg, x: torch.Tensor, y: torch.Tensor, gen) -> tuple:
                      "step_ms": round(gat_ms, 4)}), launches
 
 
+def shuffle_ids(csr: CSR, seed: int) -> tuple:
+    """``csr`` with its node ids permuted by a seeded permutation (node i
+    becomes perm[i], rows and columns alike), as bench.py's --shuffled
+    destroys the generator's community-contiguous ids. Returns (the
+    shuffled CSR, perm)."""
+    n = csr.shape[0]
+    perm = np.random.default_rng(seed).permutation(n)
+    rows = np.repeat(np.arange(n), np.diff(np.asarray(csr.indptr, np.int64)))
+    shuffled = CSR.from_coo(COO.from_arrays(
+        perm[rows].astype(np.int32), perm[np.asarray(csr.cols, np.int64)].astype(np.int32),
+        np.asarray(csr.vals), csr.shape))
+    return shuffled, perm
+
+
+def plan_work(plan) -> dict:
+    """The segments, control steps and work units of a placed panel,
+    fused or ranges plan."""
+    return {"segments": len(plan.segments), "steps": sum(s.n_steps for s in plan.segments),
+            "units": sum(int(s.windows.units.shape[0]) for s in plan.segments),
+            "split_tiles": sum(int(s.windows.split_tiles.shape[0]) for s in plan.segments)}
+
+
+def reorder_main_path(a_hat: CSR, cfg, x: torch.Tensor, y: torch.Tensor, model: GCN,
+                      logits: torch.Tensor, unshuffled_spmm_ms: dict, gen) -> tuple:
+    """GCN inference on shuffled arxiv through make_operator(reorder=
+    REORDER_METHOD) on each layout the reorder applies to: the node ids of
+    the normalized adjacency permuted (REORDER_SEED, as bench.py
+    --shuffled), then the matching reorder recovers the locality; the
+    reorder's seconds and the band coverage (locality_stats) of the
+    original, shuffled and reordered orderings. Per layout: the plan's
+    steps and units, the launches of one forward (held exactly), logits
+    against impl="torch" on the same operator and against the unshuffled
+    tiered logits mapped through the permutation, the kernel against its
+    plain version at the main path's widths, and the SpMM at d = 128 on
+    the reordered operator, on the shuffled graph without reorder and
+    (``unshuffled_spmm_ms``) on the unshuffled graph. Then one training
+    step's loss and grads on REORDER_GRAD_LAYOUT against impl="torch"
+    with the same ReLU branches. Returns (the phase's fields, launches of
+    one forward per kernel, max abs err per kernel)."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    shuffled, perm = shuffle_ids(a_hat, REORDER_SEED)
+    t_shuffle = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reordered, ofn, _ = reorder_locality(shuffled, REORDER_METHOD)
+    t_reorder = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coverage = {k: locality_stats(c)["band_coverage"]
+                for k, c in (("original", a_hat), ("shuffled", shuffled),
+                             ("reordered", reordered))}
+    t_stats = time.perf_counter() - t0
+    del reordered
+    perm_t = torch.from_numpy(perm).to(dev)
+    inv_t = torch.from_numpy(np.argsort(perm)).to(dev)
+    x_s, y_s = x.index_select(0, inv_t), y.index_select(0, inv_t)  # x_s[perm[i]] = x[i]
+    rows, launches, errs = [], {}, {}
+    grad_fields = None
+    for layout in REORDER_LAYOUTS:
+        kname = {"panels": "panel_spmm", "fused": "fused_spmm", "ranges": "ranges_spmm"}[layout]
+        kmod = {"panels": pkernels, "fused": fkernels, "ranges": rkernels}[layout]
+        kernel, plain = getattr(kmod, kname), getattr(kmod, f"{kname}_torch")
+        t0 = time.perf_counter()
+        op = make_operator(shuffled, layout=layout, reorder=REORDER_METHOD)
+        torch.cuda.synchronize()
+        t_op = time.perf_counter() - t0
+        sp = op.binned
+        if not (op.relabeled and op.transpose_aliased
+                and np.array_equal(op.old_from_new.cpu().numpy(), ofn)):
+            raise AssertionError(f"reordered {layout}: relabeled {op.relabeled}, aliased "
+                                 f"{op.transpose_aliased}, or another permutation")
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            got = model(op, x_s)
+            torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+            expected = {k: 0 for k in counts}
+            expected[kname] = 3 * len(sp.segments)
+            if counts != expected:
+                raise AssertionError(f"reordered {layout} launches {counts}, expected {expected}")
+            want = model(op, x_s, impl="torch")
+            torch.cuda.synchronize()
+        if got.shape != (cfg.n_nodes, GCN_DIMS[-1]) or not torch.isfinite(got).all():
+            raise AssertionError(f"reordered {layout} logits not finite or wrong shape")
+        vs_plain = rel_err(got, want)
+        vs_unshuffled = rel_err(got.index_select(0, perm_t), logits)
+        if vs_plain > MAIN_PATH_REL_TOL or vs_unshuffled > MAIN_PATH_REL_TOL:
+            raise AssertionError(f"reordered {layout} GCN logits: rel err {vs_plain} vs "
+                                 f"impl=torch, {vs_unshuffled} vs the unshuffled logits")
+        err = 0.0
+        with torch.inference_mode():
+            for d in sorted(set(GCN_DIMS[:-1])):
+                xd = torch.randn((cfg.n_nodes, d), generator=gen).to(dev)
+                err = max(err, check_close(kernel(sp, xd), plain(sp, xd),
+                                           f"reordered arxiv {kname} d={d}"))
+            h = torch.randn((cfg.n_nodes, 128), generator=gen).to(dev)
+            ms = time_cuda(lambda: spmm_internal(op, h), iters=20)
+            node_ms = time_cuda(lambda: spmm(op, h), iters=20)
+            fwd_ms = time_cuda(lambda: model(op, x_s), iters=20)
+        # the same layout on the shuffled ids without reorder: what the
+        # reorder buys
+        t0 = time.perf_counter()
+        sop = make_operator(shuffled, layout=layout)
+        torch.cuda.synchronize()
+        t_sop = time.perf_counter() - t0
+        with torch.inference_mode():
+            s_err = rel_err(spmm_internal(sop, h), spmm(op, h))
+            if s_err > MAIN_PATH_REL_TOL:
+                raise AssertionError(f"shuffled {layout} SpMM vs reordered: rel err {s_err}")
+            s_ms = time_cuda(lambda: spmm_internal(sop, h), iters=20)
+        s_work = plan_work(sop.binned)
+        del sop
+        if layout == REORDER_GRAD_LAYOUT:
+            relu = ReluMasks()
+            kernels.reset_launch_counts()
+            with relu.record():
+                g_got = grads_of(model, lambda: model.loss_fn(op, x_s, y_s))
+            torch.cuda.synchronize()
+            g_counts = dict(kernels.LAUNCHES)
+            if g_counts != step_launches(op, len(GCN_DIMS) - 1, len(GCN_DIMS) - 2):
+                raise AssertionError(f"reordered {layout} step launches {g_counts}")
+            with relu.replay():
+                g_errs = grad_errs(g_got, grads_of(model, lambda: model.loss_fn(
+                    op, x_s, y_s, impl="torch")), f"reordered {layout} backward")
+            model.zero_grad(set_to_none=True)
+            grad_fields = {"layout": layout, "loss": float(g_got[0]),
+                           "launches_per_step": {k: n for k, n in g_counts.items() if n},
+                           "rel_err_vs_torch": g_errs, "relu_margin": relu.margin()}
+        launches[kname] = counts[kname]
+        errs[kname] = err
+        rows.append({"layout": layout, "plan": type(sp).__name__, **plan_work(sp),
+                     "make_operator_seconds": round(t_op, 2),
+                     "launches_per_forward": {k: n for k, n in counts.items() if n},
+                     "logits_rel_err_vs_torch": vs_plain,
+                     "logits_rel_err_vs_unshuffled": vs_unshuffled, "max_abs_err": err,
+                     "spmm_ms": round(ms, 4), "spmm_node_space_ms": round(node_ms, 4),
+                     "unshuffled_spmm_ms": unshuffled_spmm_ms[layout],
+                     "shuffled_no_reorder": {"spmm_ms": round(s_ms, 4), **s_work,
+                                             "make_operator_seconds": round(t_sop, 2),
+                                             "rel_err_vs_reordered": s_err},
+                     "forward_ms": round(fwd_ms, 4)})
+        del op, sp
+    fields = dict(graph="ogbn-arxiv (synthetic, symmetrized, self-loops), node ids shuffled",
+                  n_nodes=cfg.n_nodes, nnz=a_hat.nnz, dims=GCN_DIMS, shuffle_seed=REORDER_SEED,
+                  method=REORDER_METHOD, native_reorder=native.available(),
+                  shuffle_seconds=round(t_shuffle, 2), reorder_seconds=round(t_reorder, 3),
+                  locality_stats_seconds=round(t_stats, 2), band_coverage=coverage,
+                  spmm_d=128, layouts=rows, backward=grad_fields,
+                  seconds=round(time.perf_counter() - t_phase, 1))
+    return fields, launches, errs
+
+
+def spgemm_merge_check(c_keys: torch.Tensor, c_vals: torch.Tensor, rows, cols,
+                       vals: torch.Tensor, n_cols: int, what: str) -> float:
+    """Merge COO values with duplicates (a padded or product-form result)
+    onto C's sorted pattern on the card and hold the merged values against
+    C's: |m - c| <= 1e-5 + 1e-4|c|. Entries outside C's pattern must be
+    exact zeros (the product form's pads). Returns max |m - c|."""
+    dev = c_vals.device
+    keys = (torch.from_numpy(rows).to(dev).long() * n_cols
+            + torch.from_numpy(cols).to(dev).long())
+    slot = torch.searchsorted(c_keys, keys).clamp_max(c_keys.shape[0] - 1)
+    hit = c_keys[slot] == keys
+    if (vals[~hit] != 0).any():
+        raise AssertionError(f"{what}: nonzero values outside C's pattern")
+    merged = torch.zeros_like(c_vals).index_add_(0, slot[hit], vals[hit])
+    return check_close(merged, c_vals, what)
+
+
+def spgemm_bound_ms(index_elems: int, value_elems: int, out_elems: int, peak_bw: float) -> float:
+    """Least time of a numeric phase (ms): its plan's int32 index arrays
+    and the two value tables read once, its float32 output written once,
+    over HBM bandwidth (its 2 flops a product are far below the fp32
+    peak's share)."""
+    return round(4 * (index_elems + value_elems + out_elems) / peak_bw * 1e3, 4)
+
+
+def spgemm_phase(csr: CSR, gen, peak_bw: float) -> dict:
+    """C = A @ A on arxiv's symmetrized adjacency (the 2-hop product):
+    the host product (native Gustavson) and each symbolic phase timed on
+    the host; the plain and product-form numeric phases on the card held
+    against the host C (the product form after merging its duplicates on
+    the card), their device times and 2 * products / s; torch.sparse.mm
+    of the two CSR tensors as the library yardstick (it merges, so its
+    output is C's); the padded form at arxiv when its plan fits
+    SPGEMM_PADDED_MAX_BYTES, else on a smaller seeded graph; the numeric
+    phases again with new values on the reused plans; and the
+    composition check on cora: an operator built from
+    spgemm_device(A_hat, A_hat), on SPGEMM_COMPOSE_LAYOUTS, against
+    A_hat @ (A_hat @ X)."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    a = CSR.from_arrays(csr.indptr, csr.cols, np.asarray(csr.vals, np.float32), csr.shape)
+    indptr = np.asarray(a.indptr, np.int64)
+    products = int((indptr[a.cols.astype(np.int64) + 1] - indptr[a.cols]).sum())
+    t0 = time.perf_counter()
+    host = spgemm(a, a)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = spgemm_symbolic(a, a)
+    t_sym = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pplan = spgemm_symbolic_products(a, a)
+    t_psym = time.perf_counter() - t0
+    if not (np.array_equal(plan.indptr, host.indptr) and np.array_equal(plan.cols, host.cols)):
+        raise AssertionError("spgemm_symbolic's pattern differs from the host product's")
+    if pplan.n_products != products or plan.a_pos.shape[0] != products:
+        raise AssertionError(f"products: plan {plan.a_pos.shape[0]}, product form "
+                             f"{pplan.n_products}, counted {products}")
+    n = a.shape[1]
+    c_rows = np.repeat(np.arange(a.shape[0], dtype=np.int64), np.diff(host.indptr))
+    c_keys = torch.from_numpy(c_rows * n + host.cols).to(dev)
+    c_vals = torch.from_numpy(host.vals).to(dev)
+    del c_rows
+    av = torch.from_numpy(np.asarray(a.vals)).to(dev)
+    placed = place_spgemm_plan(plan, dev)
+    pplaced = place_spgemm_plan(pplan, dev)
+
+    def plain():
+        return spgemm_numeric(placed.a_pos, placed.b_pos, placed.out_slot, av, av,
+                              placed.out_nnz)
+
+    def product_form():
+        return spgemm_numeric_products(pplaced, av, av)
+
+    forms = {}
+    with torch.inference_mode():
+        err = check_close(plain(), c_vals, "spgemm_numeric on arxiv")
+        ms = time_cuda(plain, iters=10)
+        forms["plain"] = {"ms": round(ms, 4), "gflops": round(2 * products / ms / 1e6, 3),
+                          "max_abs_err": err, "entries": placed.out_nnz,
+                          "bound_ms": spgemm_bound_ms(3 * products, 2 * a.nnz, placed.out_nnz,
+                                                      peak_bw)}
+        pv = product_form()
+        err = spgemm_merge_check(c_keys, c_vals, pplan.rows, pplan.cols, pv, n,
+                                 "spgemm_numeric_products on arxiv, merged")
+        ms = time_cuda(product_form, iters=10)
+        forms["products"] = {"ms": round(ms, 4), "gflops": round(2 * products / ms / 1e6, 3),
+                             "max_abs_err": err, "entries": pplan.n_out,
+                             "bound_ms": spgemm_bound_ms(
+                                 pplaced.a_perm.shape[0] + pplaced.ell_idx.shape[0]
+                                 + sum(int(br.shape[0]) for (*_, br) in pplaced.buckets),
+                                 2 * a.nnz, pplan.n_out, peak_bw)}
+        del pv
+        sa = torch_csr(a, dev)
+        lib = torch.sparse.mm(sa, sa)
+        # its columns need not be sorted within a row: compare by (row, col)
+        lib_rows = torch.repeat_interleave(torch.arange(a.shape[0], device=dev),
+                                           lib.crow_indices().diff())
+        lib_keys, order = torch.sort(lib_rows * n + lib.col_indices())
+        lib_ok = lib._nnz() == host.nnz and torch.equal(lib_keys, c_keys)
+        if not lib_ok:
+            raise AssertionError(f"torch.sparse.mm A @ A: {lib._nnz()} entries, C has "
+                                 f"{host.nnz}, or another pattern")
+        lib_err = check_close(lib.values()[order], c_vals, "torch.sparse.mm A @ A")
+        lib_ms = time_cuda(lambda: torch.sparse.mm(sa, sa), iters=5)
+        del lib, lib_rows, lib_keys, order
+    # the padded form: at arxiv when its index matrices fit, else on a
+    # smaller seeded graph
+    counts = np.bincount(plan.out_slot, minlength=plan.out_nnz)
+    width = np.where(counts > SPGEMM_PADDED_WIDTH, SPGEMM_PADDED_WIDTH,
+                     1 << np.ceil(np.log2(np.maximum(counts, 1))).astype(np.int64))
+    parts = np.where(counts > SPGEMM_PADDED_WIDTH, -(-counts // SPGEMM_PADDED_WIDTH), 1)
+    padded_bytes = int(2 * 4 * (width * parts).sum())
+    del counts, width, parts
+    if padded_bytes <= SPGEMM_PADDED_MAX_BYTES:
+        pa, pad_graph, pad_host = a, "ogbn-arxiv (the same A)", host
+    else:
+        rng = np.random.default_rng(SPGEMM_SMALL_SEED)
+        sn = SPGEMM_SMALL_N
+        key = np.unique(rng.integers(0, sn * sn, SPGEMM_SMALL_NNZ))
+        pa = CSR.from_coo(COO.from_arrays(key // sn, key % sn,
+                                          rng.random(key.shape[0]).astype(np.float32), (sn, sn)))
+        pad_graph = f"seeded random {sn} x {sn}, {pa.nnz} nnz"
+        pad_host = spgemm(pa, pa)
+    t0 = time.perf_counter()
+    dplan = spgemm_symbolic_padded(pa, pa, max_width=SPGEMM_PADDED_WIDTH)
+    t_dsym = time.perf_counter() - t0
+    dplaced = place_spgemm_plan(dplan, dev)
+    pav = torch.from_numpy(np.asarray(pa.vals)).to(dev)
+    pn = pa.shape[1]
+    prow = np.repeat(np.arange(pa.shape[0], dtype=np.int64), np.diff(pad_host.indptr))
+    p_keys = torch.from_numpy(prow * pn + pad_host.cols).to(dev)
+    p_vals = torch.from_numpy(pad_host.vals).to(dev)
+    p_products = int(dplan.n_products)
+
+    def padded():
+        return spgemm_numeric_padded(dplaced.buckets, pav, pav)
+
+    with torch.inference_mode():
+        err = spgemm_merge_check(p_keys, p_vals, dplan.rows, dplan.cols, padded(), pn,
+                                 "spgemm_numeric_padded, merged")
+        ms = time_cuda(padded, iters=10)
+    forms["padded"] = {"graph": pad_graph, "plan_bytes_estimate": padded_bytes,
+                       "max_width": SPGEMM_PADDED_WIDTH, "symbolic_seconds": round(t_dsym, 2),
+                       "ms": round(ms, 4), "gflops": round(2 * p_products / ms / 1e6, 3),
+                       "max_abs_err": err, "entries": dplan.out_nnz, "products": p_products,
+                       "bound_ms": spgemm_bound_ms(
+                           2 * sum(int(pa_.numel()) for (_, pa_, _) in dplaced.buckets),
+                           2 * pa.nnz, dplan.out_nnz, peak_bw)}
+    del dplaced, dplan, p_keys, p_vals
+    # new values on the reused plans (the training-loop case)
+    a2 = CSR(indptr=a.indptr, cols=a.cols, shape=a.shape,
+             vals=np.random.default_rng(SPGEMM_VALUES_SEED).random(a.nnz).astype(np.float32))
+    host2 = spgemm(a2, a2)
+    c2, plan2 = spgemm_device(a2, a2, plan=placed)
+    if plan2.a_pos is not placed.a_pos:
+        raise AssertionError("spgemm_device placed a plan it was given again")
+    reuse_err = check_close(torch.from_numpy(c2.vals), torch.from_numpy(host2.vals),
+                            "spgemm_device with new values on the reused plan")
+    av2 = torch.from_numpy(a2.vals).to(dev)
+    with torch.inference_mode():
+        reuse_perr = spgemm_merge_check(c_keys, torch.from_numpy(host2.vals).to(dev),
+                                        pplan.rows, pplan.cols,
+                                        spgemm_numeric_products(pplaced, av2, av2), n,
+                                        "spgemm_numeric_products with new values, merged")
+    del placed, pplaced, c_keys, c_vals, c2
+    # composition: an operator built from C = A_hat @ A_hat on the card
+    ccsr, _ = load_graph("cora", symmetrize=True)
+    ca = normalized_adjacency(ccsr)
+    cc, _ = spgemm_device(ca, ca)
+    aop = make_operator(ca)
+    xc = torch.randn((ca.shape[0], 64), generator=gen).to(dev)
+    compose = []
+    with torch.inference_mode():
+        want = spmm(aop, spmm(aop, xc))
+        for layout in SPGEMM_COMPOSE_LAYOUTS:
+            cop = make_operator(cc, layout=layout)
+            e = rel_err(spmm(cop, xc), want)
+            if e > MAIN_PATH_REL_TOL:
+                raise AssertionError(f"C = A_hat @ A_hat on {layout}: rel err {e}")
+            compose.append({"layout": layout, "plan": type(cop.binned).__name__,
+                            "rel_err_vs_two_spmms": e})
+    return dict(graph="ogbn-arxiv (synthetic, symmetrized, no self-loops)", n_nodes=n,
+                nnz=a.nnz, products=products, out_nnz=host.nnz,
+                native_host=native.available(), host_seconds=round(t_host, 3),
+                host_gflops=round(2 * products / t_host / 1e9, 3),
+                symbolic_seconds={"plain": round(t_sym, 2), "products": round(t_psym, 2),
+                                  "padded": forms["padded"]["symbolic_seconds"]},
+                tolerance="|c-h| <= 1e-5 + 1e-4|h| (padded and product forms merged)",
+                forms=forms,
+                torch_sparse_mm={"ms": round(lib_ms, 4),
+                                 "gflops": round(2 * products / lib_ms / 1e6, 3),
+                                 "max_abs_err": lib_err,
+                                 "note": "merges duplicates: its output is C's CSR"},
+                reused_plan={"values_seed": SPGEMM_VALUES_SEED, "spgemm_device_max_abs_err":
+                             reuse_err, "products_max_abs_err": reuse_perr},
+                composition={"graph": "cora (synthetic, symmetrized, self-loops)",
+                             "C_nnz": cc.nnz, "d": 64, "layouts": compose},
+                seconds=round(time.perf_counter() - t_phase, 1))
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
@@ -2676,6 +3052,7 @@ def main() -> int:
     #           version on small plans of every shape, GCN inference on arxiv,
     #           one products-small SpMM ------------------------------------------
     staged_launches, staged_figs = {}, {}
+    unshuffled_spmm_ms = {"panels": pspmm_rows[0]["ms"]}  # d = 128, for the reorder phase
     for engine in STAGED:
         kmod = STAGED[engine][0]
         kname = f"{engine}_spmm"
@@ -2702,6 +3079,7 @@ def main() -> int:
         max_err[kname] = max(max_err[kname], err)
         staged_launches[kname] = launches_e
         staged_figs[kname] = fig
+        unshuffled_spmm_ms[engine] = fields["spmm"][0]["ms"]
         emit(f"{engine}_main_path", **fields, tiered_forward_ms=round(fwd_ms, 4),
              panels_forward_ms=round(pfwd_ms, 4))
         emit(f"{engine}_kernel_times", graph="ogbn-arxiv", **fig)
@@ -2762,7 +3140,17 @@ def main() -> int:
     fields, sage_launches = sage_train(csr, cfg, x, y, gen)
     emit("sage_train", **fields)
 
-    # -- 20.-23. the attention path: the flash kernel against its plain
+    # -- 22.-23. the locality reorder: GCN inference on shuffled arxiv
+    #            through make_operator(reorder="match") on panels, fused and
+    #            ranges; SpGEMM: the arxiv 2-hop product, host and card --
+    fields, reorder_launches, errs = reorder_main_path(a_hat, cfg, x, y, model, logits,
+                                                       unshuffled_spmm_ms, gen)
+    for k, e in errs.items():
+        max_err[k] = max(max_err[k], e)
+    emit("reorder_main_path", **fields)
+    emit("spgemm", **spgemm_phase(csr, gen, peak_bw))
+
+    # -- 24.-27. the attention path: the flash kernel against its plain
     #            version, BERT-base inference with every block's attention
     #            run again through MultiheadAttention(flash=True), one
     #            block's gradients, the kernel at BERT-base's shape ---------
@@ -2780,7 +3168,7 @@ def main() -> int:
                                      max(r["max_abs_err"] for r in fa_rows
                                          if r["dtype"] == "float32"))
 
-    # -- 24.-30. the microbenchmarks: each tool's entry point at its
+    # -- 28.-34. the microbenchmarks: each tool's entry point at its
     #            default size, then its kernels against their plain
     #            versions -------------------------------------------------------
     micro = {}
@@ -2802,7 +3190,7 @@ def main() -> int:
                         else f"max|k-p| <= {MICROBENCH_NORM_TOL} max|p|"),
              rows=rows)
 
-    # -- 31. the kernels, 32. the card, 33. the result ------------------------
+    # -- 35. the kernels, 36. the card, 37. the result ------------------------
     # launches: one GCN forward (three SpMMs) on the kernel's engine, or
     # (expansion2) the two arxiv SpMMs of its entry point; the times and
     # the bound: all launches of one SpMM at d=128, launches_per_spmm of
@@ -2831,7 +3219,11 @@ def main() -> int:
              "sage_train_launches": sage_launches[TRAIN_KERNELS[k]][k],
              "train_launches_scope": f"one training step on ogbn-arxiv "
                                      f"(layout='{TRAIN_KERNELS[k]}'): GCN, GraphSAGE"}
-            if k in TRAIN_KERNELS else {})}
+            if k in TRAIN_KERNELS else {}),
+         **({"reorder_launches": reorder_launches[k],
+             "reorder_launches_scope": "one GCN forward on shuffled ogbn-arxiv through "
+                                       f"make_operator(reorder='{REORDER_METHOD}')"}
+            if k in reorder_launches else {})}
         for k in SOURCES if k not in MICROBENCH_MAIN and k != "flash_attention"]
     entries.append(
         {"name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],

@@ -3,8 +3,10 @@
 Compiled on first use with g++ -O3 -fopenmp into a cache directory keyed
 by the source hash; every entry point has a numpy fallback, so the package
 works without a toolchain. Only what the port's plan paths use is bound
-here: COO -> CSR, symmetrize + dedup, CSR transpose, and the panel
-plan's per-tile column sort (expansion_pass1).
+here: COO -> CSR, symmetrize + dedup, CSR transpose, the panel plan's
+per-tile column sort (expansion_pass1), the two-phase Gustavson SpGEMM
+(spgemm_count / spgemm_fill) and the multilevel heavy-edge-matching
+order of the locality reorder (hem_order).
 """
 
 from __future__ import annotations
@@ -90,6 +92,14 @@ def _lib() -> Optional[ctypes.CDLL]:
         lib.expansion_pass1.argtypes = [i64, i64, i64p, i32p, f32p, i64,
                                         i32p, i32p, f32p, i32p, i64p]
         lib.expansion_pass1.restype = ctypes.c_int
+        lib.spgemm_count.argtypes = [i64, i64, i64p, i32p, i64p, i32p, i64p]
+        lib.spgemm_count.restype = ctypes.c_int
+        lib.spgemm_fill.argtypes = [i64, i64, i64p, i32p, f32p, i64p, i32p,
+                                    f32p, i64p, i32p, f32p]
+        lib.spgemm_fill.restype = ctypes.c_int
+        lib.hem_order.argtypes = [i64, i64p, i32p, ctypes.c_void_p, i64,
+                                  i64, i64p]
+        lib.hem_order.restype = ctypes.c_int
         _LIB = lib
         return _LIB
 
@@ -181,6 +191,43 @@ def csr_transpose(
     return coo_to_csr(cols, rows, v, n_cols)
 
 
+def spgemm(
+    a_indptr: np.ndarray, a_cols: np.ndarray, a_vals: np.ndarray,
+    b_indptr: np.ndarray, b_cols: np.ndarray, b_vals: np.ndarray,
+    n_rows: int, n_cols_b: int,
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """C = A @ B through the native two-phase Gustavson kernel (a dense
+    accumulator per thread: count, then fill).
+
+    Returns (indptr int64, cols int32 sorted per row, vals f32), or None
+    when the native library is unavailable (ops/reference.py spgemm then
+    expands, sorts and reduces in numpy).
+    """
+    lib = _lib()
+    if lib is None:
+        return None
+    a_indptr = np.ascontiguousarray(a_indptr, np.int64)
+    a_cols = np.ascontiguousarray(a_cols, np.int32)
+    a_vals = np.ascontiguousarray(a_vals, np.float32)
+    b_indptr = np.ascontiguousarray(b_indptr, np.int64)
+    b_cols = np.ascontiguousarray(b_cols, np.int32)
+    b_vals = np.ascontiguousarray(b_vals, np.float32)
+    counts = np.zeros(n_rows, dtype=np.int64)
+    if lib.spgemm_count(n_rows, n_cols_b, a_indptr, a_cols,
+                        b_indptr, b_cols, counts) != 0:
+        return None
+    indptr = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    nnz = int(indptr[-1])
+    out_cols = np.empty(nnz, dtype=np.int32)
+    out_vals = np.empty(nnz, dtype=np.float32)
+    if lib.spgemm_fill(n_rows, n_cols_b, a_indptr, a_cols, a_vals,
+                       b_indptr, b_cols, b_vals, indptr,
+                       out_cols, out_vals) != 0:
+        return None
+    return indptr, out_cols, out_vals
+
+
 def expansion_pass1(indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
                     R: int):
     """Per-tile column-sorted lanes + unique columns (the panel plan's
@@ -206,3 +253,26 @@ def expansion_pass1(indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
     if rc != 0:
         return None
     return lane_inv, lane_row, lane_val, uniq_cols, uniq_ptr
+
+
+def hem_order(indptr: np.ndarray, cols: np.ndarray,
+              vals: Optional[np.ndarray], coarse_n: int,
+              max_levels: int = 48) -> Optional[np.ndarray]:
+    """Multilevel heavy-edge-matching permutation (sparse/reorder.py
+    matching_order, native path). Returns old_from_new (n,) int64, or
+    None when the native library is unavailable."""
+    lib = _lib()
+    if lib is None:
+        return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int32)
+    n = indptr.shape[0] - 1
+    out = np.empty(n, dtype=np.int64)
+    vp = (None if vals is None
+          else np.ascontiguousarray(vals, dtype=np.float32)
+          .ctypes.data_as(ctypes.c_void_p))
+    rc = lib.hem_order(n, indptr, cols, vp, int(coarse_n),
+                       int(max_levels), out)
+    if rc != 0:
+        return None
+    return out

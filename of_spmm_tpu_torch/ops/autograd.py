@@ -20,6 +20,11 @@ Autograd follows the JAX package's pairing:
   forward kernel's own. The plan arrays get no gradient; edge-weight
   training goes through ``sddmm`` / ``spmm_coo`` on the operator's COO
   pattern instead.
+
+SpGEMM (C = A @ B) is two-phase: ``spgemm_symbolic`` (and its padded and
+product forms) fixes C's pattern on the host; ``spgemm_numeric`` (and its
+forms) computes the values on the device in differentiable PyTorch ops;
+``spgemm_device`` runs both.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from of_spmm_tpu_torch.sparse.formats import COO, CSR
 from of_spmm_tpu_torch.sparse.fused import FusedPlan, build_fused_plan
 from of_spmm_tpu_torch.sparse.panels import PanelPlan, attach_windows, build_panels_plan, ensure_masks
 from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
+from of_spmm_tpu_torch.sparse.reorder import reorder_locality
 from of_spmm_tpu_torch.sparse.tiled import DEFAULT_TIER_SIZE, TieredEll, bin_rows_tiered
 from of_spmm_tpu_torch.utils.config import FLAGS
 from of_spmm_tpu_torch.utils.device import place_arrays, resolve_device
@@ -211,18 +217,22 @@ def make_operator(
     (tiered iff n_cols > tier_size, as in the JAX package). Engine layouts
     alias the transpose plan for symmetric matrices.
     ``device=None`` means the card, and raises when there is none.
-    ``reorder`` (the JAX package's locality relabeling) is not ported yet.
+    ``reorder`` ("match", "lp", "bfs", "identity"; True means "match"):
+    on the panels, fused and ranges layouts, plan the locality-relabeled
+    P A P^T (sparse/reorder.py) and carry the permutation on the operator
+    (``old_from_new`` / ``new_from_old``), so ``spmm`` and the models stay
+    in node space. Other layouts raise ``ValueError`` (the JAX package
+    ignores ``reorder`` there).
     ``keep_coo=False`` keeps empty COO arrays (spmm-only use: the edge-list
     ops then raise).
     """
     device = resolve_device(device)
-    if reorder:
-        raise NotImplementedError(
-            "make_operator(reorder=...) is not ported yet: ROADMAP.md Queue 1 item 7 "
-            "(locality reorder)")
     if layout not in ("auto", "binned", "tiered", *_ENGINES):
         raise ValueError(f"layout must be auto|binned|tiered|{'|'.join(_ENGINES)}, "
                          f"got {layout!r}")
+    if reorder and layout not in _REORDER_LAYOUTS:
+        raise ValueError(f"reorder={reorder!r} applies to layout "
+                         f"{'|'.join(_REORDER_LAYOUTS)}, got layout={layout!r}")
     csr = CSR.from_coo(a) if isinstance(a, COO) else a
     coo = csr.to_coo()
     if not keep_coo:
@@ -231,13 +241,19 @@ def make_operator(
     pattern = dict(coo_rows=coo.rows, coo_cols=coo.cols, coo_vals=coo.vals, nnz=csr.nnz)
     if layout in _ENGINES:
         build = _ENGINES[layout]
-        plan = build(csr)
-        if csr.shape[0] == csr.shape[1] and _is_symmetric(csr):
+        pcsr, ofn, nfo = csr, None, None
+        if reorder:
+            # the plans live in cluster-contiguous internal ids; the
+            # operator maps node-space tensors at its boundary
+            pcsr, ofn, nfo = reorder_locality(csr, method=reorder)
+        plan = build(pcsr)
+        if pcsr.shape[0] == pcsr.shape[1] and _is_symmetric(pcsr):
             plan_t = plan
         else:
-            plan_t = build(csr.transpose())
+            plan_t = build(pcsr.transpose())
         return place_operator(SpmmOperator(binned=plan, binned_t=plan_t, shape=csr.shape,
-                                           **pattern), device)
+                                           old_from_new=ofn, new_from_old=nfo, **pattern),
+                              device)
     max_width = int(FLAGS.get("OFS_MAX_ELL_WIDTH"))
     ts = tier_size or DEFAULT_TIER_SIZE
     if layout == "auto":
@@ -287,6 +303,8 @@ def _build_panels(csr: CSR) -> PanelPlan:
 # layouts whose plan is the engine: the builder of each
 _ENGINES = {"panels": _build_panels, "fused": build_fused_plan, "ranges": build_ranges_plan,
             "expansion": build_expansion_plan}
+# layouts that take make_operator(reorder=...)
+_REORDER_LAYOUTS = ("panels", "fused", "ranges")
 
 
 def place_operator(op: SpmmOperator, device) -> SpmmOperator:
@@ -453,3 +471,382 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor, num_segment
     ex = torch.exp(scores - ref.gather(seg_max, ids))
     denom = segment_sum(ex, ids, num_segments)
     return ex / (gather(denom, ids) + 1e-16)
+
+
+# ---------------------------------------------------------------------------
+# SpGEMM: the symbolic phase on the host, the numeric phase on the device.
+# C's pattern is fixed before any value is computed; the numeric phase is
+# then gathers, a multiply and a sum over fixed slots, in differentiable
+# PyTorch ops (as the JAX package's are XLA ops).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SpgemmPlan:
+    """Symbolic phase of C = A @ B: C's pattern and, per scalar product
+    a_ik * b_kj, the positions of its operands and its output slot.
+
+    ``a_pos`` / ``b_pos`` / ``out_slot`` are numpy int32 from
+    ``spgemm_symbolic`` and tensors after ``place_spgemm_plan``; C's
+    pattern (``indptr``, ``cols``) stays on the host."""
+
+    a_pos: Any             # (P,) int32 index into A.vals
+    b_pos: Any             # (P,) int32 index into B.vals
+    out_slot: Any          # (P,) int32 index into C.vals (row-major)
+    indptr: np.ndarray     # (n+1,) C row pointers
+    cols: np.ndarray       # (out_nnz,) C column indices
+    shape: Tuple[int, int]
+    out_nnz: int
+
+
+def spgemm_symbolic(a: CSR, b: CSR) -> SpgemmPlan:
+    """Expand the product structure and fix C's pattern (host, numpy)."""
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"spgemm shape mismatch: {a.shape} @ {b.shape}")
+    a_indptr = np.asarray(a.indptr).astype(np.int64)
+    a_cols = np.asarray(a.cols).astype(np.int64)
+    b_indptr = np.asarray(b.indptr).astype(np.int64)
+    b_cols = np.asarray(b.cols).astype(np.int64)
+
+    a_rows = np.repeat(np.arange(a.shape[0], dtype=np.int64), np.diff(a_indptr))
+    exp_counts = (b_indptr[a_cols + 1] - b_indptr[a_cols]).astype(np.int64)
+    total = int(exp_counts.sum())
+    if total == 0:
+        return SpgemmPlan(
+            a_pos=np.zeros(0, np.int32), b_pos=np.zeros(0, np.int32),
+            out_slot=np.zeros(0, np.int32), indptr=np.zeros(a.shape[0] + 1, np.int64),
+            cols=np.zeros(0, np.int32), shape=(a.shape[0], b.shape[1]), out_nnz=0)
+    e_ids = np.repeat(np.arange(a_cols.shape[0], dtype=np.int64), exp_counts)
+    cum = np.zeros(a_cols.shape[0] + 1, dtype=np.int64)
+    np.cumsum(exp_counts, out=cum[1:])
+    intra = np.arange(total, dtype=np.int64) - np.repeat(cum[:-1], exp_counts)
+    b_pos = b_indptr[a_cols[e_ids]] + intra
+    out_rows = a_rows[e_ids]
+    out_cols = b_cols[b_pos]
+
+    key = out_rows * b.shape[1] + out_cols
+    order = np.argsort(key, kind="stable")
+    key_s = key[order]
+    boundary = np.empty(total, dtype=bool)
+    boundary[0] = True
+    boundary[1:] = key_s[1:] != key_s[:-1]
+    slot_sorted = np.cumsum(boundary) - 1
+    out_nnz = int(slot_sorted[-1]) + 1
+    out_slot = np.empty(total, np.int64)
+    out_slot[order] = slot_sorted
+
+    red_rows = out_rows[order][boundary]
+    red_cols = out_cols[order][boundary]
+    counts = np.bincount(red_rows, minlength=a.shape[0])
+    indptr = np.zeros(a.shape[0] + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return SpgemmPlan(
+        a_pos=e_ids.astype(np.int32), b_pos=b_pos.astype(np.int32),
+        out_slot=out_slot.astype(np.int32), indptr=indptr, cols=red_cols.astype(np.int32),
+        shape=(a.shape[0], b.shape[1]), out_nnz=out_nnz)
+
+
+def _plan_index(idx, vals: torch.Tensor) -> torch.Tensor:
+    """A plan's index array as a tensor beside ``vals``; a numpy array is
+    taken as a CPU tensor, and a plan on another device raises."""
+    t = torch.as_tensor(idx)
+    if t.device != vals.device:
+        raise ValueError(f"the SpGEMM plan is on {t.device} and the values on {vals.device}: "
+                         "place the plan with place_spgemm_plan")
+    return t
+
+
+def _no_products(a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
+    """The empty result of a product without terms, still a function of
+    both value arrays (their gradients are zeros, not missing)."""
+    return a_vals[:0] * b_vals[:0].sum()
+
+
+def spgemm_numeric(a_pos, b_pos, out_slot, a_vals: torch.Tensor, b_vals: torch.Tensor,
+                   out_nnz: int) -> torch.Tensor:
+    """Numeric phase over a SpgemmPlan: gather both operand values,
+    multiply, and sum into C's fixed slots (``index_add``). Differentiable
+    in both value arrays."""
+    prod = (a_vals.index_select(0, _plan_index(a_pos, a_vals))
+            * b_vals.index_select(0, _plan_index(b_pos, b_vals)))
+    out = torch.zeros(int(out_nnz), dtype=prod.dtype, device=prod.device)
+    return out.index_add(0, _plan_index(out_slot, prod), prod)
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedSpgemmPlan:
+    """Bucket-padded numeric plan: each output slot's products laid out as
+    one row of a (n_b, w) index matrix of its width bucket, so the device
+    phase is gathers from the two value tables and one sum along the
+    padded width, with no scatter. Pads point at a zero appended to each
+    value table.
+
+    C's pattern is COO in bucket-major order (``rows`` / ``cols``, host);
+    a slot wider than ``max_width`` is split into several rows with the
+    same (row, col), which a consumer sums."""
+
+    buckets: Tuple         # ((w, pa (n_b, w) int32, pb (n_b, w) int32), ...)
+    rows: np.ndarray       # (out_nnz,) bucket-major COO rows
+    cols: np.ndarray       # (out_nnz,) bucket-major COO cols
+    shape: Tuple[int, int]
+    out_nnz: int
+    n_products: int
+
+
+def spgemm_symbolic_padded(a: CSR, b: CSR, max_width: int = 512) -> PaddedSpgemmPlan:
+    """Bucket-padded symbolic phase on spgemm_symbolic's expansion.
+
+    Slots are bucketed by the next power of two of their product count;
+    slots wider than ``max_width`` (a power of two) are split into
+    max_width-wide partial rows."""
+    if max_width < 1 or max_width & (max_width - 1):
+        # the doubling ladder ends at the largest power of two <= max_width:
+        # any other cap would leave some slots in no bucket
+        raise ValueError(f"max_width must be a power of two, got {max_width}")
+    base = spgemm_symbolic(a, b)
+    P = int(base.a_pos.shape[0])
+    slot = np.asarray(base.out_slot, np.int64)
+    order = np.argsort(slot, kind="stable")
+    pa_s = np.asarray(base.a_pos, np.int64)[order]
+    pb_s = np.asarray(base.b_pos, np.int64)[order]
+    slot_s = slot[order]
+    counts = np.bincount(slot_s, minlength=base.out_nnz)
+    starts = np.zeros(base.out_nnz + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    rows_of_slot = np.repeat(np.arange(base.shape[0], dtype=np.int64), np.diff(base.indptr))
+    pad_a = int(np.asarray(a.vals).shape[0])  # the appended zero's position
+    pad_b = int(np.asarray(b.vals).shape[0])
+    buckets = []
+    all_rows = []
+    all_cols = []
+    w = 1
+    while w <= max_width:
+        sel = np.nonzero((counts <= w) & (counts > w // 2))[0]
+        if sel.shape[0]:
+            idx = starts[sel][:, None] + np.arange(w)[None, :]
+            valid = np.arange(w)[None, :] < counts[sel][:, None]
+            pa = np.where(valid, pa_s[np.minimum(idx, P - 1)], pad_a)
+            pb = np.where(valid, pb_s[np.minimum(idx, P - 1)], pad_b)
+            buckets.append((w, pa.astype(np.int32), pb.astype(np.int32)))
+            all_rows.append(rows_of_slot[sel])
+            all_cols.append(np.asarray(base.cols, np.int64)[sel])
+        w *= 2
+    # giant slots (> max_width): split into max_width-wide partial rows
+    big = np.nonzero(counts > max_width)[0]
+    if big.shape[0]:
+        pa_rows, pb_rows, r_rows, c_rows = [], [], [], []
+        for s in big:
+            cnt = int(counts[s])
+            n_part = -(-cnt // max_width)
+            idx = (starts[s] + np.arange(n_part * max_width)).reshape(n_part, max_width)
+            valid = idx < starts[s] + cnt
+            pa_rows.append(np.where(valid, pa_s[np.minimum(idx, P - 1)], pad_a))
+            pb_rows.append(np.where(valid, pb_s[np.minimum(idx, P - 1)], pad_b))
+            r_rows.append(np.full(n_part, rows_of_slot[s]))
+            c_rows.append(np.full(n_part, base.cols[s]))
+        buckets.append((max_width, np.concatenate(pa_rows).astype(np.int32),
+                        np.concatenate(pb_rows).astype(np.int32)))
+        all_rows.append(np.concatenate(r_rows))
+        all_cols.append(np.concatenate(c_rows))
+    rows = (np.concatenate(all_rows) if all_rows else np.zeros(0, np.int64)).astype(np.int32)
+    cols = (np.concatenate(all_cols) if all_cols else np.zeros(0, np.int64)).astype(np.int32)
+    return PaddedSpgemmPlan(buckets=tuple(buckets), rows=rows, cols=cols, shape=base.shape,
+                            out_nnz=int(rows.shape[0]), n_products=P)
+
+
+def spgemm_numeric_padded(buckets, a_vals: torch.Tensor, b_vals: torch.Tensor) -> torch.Tensor:
+    """Numeric phase over a PaddedSpgemmPlan's buckets: per bucket, gather
+    both operands from the value tables (a zero appended to each), multiply
+    and sum along the padded width. Differentiable in both value arrays."""
+    av = torch.cat([a_vals, a_vals.new_zeros(1)])
+    bv = torch.cat([b_vals, b_vals.new_zeros(1)])
+    parts = []
+    for (_w, pa, pb) in buckets:
+        pa, pb = _plan_index(pa, av), _plan_index(pb, bv)
+        prod = (av.index_select(0, pa.reshape(-1)) * bv.index_select(0, pb.reshape(-1)))
+        parts.append(prod.reshape(pa.shape).sum(dim=1))
+    if not parts:  # A @ B with no products
+        return _no_products(a_vals, b_vals)
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductSpgemmPlan:
+    """Product-form numeric plan: C in product order, as COO with
+    duplicates (the merge moves to the consumer; the SpMM plans accept
+    duplicate entries).
+
+      per B-width bucket c:  prod_c = a_stream[lo:hi, None] * b_ell_c[brow_ids]
+
+    The A side is one nnz_A-element permutation gather and contiguous
+    slices; the B side is row gathers from B's ELL-padded value table.
+    Pad products are explicit zeros at (the edge's row, a valid column).
+    """
+
+    a_perm: Any                    # (nnz_A + split repeats,) int32: A edges in stream order
+    ell_idx: Any                   # (ell elements,) int32 into b_vals (+ the pad)
+    ell_ptr: Tuple[int, ...]       # each bucket's offset into the ell table
+    buckets: Tuple                 # ((W, e_lo, e_hi, brow_ids), ...)
+    rows: np.ndarray               # (n_out,) int32 COO rows (with duplicates)
+    cols: np.ndarray               # (n_out,) int32 COO cols (with duplicates)
+    shape: Tuple[int, int]
+    n_products: int                # true (unpadded) product count
+    n_out: int                     # emitted entries, pad zeros included
+
+
+def spgemm_symbolic_products(a: CSR, b: CSR, ladder=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+                             ) -> ProductSpgemmPlan:
+    """Host symbolic phase of the product form: B's rows bucketed by the
+    next ladder width, each A edge (i, k) in the bucket of B's row k; rows
+    wider than the ladder's top are split into top-wide slabs, the A edge
+    repeated once per slab."""
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"spgemm shape mismatch: {a.shape} @ {b.shape}")
+    a_indptr = np.asarray(a.indptr, np.int64)
+    a_cols = np.asarray(a.cols, np.int64)
+    b_indptr = np.asarray(b.indptr, np.int64)
+    b_cols = np.asarray(b.cols, np.int64)
+    nnz_b = b_cols.shape[0]
+    m = b.shape[0]
+    a_rows = np.repeat(np.arange(a.shape[0], dtype=np.int64), np.diff(a_indptr))
+    b_deg = np.diff(b_indptr)
+    ladder = tuple(sorted(set(int(w) for w in ladder)))
+    wmax = ladder[-1]
+    # width class per B row (rows of degree 0 make no products); rows
+    # wider than wmax get class len(ladder)
+    wclass = np.searchsorted(ladder, np.minimum(np.maximum(b_deg, 1), wmax))
+    wclass[b_deg > wmax] = len(ladder)
+    a_perm_parts, bucket_descs = [], []
+    ell_parts, ell_ptr = [], [0]
+    rows_parts, cols_parts = [], []
+    e_lo = 0
+    n_products = 0
+    for c, W in enumerate(ladder):
+        rows_c = np.nonzero((wclass == c) & (b_deg > 0))[0]
+        edges_c = np.nonzero((wclass[a_cols] == c) & (b_deg[a_cols] > 0))[0]
+        if rows_c.shape[0] == 0 or edges_c.shape[0] == 0:
+            continue  # rows no edge references need no table
+        # this bucket's ELL slab: (len(rows_c), W) positions into b_vals,
+        # padded with nnz_b (the appended zero)
+        base = b_indptr[rows_c][:, None] + np.arange(W)[None, :]
+        valid = np.arange(W)[None, :] < b_deg[rows_c][:, None]
+        ell = np.where(valid, np.minimum(base, nnz_b - 1), nnz_b)
+        ell_parts.append(ell.astype(np.int32).ravel())
+        # each B row's rank within the slab
+        rank = np.full(m, -1, np.int64)
+        rank[rows_c] = np.arange(rows_c.shape[0])
+        a_perm_parts.append(edges_c.astype(np.int32))
+        brow_ids = rank[a_cols[edges_c]].astype(np.int32)
+        e_hi = e_lo + edges_c.shape[0]
+        bucket_descs.append((W, e_lo, e_hi, brow_ids))
+        # output coordinates in product order; pads at (the edge's row,
+        # a valid column) with an explicit zero value
+        pos = ell[brow_ids].reshape(-1)
+        oc = b_cols[np.minimum(pos, max(nnz_b - 1, 0))]
+        orow = np.repeat(a_rows[edges_c], W)
+        rows_parts.append(orow.astype(np.int32))
+        cols_parts.append(oc.astype(np.int32))
+        n_products += int(b_deg[a_cols[edges_c]].sum())
+        e_lo = e_hi
+        ell_ptr.append(ell_ptr[-1] + rows_c.shape[0] * W)
+    # the big class: B rows wider than wmax, split into wmax-wide parts
+    big_rows = np.nonzero(b_deg > wmax)[0]
+    edges_big = np.nonzero(b_deg[a_cols] > wmax)[0]
+    if big_rows.shape[0] and edges_big.shape[0]:
+        W = wmax
+        n_part = (-(-b_deg[big_rows] // W)).astype(np.int64)
+        tot_parts = int(n_part.sum())
+        part_owner = np.repeat(big_rows, n_part)
+        part_first = np.cumsum(n_part) - n_part
+        within = np.arange(tot_parts, dtype=np.int64) - np.repeat(part_first, n_part)
+        off = within[:, None] * W + np.arange(W)[None, :]
+        base = b_indptr[part_owner][:, None] + off
+        valid = off < b_deg[part_owner][:, None]
+        ell = np.where(valid, np.minimum(base, nnz_b - 1), nnz_b)
+        ell_parts.append(ell.astype(np.int32).ravel())
+        part_base = np.full(m, -1, np.int64)
+        part_base[big_rows] = part_first
+        n_part_of = np.zeros(m, np.int64)
+        n_part_of[big_rows] = n_part
+        rep = n_part_of[a_cols[edges_big]]  # parts per edge
+        a_perm_big = np.repeat(edges_big, rep)
+        e_first = np.cumsum(rep) - rep
+        within_e = np.arange(int(rep.sum()), dtype=np.int64) - np.repeat(e_first, rep)
+        brow_ids = (np.repeat(part_base[a_cols[edges_big]], rep) + within_e).astype(np.int32)
+        a_perm_parts.append(a_perm_big.astype(np.int32))
+        e_hi = e_lo + a_perm_big.shape[0]
+        bucket_descs.append((W, e_lo, e_hi, brow_ids))
+        pos = ell[brow_ids].reshape(-1)
+        oc = b_cols[np.minimum(pos, max(nnz_b - 1, 0))]
+        orow = np.repeat(a_rows[a_perm_big], W)
+        rows_parts.append(orow.astype(np.int32))
+        cols_parts.append(oc.astype(np.int32))
+        n_products += int(b_deg[a_cols[edges_big]].sum())
+        e_lo = e_hi
+        ell_ptr.append(ell_ptr[-1] + tot_parts * W)
+    a_perm = np.concatenate(a_perm_parts) if a_perm_parts else np.zeros(0, np.int32)
+    return ProductSpgemmPlan(
+        a_perm=a_perm,
+        ell_idx=np.concatenate(ell_parts) if ell_parts else np.zeros(0, np.int32),
+        ell_ptr=tuple(ell_ptr),
+        buckets=tuple(bucket_descs),
+        rows=np.concatenate(rows_parts) if rows_parts else np.zeros(0, np.int32),
+        cols=np.concatenate(cols_parts) if cols_parts else np.zeros(0, np.int32),
+        shape=(a.shape[0], b.shape[1]),
+        n_products=int(n_products),
+        n_out=int(sum((hi - lo) * W for (W, lo, hi, _) in bucket_descs)),
+    )
+
+
+def spgemm_numeric_products(plan: ProductSpgemmPlan, a_vals: torch.Tensor,
+                            b_vals: torch.Tensor) -> torch.Tensor:
+    """Numeric phase in product order: values aligned with ``plan.rows`` /
+    ``plan.cols`` (duplicates unmerged, pads exact zeros). Differentiable
+    in both value arrays."""
+    bv = torch.cat([b_vals, b_vals.new_zeros(1)])
+    b_ell_flat = bv.index_select(0, _plan_index(plan.ell_idx, bv))
+    a_stream = a_vals.index_select(0, _plan_index(plan.a_perm, a_vals))
+    outs = []
+    for c, (W, lo, hi, brows) in enumerate(plan.buckets):
+        slab = b_ell_flat[plan.ell_ptr[c]:plan.ell_ptr[c + 1]].reshape(-1, W)
+        prod = a_stream[lo:hi, None] * slab.index_select(0, _plan_index(brows, slab))
+        outs.append(prod.reshape(-1))
+    if not outs:
+        return _no_products(a_vals, b_vals)
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+_SPGEMM_HOST_FIELDS = ("indptr", "rows", "cols")  # C's pattern: host data
+
+
+def place_spgemm_plan(plan, device):
+    """``plan`` (any of the three forms) with its index arrays as tensors
+    on ``device``; C's pattern stays on the host. A plan already on
+    ``device`` comes back without a copy."""
+    host = {f.name: getattr(plan, f.name) for f in dataclasses.fields(plan)
+            if f.name in _SPGEMM_HOST_FIELDS}
+    placed = place_arrays(dataclasses.replace(plan, **{k: None for k in host}),
+                          torch.device(device))
+    return dataclasses.replace(placed, **host)
+
+
+def spgemm_device(a: CSR, b: CSR, plan: Optional[SpgemmPlan] = None,
+                  device=None) -> Tuple[CSR, SpgemmPlan]:
+    """C = A @ B with the numeric phase on ``device`` (the card unless the
+    caller names another; without a card and without a device it raises).
+
+    Returns (C, plan), the plan placed on ``device``: pass it back to
+    recompute C's values for new A / B values on the same patterns.
+    C is host data, like every CSR; its values are copied back from the
+    device. For values that stay on the device (and carry gradients),
+    call ``spgemm_numeric`` on the placed plan."""
+    device = resolve_device(device)
+    if plan is None:
+        plan = spgemm_symbolic(a, b)
+    plan = place_spgemm_plan(plan, device)
+    vals = spgemm_numeric(plan.a_pos, plan.b_pos, plan.out_slot,
+                          torch.as_tensor(np.asarray(a.vals, np.float32), device=device),
+                          torch.as_tensor(np.asarray(b.vals, np.float32), device=device),
+                          plan.out_nnz)
+    c = CSR.from_arrays(plan.indptr.astype(np.int64), plan.cols, vals.cpu().numpy(), plan.shape)
+    return c, plan

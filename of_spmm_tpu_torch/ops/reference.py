@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from of_spmm_tpu_torch.sparse.binned import BinnedEll, BucketExtras, Finish
@@ -265,3 +266,76 @@ def spmm_tiered(tiled, x: torch.Tensor, buckets_fn: Optional[Callable] = None,
     if fin.extra_rids.shape[0]:
         out.index_add_(0, _t(fin.extra_rids, dev), g(cat, _t(fin.extra_idx, dev)))
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SpGEMM: the host expand / sort / reduce (a plan-time op).
+# ---------------------------------------------------------------------------
+
+
+def spgemm(a: CSR, b: CSR) -> CSR:
+    """C = A @ B for CSR operands, on the host (plan time).
+
+    C's nonzero count is unknown until it is computed, so this is host
+    work: graph preprocessing such as the 2-hop product A @ A. The native
+    Gustavson kernel (``native.spgemm``) first; without it, numpy expands
+    every (i, k, v_a) against B's row k, lexsorts the (i, j) products and
+    sums duplicate coordinates. C's indptr is cast to int32, as in the
+    JAX package.
+    """
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(f"spgemm shape mismatch: {a.shape} @ {b.shape}")
+    from of_spmm_tpu_torch import native
+
+    nat = native.spgemm(
+        np.asarray(a.indptr), np.asarray(a.cols), np.asarray(a.vals),
+        np.asarray(b.indptr), np.asarray(b.cols), np.asarray(b.vals),
+        a.shape[0], b.shape[1],
+    )
+    if nat is not None:
+        indptr, cols, vals = nat
+        return CSR.from_arrays(indptr.astype(np.int32), cols, vals,
+                               (a.shape[0], b.shape[1]))
+    a_indptr = np.asarray(a.indptr).astype(np.int64)
+    a_cols = np.asarray(a.cols)
+    a_vals = np.asarray(a.vals)
+    b_indptr = np.asarray(b.indptr).astype(np.int64)
+    b_cols = np.asarray(b.cols)
+    b_vals = np.asarray(b.vals)
+
+    a_rows = np.repeat(np.arange(a.shape[0], dtype=np.int64), np.diff(a_indptr))
+    # expansion size of each A nonzero: the nnz of B's row a_cols[e]
+    exp_counts = (b_indptr[a_cols + 1] - b_indptr[a_cols]).astype(np.int64)
+    total = int(exp_counts.sum())
+    if total == 0:
+        return CSR.from_arrays(np.zeros(a.shape[0] + 1, np.int32), np.zeros(0, np.int32),
+                               np.zeros(0, a_vals.dtype), (a.shape[0], b.shape[1]))
+    e_ids = np.repeat(np.arange(a_cols.shape[0], dtype=np.int64), exp_counts)
+    cum = np.zeros(a_cols.shape[0] + 1, dtype=np.int64)
+    np.cumsum(exp_counts, out=cum[1:])
+    intra = np.arange(total, dtype=np.int64) - np.repeat(cum[:-1], exp_counts)
+    b_pos = b_indptr[a_cols[e_ids]] + intra
+
+    out_rows = a_rows[e_ids]
+    out_cols = b_cols[b_pos].astype(np.int64)
+    out_vals = a_vals[e_ids] * b_vals[b_pos]
+
+    # sum duplicates: lexsort by (row, col), a segment where either changes
+    order = np.lexsort((out_cols, out_rows))
+    out_rows, out_cols, out_vals = out_rows[order], out_cols[order], out_vals[order]
+    key = out_rows * b.shape[1] + out_cols
+    boundary = np.empty(total, dtype=bool)
+    boundary[0] = True
+    boundary[1:] = key[1:] != key[:-1]
+    group = np.cumsum(boundary) - 1
+    n_out = int(group[-1]) + 1
+    red_vals = np.zeros(n_out, dtype=out_vals.dtype)
+    np.add.at(red_vals, group, out_vals)
+    red_rows = out_rows[boundary]
+    red_cols = out_cols[boundary]
+
+    counts = np.bincount(red_rows, minlength=a.shape[0])
+    indptr = np.zeros(a.shape[0] + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return CSR.from_arrays(indptr.astype(np.int32), red_cols.astype(np.int32), red_vals,
+                           (a.shape[0], b.shape[1]))

@@ -4,9 +4,10 @@ rules.
 Counterpart of the JAX package's ``of_spmm_tpu/ops/registry.py``, with
 the same op names, oracles and sharding rules. ``impls`` are keyed
 ``"torch"`` (plain PyTorch) and, where the port has a kernel,
-``"cuda"``. The sharding rules are data: nothing consults them until the
-distributed SpMM is ported. ``spgemm`` registers with the SpGEMM slice.
-Importing the module registers the built-in ops; it builds no kernel.
+``"cuda"``, and ``spgemm``'s one impl ``"host"`` (a plan-time op). The
+sharding rules are data: nothing consults them until the distributed
+SpMM is ported. Importing the module registers the built-in ops; it
+builds no kernel.
 
 Atoms of a rule: "S0"/"S1" (split on that tensor axis), "B" (replicated),
 "P" (partial sum: shards must be summed to be correct).
@@ -137,6 +138,12 @@ def _populate() -> None:
         "segment_softmax", oracle=ag.segment_softmax, impls={"torch": ag.segment_softmax},
         sharding_rules=(ShardingRule(("B", "B"), ("B",), "replicated edge scores"),),
         doc="softmax over each segment (per-destination attention weights)")
+    register_op(
+        "spgemm", oracle=ref.spgemm, impls={"host": ref.spgemm},
+        sharding_rules=(
+            ShardingRule(("A:S0", "B:B"), ("C:S0",), "row-split A -> row-split C"),
+        ),
+        doc="C = A @ B, CSR x CSR -> CSR (plan-time, host)")
 
 
 _populate()

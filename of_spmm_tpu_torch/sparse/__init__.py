@@ -17,6 +17,13 @@ from of_spmm_tpu_torch.sparse.panels import (
 )
 from of_spmm_tpu_torch.sparse.fused import FusedPlan, FusedSegment, build_fused_plan
 from of_spmm_tpu_torch.sparse.ranges import RangesPlan, RangesSegment, build_ranges_plan
+from of_spmm_tpu_torch.sparse.reorder import (
+    bfs_order,
+    label_prop_order,
+    locality_stats,
+    matching_order,
+    reorder_locality,
+)
 from of_spmm_tpu_torch.sparse.staged_windows import StagedWindows
 from of_spmm_tpu_torch.sparse.expansion import ExpansionGroup, ExpansionPlan, build_expansion_plan
 from of_spmm_tpu_torch.sparse.expansion2 import (
@@ -32,4 +39,6 @@ __all__ = ["COO", "CSR", "BinnedEll", "EllBucket", "bin_rows", "bin_rows_relabel
            "build_panels_plan", "ensure_masks", "FusedPlan", "FusedSegment",
            "build_fused_plan", "RangesPlan", "RangesSegment", "build_ranges_plan",
            "StagedWindows", "ExpansionGroup", "ExpansionPlan", "build_expansion_plan",
-           "Expansion2Group", "Expansion2Plan", "build_expansion2_plan", "factor_rank1"]
+           "Expansion2Group", "Expansion2Plan", "build_expansion2_plan", "factor_rank1",
+           "bfs_order", "label_prop_order", "matching_order", "reorder_locality",
+           "locality_stats"]

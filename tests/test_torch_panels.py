@@ -431,12 +431,17 @@ def test_gcn_logits_match_jax():
 
 
 def test_refusals():
-    """reorder= waits for its roadmap item; without a card and without a
-    device the operator raises; the wrapper takes only a placed plan and
-    float32 x of the right height."""
-    csr = CSR.from_dense(_graph(200, 200, 0.05, seed=1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        make_operator(csr, layout="panels", reorder="bfs", device="cpu")
+    """reorder= plans the relabeled matrix and maps x in and y out (its
+    refusal on the other layouts: tests/test_torch_reorder.py); without a
+    card and without a device the operator raises; the wrapper takes only
+    a placed plan and float32 x of the right height."""
+    dense = _graph(200, 200, 0.05, seed=1)
+    csr = CSR.from_dense(dense)
+    rop = make_operator(csr, layout="panels", reorder="bfs", device="cpu")
+    assert rop.relabeled and isinstance(rop.binned, tpanels.PanelPlan)
+    xr = torch.from_numpy(np.random.default_rng(2).standard_normal((200, 4)).astype(np.float32))
+    np.testing.assert_allclose(spmm(rop, xr).numpy(), dense @ xr.numpy(), rtol=RTOL,
+                               atol=1e-4)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_operator(csr, layout="panels")

@@ -296,7 +296,7 @@ def test_impl_selection_and_refusals():
     spmm(op, xg).sum().backward()  # the backward: A^T @ ones
     np.testing.assert_allclose(xg.grad.numpy(), np.broadcast_to(dense.sum(0)[:, None], (30, 4)),
                                rtol=RTOL, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="reorder"):  # only panels, fused and ranges reorder
         make_operator(CSR.from_dense(dense), reorder="bfs", device="cpu")
     with pytest.raises(ValueError, match="layout"):
         make_operator(CSR.from_dense(dense), layout="blocked", device="cpu")

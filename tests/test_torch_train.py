@@ -295,23 +295,28 @@ def test_example_refuses_amp():
 
 
 def test_registry_matches_jax():
-    """The same op names and sharding rules as the JAX registry (spgemm
-    registers with the SpGEMM slice), impls keyed "torch" / "cuda", and
+    """The same op names and sharding rules as the JAX registry, impls
+    keyed "torch" / "cuda" (spgemm: "host", as in the JAX registry), and
     each op's "torch" impl against its oracle."""
     from of_spmm_tpu.ops import registry as jreg
     from of_spmm_tpu_torch.ops import registry as reg
 
-    assert reg.all_ops() == [n for n in jreg.all_ops() if n != "spgemm"]
+    assert reg.all_ops() == jreg.all_ops()
     for name in reg.all_ops():
         op, jop = reg.lookup(name), jreg.lookup(name)
         assert [(r.ins, r.outs) for r in op.sharding_rules] == \
             [(r.ins, r.outs) for r in jop.sharding_rules]
+        if name == "spgemm":  # a host op: "auto" finds no impl, as in the JAX registry
+            assert set(op.impls) == set(jop.impls) == {"host"}
+            with pytest.raises(KeyError, match="no impl"):
+                op.impl("auto")
+            continue
         assert set(op.impls) <= {"torch", "cuda"} and "torch" in op.impls
         assert op.impl("auto") is op.impls["torch"]  # no card here
     with pytest.raises(KeyError, match="no impl"):
         reg.lookup("gather").impl("cuda")
     with pytest.raises(KeyError, match="unknown op"):
-        reg.lookup("spgemm")
+        reg.lookup("spgemm_device")
     params = torch.arange(12.0).reshape(4, 3)
     idx = torch.tensor([2, -1, 0, 4])
     assert torch.equal(reg.lookup("gather").impl()(params, idx),
