@@ -36,6 +36,17 @@ against the host product, torch.sparse.mm beside them, the numeric
 again with new values on the reused plans, and an operator built from
 spgemm_device(A_hat, A_hat) on cora against two SpMMs.
 
+Then the distributed SpMM: arxiv row-partitioned into four shards on the
+one card (ShardMesh(["cuda:0"] * 4)) by four plans (padded; ragged,
+refined and 1,024 replicated hubs; ragged on the panel engine; split
+with hubs on the panel engine), each through dist_spmm forward and
+backward on bucket_spmm or panel_spmm against the plain version on the
+same plan and the single-operator SpMM, its launches held exactly;
+dist_gcn_apply on two of them against the single-operator logits; one
+make_dist_train_step step against the plain step; and the rank form over
+an NCCL group of world size 1 against the shard mesh (more ranks need
+more cards).
+
 Then the attention path: the flash-attention kernel against its plain
 version on small cases (float32, bfloat16, float16; no keys gives
 zeros), BERT-base inference
@@ -70,6 +81,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -78,7 +90,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from of_spmm_tpu_torch import native
+from of_spmm_tpu_torch import distributed, native
 from of_spmm_tpu_torch.data import load_graph, random_features
 from of_spmm_tpu_torch.examples.train_gcn import make_optimizer, train, train_step
 from of_spmm_tpu_torch.models import (
@@ -104,6 +116,9 @@ from of_spmm_tpu_torch.ops.cuda import proto_fused as kproto
 from of_spmm_tpu_torch.ops.cuda import ranges as rkernels
 from of_spmm_tpu_torch.ops.cuda import spmm as kernels
 from of_spmm_tpu_torch.ops.flash_attention import flash_attention
+from of_spmm_tpu_torch.parallel import (
+    RankGroup, ShardMesh, dist_spmm, dist_spmm_allgather, exchange, pad_x_for_plan,
+    partition_rows)
 from of_spmm_tpu_torch.sparse import staged_windows
 from of_spmm_tpu_torch.sparse.expansion import (
     ExpansionPlan, attach_stage_rows, build_expansion_plan, plan_memory_report)
@@ -123,6 +138,7 @@ from of_spmm_tpu_torch.tools import microbench_gather as tgather
 from of_spmm_tpu_torch.tools import microbench_gather2 as tgather2
 from of_spmm_tpu_torch.tools import microbench_mxu as tmxu
 from of_spmm_tpu_torch.tools import proto_fused as tproto
+from of_spmm_tpu_torch.train import dist_gcn_apply, make_dist_train_step
 from of_spmm_tpu_torch.utils.roofline import (
     AttentionTraffic, ExpansionTraffic, PanelTraffic, SpmmTraffic, StagedTraffic, detect_peak_bw,
     WARMUP_CALLS, detect_peak_fp32, detect_peak_tensor16, detect_peak_tf32, spmm_report, time_cuda,
@@ -206,6 +222,17 @@ GAT_HEADS, GAT_HIDDEN = 4, 8
 TRAIN_KERNELS = {"bucket_spmm": "tiered", "gather_rows": "tiered", "panel_spmm": "panels",
                  "fused_spmm": "fused", "ranges_spmm": "ranges", "expansion_spmm": "expansion"}
 PANEL_WIDTHS = (128, 256, 60, 7)  # the panel kernel: float4 and scalar paths
+# the distributed phase: S shards of arxiv on one card, the plans it drives
+# (explicit hubs: replicate_hubs="auto" picks none on arxiv), the width
+DIST_SHARDS, DIST_HUBS, DIST_D, DIST_ITERS = 4, 1024, 128, 10
+DIST_PLANS = (
+    ("P1", {}),
+    ("P2", dict(ragged=True, refine_slack=0.2, replicate_hubs=DIST_HUBS)),
+    ("P3", dict(ragged=True, local_engine="panels")),
+    ("P4", dict(ragged=True, split_boundary=True, replicate_hubs=DIST_HUBS,
+                local_engine="panels")),
+)
+DIST_GCN_PLANS = ("P1", "P3")  # dist_gcn_apply on these; the training step on P1
 # kBatch, kListCap, kChunk of csrc/panels.cu and csrc/staged_spmm.cuh
 PANEL_BATCH, PANEL_LIST, PANEL_CHUNK = 8, 4096, 8
 UNIT_CAPS = (2048, 4096, 8192, 16384, 65536)  # work-unit edge caps the panel phases time
@@ -2048,6 +2075,224 @@ def spgemm_phase(csr: CSR, gen, peak_bw: float) -> dict:
                 seconds=round(time.perf_counter() - t_phase, 1))
 
 
+def dist_kernel(impl: str) -> str:
+    """The kernel a dist_spmm impl launches on the card."""
+    return "panel_spmm" if impl == "panels" else "bucket_spmm"
+
+
+def counted(fn) -> tuple:
+    """fn()'s result and the kernel launches it made (counts reset first)."""
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in kernels.LAUNCHES.items() if n}
+
+
+def dist_plan_case(name: str, kw: dict, a_hat: CSR, mesh: ShardMesh, x: torch.Tensor,
+                   w: torch.Tensor, single_y: torch.Tensor, single_g: torch.Tensor) -> tuple:
+    """One partition of arxiv on the shard mesh: the forward through the
+    kernel against the plain version on the same plan and against the
+    single-operator SpMM, the gradient of sum(Y * W) likewise, the
+    launches of each held exactly, then the times. Returns (the row, the
+    plan, its launches)."""
+    S = DIST_SHARDS
+    t0 = time.perf_counter()
+    plan = partition_rows(a_hat, S, **kw)
+    t_plan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh.place(plan)
+    torch.cuda.synchronize()
+    t_place = time.perf_counter() - t0
+    impl = "panels" if kw.get("local_engine") == "panels" else "cuda"
+    plain = "panels_torch" if impl == "panels" else "torch"
+    kname = dist_kernel(impl)
+
+    def fwd_bwd(which):
+        xr = x.clone().requires_grad_()
+        y, fwd = counted(lambda: dist_spmm(plan, xr, mesh, impl=which))
+        (g,), bwd = counted(lambda: torch.autograd.grad(y, xr, w, retain_graph=True))
+        return xr, y, g, fwd, bwd
+
+    def rel(a, b):
+        return rel_err(a.detach(), b.detach())
+
+    xr, y, g, fwd, bwd = fwd_bwd(impl)
+    per_fwd = S * (2 if plan.split else 1)
+    if fwd != {kname: per_fwd} or bwd != {kname: S}:
+        raise AssertionError(f"dist {name}: launches forward {fwd}, backward {bwd}; expected "
+                             f"{kname} {per_fwd} and {S}")
+    _, y_plain, g_plain, _, _ = fwd_bwd(plain)
+    errs = {"forward_vs_plain": rel(y, y_plain), "forward_vs_single": rel(y, single_y),
+            "grad_vs_plain": rel(g, g_plain), "grad_vs_single": rel(g, single_g)}
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(g).all())
+    if not finite or y.shape != single_y.shape or max(errs.values()) > MAIN_PATH_REL_TOL:
+        raise AssertionError(f"dist {name}: {errs}, finite {finite}, shape {tuple(y.shape)}")
+    with torch.inference_mode():
+        ms = time_cuda(lambda: dist_spmm(plan, x, mesh, impl=impl), iters=DIST_ITERS)
+        wall = wall_ms(lambda: dist_spmm(plan, x, mesh, impl=impl), iters=DIST_ITERS)
+        plain_ms = time_cuda(lambda: dist_spmm(plan, x, mesh, impl=plain), iters=3)
+        ex_ms = time_cuda(lambda: exchange(plan, x, mesh), iters=DIST_ITERS)
+    bwd_ms = time_cuda(lambda: torch.autograd.grad(y, xr, w, retain_graph=True),
+                       iters=DIST_ITERS)
+    row = {"plan": name, "options": kw, "impl": impl, "kernel": kname,
+           "halo_size": plan.halo_size, "halo_rows_per_shard": plan.halo_rows_total,
+           "offset_widths": plan.offset_widths, "hubs": plan.n_hubs,
+           "rows_per_shard": plan.rows_per_shard, "cols_per_shard": plan.cols_per_shard,
+           "split": plan.split, "comm_stats_d128": plan.comm_stats(DIST_D),
+           "plan_seconds": round(t_plan, 3), "placement_seconds": round(t_place, 3),
+           "launches_forward": fwd, "launches_backward": bwd,
+           "rel_err": {k: float(f"{v:.3e}") for k, v in errs.items()},
+           "forward_ms": round(ms, 4), "forward_wall_ms": round(wall, 4),
+           "backward_ms": round(bwd_ms, 4), "exchange_ms": round(ex_ms, 4),
+           "plain_forward_ms": round(plain_ms, 4)}
+    if name == "P1":
+        with torch.inference_mode():
+            ya = dist_spmm_allgather(plan, x, mesh, impl=impl)
+            ag_err = rel_err(ya, single_y)
+            if ag_err > MAIN_PATH_REL_TOL:
+                raise AssertionError(f"dist_spmm_allgather on P1: rel err {ag_err}")
+            row["allgather_ms"] = round(time_cuda(
+                lambda: dist_spmm_allgather(plan, x, mesh, impl=impl), iters=DIST_ITERS), 4)
+            row["allgather_rel_err_vs_single"] = float(f"{ag_err:.3e}")
+    return row, plan, {"forward": fwd[kname], "backward": bwd[kname]}
+
+
+def dist_train_step(plan, mesh: ShardMesh, model: GCN, x: torch.Tensor,
+                    y: torch.Tensor) -> tuple:
+    """One make_dist_train_step step (SGD, lr TRAIN_LR) on ``plan`` through
+    the bucket kernel against the plain step from the same weights, with
+    the kernel step's ReLU branches replayed in the plain one: the loss,
+    every grad and every updated parameter within MAIN_PATH_REL_TOL. Then
+    the step's device and wall times and its peak memory. Returns (the
+    fields, the kernel step's launches)."""
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def fresh():
+        m = GCN(GCN_DIMS)
+        m.load_state_dict(state)
+        return m
+
+    def step_of(m, impl):
+        step = make_dist_train_step(m, plan, mesh, lr=TRAIN_LR, impl=impl)
+        return lambda: step(x, y)
+
+    mk, mp, mo = fresh(), fresh(), fresh()
+    relu, own = ReluMasks(), ReluMasks()
+    with relu.record():
+        loss_k, launches = counted(step_of(mk, "cuda"))
+    with relu.replay():
+        loss_p = step_of(mp, "torch")()
+    with own.record():
+        step_of(mo, "torch")()
+    errs = {"loss": rel_err(loss_k.reshape(1), loss_p.reshape(1))}
+    pk, pp = dict(mk.named_parameters()), dict(mp.named_parameters())
+    for n in pk:
+        errs[f"grad {n}"] = rel_err(pk[n].grad, pp[n].grad)
+        errs[f"param {n}"] = rel_err(pk[n].detach(), pp[n].detach())
+    finite = bool(torch.isfinite(loss_k)) and all(torch.isfinite(p).all() for p in pk.values())
+    # three forward SpMMs a shard, two backward (the first layer's input
+    # needs no grad)
+    want = {"bucket_spmm": 5 * DIST_SHARDS}
+    if not finite or max(errs.values()) > MAIN_PATH_REL_TOL or launches != want:
+        raise AssertionError(f"dist train step: {errs}, finite {finite}, launches {launches}, "
+                             f"expected {want}")
+    own_errs = {n: float(f"{rel_err(pk[n].grad, p.grad):.3e}")
+                for n, p in mo.named_parameters()}
+    step = step_of(mk, "cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return {"loss": float(loss_k), "lr": TRAIN_LR, "launches": launches,
+            "rel_err_vs_torch": {k: float(f"{v:.3e}") for k, v in errs.items()},
+            "grad_rel_err_vs_torch_own_relu": own_errs, "relu_flips": relu.flips(own),
+            "relu_margin": relu.margin(),
+            "step_ms": round(time_cuda(step, iters=DIST_ITERS), 4),
+            "step_wall_ms": round(wall_ms(step, iters=DIST_ITERS), 4),
+            "step_peak_mib": round(peak / 2**20, 1)}, launches
+
+
+def dist_rank_form(a_hat: CSR, x: torch.Tensor, w: torch.Tensor) -> dict:
+    """The rank form on the card: an NCCL group of world size 1 (a file://
+    store in a temporary directory) on partition_rows(a_hat, 1); its
+    forward and gradient against the shard-mesh form of the same plan."""
+    plan = partition_rows(a_hat, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(backend="nccl", init_method=f"file://{tmp}/store",
+                               world_size=1, rank=0)
+        try:
+            backend = torch.distributed.get_backend()
+            if backend != "nccl":
+                raise AssertionError(f"rank form: backend {backend}, expected nccl")
+            xb = pad_x_for_plan(plan, x).clone().requires_grad_()
+            yb, launches = counted(lambda: dist_spmm(plan, xb, RankGroup(), impl="cuda"))
+            (gb,) = torch.autograd.grad(yb, xb, w)
+        finally:
+            distributed.destroy()
+    xm = x.clone().requires_grad_()
+    ym = dist_spmm(plan, xm, ShardMesh(["cuda:0"]), impl="cuda")
+    (gm,) = torch.autograd.grad(ym, xm, w)
+    errs = {"forward": rel_err(yb[: x.shape[0]].detach(), ym.detach()),
+            "grad": rel_err(gb[: x.shape[0]], gm)}
+    if max(errs.values()) > MAIN_PATH_REL_TOL or launches != {"bucket_spmm": 1}:
+        raise AssertionError(f"rank form vs shard mesh: {errs}, launches {launches}")
+    return {"backend": backend, "world_size": 1, "plan": "partition_rows(a_hat, 1)",
+            "launches_forward": launches,
+            "rel_err_vs_shard_mesh": {k: float(f"{v:.3e}") for k, v in errs.items()},
+            "note": "a multi-rank NCCL run needs two or more cards: NCCL refuses two ranks on "
+                    "one device; the rank form's collectives across ranks are checked over "
+                    "gloo on the CPU (tests/test_torch_dist_rank.py)"}
+
+
+def dist_main_path(a_hat: CSR, cfg, op: SpmmOperator, x: torch.Tensor, y: torch.Tensor,
+                   model: GCN, logits: torch.Tensor, gen) -> tuple:
+    """The distributed SpMM on arxiv: DIST_SHARDS shards on one card
+    (ShardMesh(["cuda:0"] * S)) for each of DIST_PLANS (dist_plan_case),
+    dist_gcn_apply on DIST_GCN_PLANS against the single-operator logits,
+    one training step on P1, and the rank form over NCCL at world size 1.
+    Returns (the phase's fields, launches per kernel)."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    mesh = ShardMesh([dev] * DIST_SHARDS)
+    xd = torch.randn((cfg.n_nodes, DIST_D), generator=gen).to(dev)
+    w = torch.randn((cfg.n_nodes, DIST_D), generator=gen).to(dev)
+    with torch.inference_mode():
+        single_y, single_g = spmm(op, xd), spmm(op.T, w)
+        single_ms = time_cuda(lambda: spmm(op, xd), iters=DIST_ITERS)
+    rows, plans, launches = [], {}, {"bucket_spmm": {}, "panel_spmm": {}}
+    for name, kw in DIST_PLANS:
+        row, plans[name], counts = dist_plan_case(name, kw, a_hat, mesh, xd, w, single_y,
+                                                  single_g)
+        rows.append(row)
+        launches[row["kernel"]][name] = counts
+    gcn_rows = []
+    for name in DIST_GCN_PLANS:
+        impl = "panels" if name == "P3" else "auto"
+        with torch.inference_mode():
+            got, counts = counted(lambda: dist_gcn_apply(model, plans[name], x, mesh, impl=impl))
+            err = rel_err(got, logits)
+            kname = dist_kernel(impl)
+            if (err > MAIN_PATH_REL_TOL or got.shape != logits.shape
+                    or counts != {kname: 3 * DIST_SHARDS}):
+                raise AssertionError(f"dist_gcn_apply on {name}: rel err {err}, launches {counts}")
+            ms = time_cuda(lambda: dist_gcn_apply(model, plans[name], x, mesh, impl=impl),
+                           iters=DIST_ITERS)
+        launches[kname][f"gcn_{name}"] = counts[kname]
+        gcn_rows.append({"plan": name, "impl": impl, "launches": counts,
+                         "logits_rel_err_vs_single": float(f"{err:.3e}"),
+                         "forward_ms": round(ms, 4)})
+    train, counts = dist_train_step(plans["P1"], mesh, model, x, y)
+    launches["bucket_spmm"]["train_step_P1"] = counts["bucket_spmm"]
+    rank = dist_rank_form(a_hat, xd, w)
+    return dict(graph="ogbn-arxiv (synthetic, symmetrized, self-loops)", n_nodes=cfg.n_nodes,
+                nnz=a_hat.nnz, shards=DIST_SHARDS, mesh=f"ShardMesh(['cuda:0'] * {DIST_SHARDS})",
+                d=DIST_D, single_operator_spmm_ms=round(single_ms, 4), plans=rows,
+                gcn=gcn_rows, dims=GCN_DIMS, train_step_P1=train, rank_form=rank,
+                seconds=round(time.perf_counter() - t_phase, 2)), launches
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
@@ -3150,7 +3395,13 @@ def main() -> int:
     emit("reorder_main_path", **fields)
     emit("spgemm", **spgemm_phase(csr, gen, peak_bw))
 
-    # -- 24.-27. the attention path: the flash kernel against its plain
+    # -- 24. the distributed SpMM: arxiv in DIST_SHARDS shards on one card,
+    #        four partition plans, GCN inference and a training step on them,
+    #        and the rank form over NCCL at world size 1 --------------------
+    fields, dist_launches = dist_main_path(a_hat, cfg, op, x, y, model, logits, gen)
+    emit("dist_main_path", **fields)
+
+    # -- 25.-28. the attention path: the flash kernel against its plain
     #            version, BERT-base inference with every block's attention
     #            run again through MultiheadAttention(flash=True), one
     #            block's gradients, the kernel at BERT-base's shape ---------
@@ -3168,7 +3419,7 @@ def main() -> int:
                                      max(r["max_abs_err"] for r in fa_rows
                                          if r["dtype"] == "float32"))
 
-    # -- 28.-34. the microbenchmarks: each tool's entry point at its
+    # -- 29.-35. the microbenchmarks: each tool's entry point at its
     #            default size, then its kernels against their plain
     #            versions -------------------------------------------------------
     micro = {}
@@ -3190,7 +3441,7 @@ def main() -> int:
                         else f"max|k-p| <= {MICROBENCH_NORM_TOL} max|p|"),
              rows=rows)
 
-    # -- 35. the kernels, 36. the card, 37. the result ------------------------
+    # -- 36. the kernels, 37. the card, 38. the result ------------------------
     # launches: one GCN forward (three SpMMs) on the kernel's engine, or
     # (expansion2) the two arxiv SpMMs of its entry point; the times and
     # the bound: all launches of one SpMM at d=128, launches_per_spmm of
@@ -3223,7 +3474,12 @@ def main() -> int:
          **({"reorder_launches": reorder_launches[k],
              "reorder_launches_scope": "one GCN forward on shuffled ogbn-arxiv through "
                                        f"make_operator(reorder='{REORDER_METHOD}')"}
-            if k in reorder_launches else {})}
+            if k in reorder_launches else {}),
+         **({"dist_launches": dist_launches[k],
+             "dist_launches_scope": f"dist_spmm on ogbn-arxiv in {DIST_SHARDS} shards: per "
+                                    "plan one forward and one backward at d=128; gcn_<plan> "
+                                    "one dist_gcn_apply; train_step_P1 one training step"}
+            if k in dist_launches else {})}
         for k in SOURCES if k not in MICROBENCH_MAIN and k != "flash_attention"]
     entries.append(
         {"name": "flash_attention", "route": "cuda", "source": SOURCES["flash_attention"],

@@ -9,13 +9,16 @@ Ported so far: the differentiable SpMM on every layout of the JAX package
 (its backward the same engine on the transpose plan), the locality
 reorder (``make_operator(reorder=...)``), SpGEMM (host and device), the
 edge-list ops, GCN, GraphSAGE and GAT with full-batch training
-(``python -m of_spmm_tpu_torch.examples.train_gcn``), and the attention
+(``python -m of_spmm_tpu_torch.examples.train_gcn``), the row-partitioned
+SpMM and GCN step on a shard mesh or over ``torch.distributed`` ranks
+(``parallel``, ``comm``, ``distributed``, ``train``), and the attention
 path (flash attention, multi-head attention and the BERT-style
 transformer encoder) for inference.
 
     from of_spmm_tpu_torch.data import load_graph, random_features
     from of_spmm_tpu_torch.models import GCN, bert_base, normalized_adjacency
     from of_spmm_tpu_torch.ops import make_operator, spgemm, spgemm_device
+    from of_spmm_tpu_torch.parallel import ShardMesh, dist_spmm, partition_rows
     from of_spmm_tpu_torch.sparse import reorder_locality
 """
 

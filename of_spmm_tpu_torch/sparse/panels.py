@@ -286,6 +286,29 @@ def _expand_masks_np(edges: np.ndarray, counts: np.ndarray) -> np.ndarray:
             .reshape(n_slots, 4, _L))
 
 
+_COMPACT_SLOTS = 1024  # slots compact_masks unpacks at once: 16 MB of bits
+
+
+def compact_masks(masks: np.ndarray):
+    """The inverse of the expansion: dense (n_slots, 4, 128) int32 bitmasks
+    as compact edges ((E,) uint16 = (w << 8) | r, slot by slot) and the
+    per-slot edge counts ((n_slots,) int32). Row-partitioned plans stack
+    their shards' dense masks (parallel/partition.py); placing a shard's
+    plan turns them back into edges for attach_windows."""
+    masks = np.ascontiguousarray(masks, np.int32)
+    n_slots = masks.shape[0]
+    counts = np.zeros(n_slots, np.int32)
+    edges = [np.zeros(0, np.uint16)]
+    for s0 in range(0, n_slots, _COMPACT_SLOTS):
+        words = masks[s0:s0 + _COMPACT_SLOTS]
+        bits = np.unpackbits(words.view(np.uint8).reshape(words.shape + (4,)), axis=-1,
+                             bitorder="little")  # (s, 4, 128, 32): bit b of word k
+        s, k, r, b = np.nonzero(bits)
+        edges.append((((k * 32 + b) << 8) | r).astype(np.uint16))
+        counts[s0:s0 + words.shape[0]] = np.bincount(s, minlength=words.shape[0])
+    return np.concatenate(edges), counts
+
+
 def _expand_masks_torch(edges: np.ndarray, counts: np.ndarray, device):
     """The same expansion as one scatter-add on ``device``: the compact
     edges (2 B each) cross to the card instead of the dense words (2 KB
