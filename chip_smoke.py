@@ -45,7 +45,11 @@ same plan and the single-operator SpMM, its launches held exactly;
 dist_gcn_apply on two of them against the single-operator logits; one
 make_dist_train_step step against the plain step; and the rank form over
 an NCCL group of world size 1 against the shard mesh (more ranks need
-more cards).
+more cards). Then the distributed training example
+(examples/train_dist.py) on arxiv in four shards on the card: its first
+step against the plain step, 20 steps of its loop with bucket_spmm's
+launches held exactly and the losses falling, and its main through the
+launcher at NCCL world size 1 against the shard mesh at S = 1.
 
 Then the attention path: the flash-attention kernel against its plain
 version on small cases (float32, bfloat16, float16; no keys gives
@@ -56,6 +60,19 @@ run again through MultiheadAttention(flash=True) with the block's own
 parameters, non-causal and causal, against the dense attention; one
 block's gradients through flash=True against the dense core; and the
 kernel alone at BERT-base's attention shape.
+
+Then the parallel strategies on four shards of the card
+(ShardMesh(["cuda:0"] * 4), the shards batched along a leading axis):
+Ulysses and ring attention at BERT-base's attention width against the
+dense MultiheadAttention with the same parameters, and the ring at
+T = 4096 beside the dense attention's time and memory; the tensor-parallel MLP
+on 4 shards and on (2, 2) dp x tp, and a MoE layer at Switch-Base-8's
+expert width, against their single-device forms (the MoE's routing
+replayed from the sharded run, its flips counted); BERT-base's 12 blocks
+as a 4-stage GPipe and 1F1B pipeline against the sequential stack; DDP
+with torch.optim.SGD on a BERT-base classifier against the single-device
+step; every S / B / P transition of reshard on 1-D and (2, 2) meshes;
+and the TP and ring rank forms at NCCL world size 1.
 
 Last, the microbenchmarks (of_spmm_tpu_torch/tools/): the SpMM inner
 loop (microbench_blockfma, microbench_mxu, microbench_cond, proto_fused)
@@ -77,8 +94,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
+import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -93,9 +113,10 @@ import torch.nn.functional as F
 from of_spmm_tpu_torch import distributed, native
 from of_spmm_tpu_torch.data import load_graph, random_features
 from of_spmm_tpu_torch.examples.train_gcn import make_optimizer, train, train_step
+from of_spmm_tpu_torch.examples import train_dist
 from of_spmm_tpu_torch.models import (
     GAT, GCN, GraphSAGE, bert_base, mean_adjacency, normalized_adjacency)
-from of_spmm_tpu_torch.nn import MultiheadAttention
+from of_spmm_tpu_torch.nn import MultiheadAttention, gelu
 from of_spmm_tpu_torch.ops import (
     make_operator, place_operator, place_plan, place_spgemm_plan, spgemm, spgemm_device,
     spgemm_numeric, spgemm_numeric_padded, spgemm_numeric_products, spgemm_symbolic,
@@ -117,8 +138,10 @@ from of_spmm_tpu_torch.ops.cuda import ranges as rkernels
 from of_spmm_tpu_torch.ops.cuda import spmm as kernels
 from of_spmm_tpu_torch.ops.flash_attention import flash_attention
 from of_spmm_tpu_torch.parallel import (
-    RankGroup, ShardMesh, dist_spmm, dist_spmm_allgather, exchange, pad_x_for_plan,
-    partition_rows)
+    MoELayer, PipelineModule, RankGroup, RingAttention, SequenceParallelAttention, ShardMesh,
+    check_consistent, ddp_train_step, dist_spmm, dist_spmm_allgather, exchange, expert_capacity,
+    init_tp_mlp, make_tp_mlp, pad_x_for_plan, partition_rows, pipeline_train_step_1f1b, reshard,
+    shard_tp_mlp, stack_stage_params, to_global)
 from of_spmm_tpu_torch.sparse import staged_windows
 from of_spmm_tpu_torch.sparse.expansion import (
     ExpansionPlan, attach_stage_rows, build_expansion_plan, plan_memory_report)
@@ -233,6 +256,18 @@ DIST_PLANS = (
                 local_engine="panels")),
 )
 DIST_GCN_PLANS = ("P1", "P3")  # dist_gcn_apply on these; the training step on P1
+# the distributed example: its shards and steps on arxiv; the launcher's time limit
+TRAIN_DIST_SHARDS, TRAIN_DIST_STEPS, LAUNCH_TIMEOUT = 4, 20, 300
+# the parallel strategies on PAR_SHARDS shards of one card: BERT-base's
+# attention and MLP widths, Switch-Base-8's experts, BERT-base's blocks in
+# a pipeline, a BERT-base classifier under DDP, the reshard tensor
+PAR_SHARDS, PAR_ITERS = 4, 10
+PAR_EMBED, PAR_HEADS, PAR_FFN = 768, 12, 3072
+PAR_ATTN_BATCH, PAR_ATTN_SEQ, RING_LONG_SEQ = 8, 512, 4096
+MOE_EXPERTS, MOE_TOPK, MOE_CF, MOE_TOKENS = 8, 2, 1.25, 4096
+PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 512
+DDP_BATCH, DDP_SEQ, DDP_LR = 8, 128, 1e-2
+RESHARD_SHAPE = (4096, 768)
 # kBatch, kListCap, kChunk of csrc/panels.cu and csrc/staged_spmm.cuh
 PANEL_BATCH, PANEL_LIST, PANEL_CHUNK = 8, 4096, 8
 UNIT_CAPS = (2048, 4096, 8192, 16384, 65536)  # work-unit edge caps the panel phases time
@@ -2168,7 +2203,7 @@ def dist_train_step(plan, mesh: ShardMesh, model: GCN, x: torch.Tensor,
     state = {k: v.clone() for k, v in model.state_dict().items()}
 
     def fresh():
-        m = GCN(GCN_DIMS)
+        m = GCN(model.feature_dims)
         m.load_state_dict(state)
         return m
 
@@ -2190,9 +2225,9 @@ def dist_train_step(plan, mesh: ShardMesh, model: GCN, x: torch.Tensor,
         errs[f"grad {n}"] = rel_err(pk[n].grad, pp[n].grad)
         errs[f"param {n}"] = rel_err(pk[n].detach(), pp[n].detach())
     finite = bool(torch.isfinite(loss_k)) and all(torch.isfinite(p).all() for p in pk.values())
-    # three forward SpMMs a shard, two backward (the first layer's input
-    # needs no grad)
-    want = {"bucket_spmm": 5 * DIST_SHARDS}
+    # a forward SpMM per layer and shard, a backward one for each layer but
+    # the first (its input needs no grad)
+    want = {"bucket_spmm": (2 * len(model.layers) - 1) * mesh.size}
     if not finite or max(errs.values()) > MAIN_PATH_REL_TOL or launches != want:
         raise AssertionError(f"dist train step: {errs}, finite {finite}, launches {launches}, "
                              f"expected {want}")
@@ -2291,6 +2326,437 @@ def dist_main_path(a_hat: CSR, cfg, op: SpmmOperator, x: torch.Tensor, y: torch.
                 d=DIST_D, single_operator_spmm_ms=round(single_ms, 4), plans=rows,
                 gcn=gcn_rows, dims=GCN_DIMS, train_step_P1=train, rank_form=rank,
                 seconds=round(time.perf_counter() - t_phase, 2)), launches
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rel_errs(got: dict, want: dict, what: str, tol: float = MAIN_PATH_REL_TOL) -> dict:
+    """Max-relative error of each named tensor against its counterpart;
+    raises above ``tol`` or on a non-finite value."""
+    errs = {k: rel_err(got[k].detach(), want[k].detach()) for k in want}
+    finite = all(bool(torch.isfinite(got[k]).all()) for k in want)
+    if not finite or max(errs.values()) > tol:
+        raise AssertionError(f"{what}: rel errs {errs}, finite {finite}")
+    return {k: float(f"{v:.3e}") for k, v in errs.items()}
+
+
+def peak_mib(fn) -> tuple:
+    """fn()'s result and the device memory it took above what was held."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, round((torch.cuda.max_memory_allocated() - base) / 2**20, 1)
+
+
+def times(fn, iters: int = PAR_ITERS) -> dict:
+    return {"ms": round(time_cuda(fn, iters=iters), 4), "wall_ms": round(wall_ms(fn, iters=iters), 4)}
+
+
+def launcher_first_loss(graph: str) -> float:
+    """The example's first loss through the launcher: one rank, NCCL on
+    cuda:0 (world size 1), one step."""
+    cmd = [sys.executable, "-m", "of_spmm_tpu_torch.distributed.launch", "--nproc_per_node",
+           "1", "--master_port", str(free_port()), "-m", "of_spmm_tpu_torch.examples.train_dist",
+           "--graph", graph, "--steps", "1"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                          timeout=LAUNCH_TIMEOUT)
+    found = re.findall(r"step\s+0\s+loss ([0-9.]+)", proc.stdout)
+    if proc.returncode != 0 or len(found) != 1:
+        raise AssertionError(f"train_dist through the launcher: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return float(found[0])
+
+
+def train_dist_phase(graph: str, a_hat: CSR, cfg, x: torch.Tensor, y: torch.Tensor) -> tuple:
+    """The distributed training example on ``graph`` (a_hat its normalized
+    adjacency, x and y its features and labels): its plan (partition_rows
+    into TRAIN_DIST_SHARDS, check_consistent), its GCN (hidden 32, seed 0)
+    and its loop (examples/train_dist.py ``train``) on
+    ShardMesh(["cuda:0"] * S): the first step's loss and grads against
+    the plain step (dist_train_step), TRAIN_DIST_STEPS steps with
+    bucket_spmm's launches held exactly and the losses finite and
+    falling, then ``main`` through the launcher at NCCL world size 1
+    against the shard mesh at S = 1. Returns (the fields, the loop's
+    launches)."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    S = TRAIN_DIST_SHARDS
+    mesh = ShardMesh([dev] * S)
+    t0 = time.perf_counter()
+    plan = partition_rows(a_hat, S)
+    check_consistent(plan, "row-partition plan")
+    t_plan = time.perf_counter() - t0
+    dims = (cfg.feature_dim, train_dist.HIDDEN, cfg.n_classes)
+
+    def model_of():
+        return GCN(dims, generator=torch.Generator().manual_seed(0))
+
+    first, _ = dist_train_step(plan, mesh, model_of(), x, y)
+    model = model_of()
+    per_step = (2 * len(model.layers) - 1) * S
+    losses, launches = counted(lambda: train_dist.train(model, plan, mesh, x, y,
+                                                        TRAIN_DIST_STEPS, log_every=0))
+    losses = losses.cpu()
+    want = {"bucket_spmm": per_step * TRAIN_DIST_STEPS}
+    if launches != want or not torch.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_dist loop: launches {launches} (expected {want}), "
+                             f"losses {losses.tolist()}")
+    rank_loss = launcher_first_loss(graph)
+    one = train_dist.train(model_of(), partition_rows(a_hat, 1), ShardMesh([dev]), x, y, 1,
+                           log_every=0)
+    rank_err = abs(rank_loss - float(one[0])) / abs(float(one[0]))
+    if rank_err > MAIN_PATH_REL_TOL:
+        raise AssertionError(f"train_dist launcher loss {rank_loss} vs the shard mesh at S = 1 "
+                             f"{float(one[0])}")
+    return dict(graph=f"{graph} (synthetic, symmetrized, self-loops)", shards=S,
+                mesh=f"ShardMesh(['cuda:0'] * {S})", dims=dims, lr=train_dist.LR,
+                halo_fraction=round(plan.halo_fraction, 4), plan_seconds=round(t_plan, 3),
+                first_step=first, steps=TRAIN_DIST_STEPS,
+                losses=[round(float(v), 6) for v in losses],
+                bucket_spmm_per_step=per_step, launches=launches,
+                launcher={"backend": "nccl", "world_size": 1, "first_loss": rank_loss,
+                          "shard_mesh_s1_first_loss": round(float(one[0]), 6),
+                          "rel_err": float(f"{rank_err:.3e}")},
+                seconds=round(time.perf_counter() - t_phase, 2)), launches
+
+
+def attention_grads(mod, dense, x: torch.Tensor, fn, causal: bool) -> dict:
+    """Parameter grads of sum(y * r) through a sharded apply and through
+    the dense module, held within MAIN_PATH_REL_TOL."""
+    r = torch.randn(x.shape, generator=torch.Generator().manual_seed(7)).to(x.device)
+    for m in (mod, dense):
+        m.zero_grad(set_to_none=True)
+    (fn(x) * r).sum().backward()
+    (dense(x, is_causal=causal) * r).sum().backward()
+    got = {n: p.grad for n, p in mod.named_parameters()}
+    want = {n: p.grad for n, p in dense.named_parameters()}
+    return rel_errs(got, want, f"{type(mod).__name__} grads")
+
+
+def parallel_attention_phase(gen) -> dict:
+    """Ulysses (SequenceParallelAttention) and the ring (RingAttention) at
+    BERT-base's attention width, float32, on PAR_SHARDS shards of cuda:0,
+    causal and not, against the dense MultiheadAttention with the same
+    parameters; grads for Ulysses non-causal and the ring causal; then
+    the ring alone at B = 1, T = RING_LONG_SEQ, causal, beside the dense
+    MultiheadAttention, with the peak memory of each."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    E, H, S = PAR_EMBED, PAR_HEADS, PAR_SHARDS
+    x = torch.randn((PAR_ATTN_BATCH, PAR_ATTN_SEQ, E), generator=gen).to(dev)
+    rows = []
+    for cls, name in ((SequenceParallelAttention, "sp"), (RingAttention, "ring")):
+        mod = cls(E, H, generator=torch.Generator().manual_seed(3))
+        dense = MultiheadAttention(E, H)
+        dense.load_state_dict(mod.state_dict())
+        mesh = ShardMesh([dev] * S, axis_names=(name,))
+        for causal in (False, True):
+            fn = mod.make_sharded_apply(mesh, name, is_causal=causal)
+            with torch.inference_mode():
+                err = rel_errs({"y": fn(x)}, {"y": dense(x, is_causal=causal)},
+                               f"{name} causal={causal}")["y"]
+                row = {"module": cls.__name__, "causal": causal, "rel_err_vs_dense": err,
+                       **times(lambda: fn(x)),
+                       "dense": times(lambda: dense(x, is_causal=causal))}
+            if causal == (name == "ring"):
+                row["grad_rel_err_vs_dense"] = attention_grads(mod, dense, x, fn, causal)
+            rows.append(row)
+    ring = RingAttention(E, H, generator=torch.Generator().manual_seed(4))
+    dense = MultiheadAttention(E, H)
+    dense.load_state_dict(ring.state_dict())
+    xl = torch.randn((1, RING_LONG_SEQ, E), generator=gen).to(dev)
+    fn = ring.make_sharded_apply(ShardMesh([dev] * S, axis_names=("ring",)), "ring",
+                                 is_causal=True)
+    with torch.inference_mode():
+        got, ring_mib = peak_mib(lambda: fn(xl))
+        want, dense_mib = peak_mib(lambda: dense(xl, is_causal=True))
+        err = rel_errs({"y": got}, {"y": want}, "ring long")["y"]
+        long = {"B": 1, "T": RING_LONG_SEQ, "causal": True, "rel_err_vs_dense": err,
+                "ring_peak_mib": ring_mib, "dense_peak_mib": dense_mib,
+                "ring": times(lambda: fn(xl), iters=5),
+                "dense": times(lambda: dense(xl, is_causal=True), iters=5)}
+    return dict(embed_dim=E, heads=H, batch=PAR_ATTN_BATCH, seq=PAR_ATTN_SEQ, dtype="float32",
+                tf32=torch.backends.cuda.matmul.allow_tf32, shards=S,
+                mesh=f"ShardMesh(['cuda:0'] * {S})", rows=rows, ring_long=long,
+                seconds=round(time.perf_counter() - t_phase, 2))
+
+
+class ArgmaxReplay:
+    """Holds MoE routing choices (``torch.argmax`` in top_k_dispatch) of
+    one run fixed for another: the sharded layer's gate GEMM runs per
+    shard and the per-shard reference's on each block, so a token whose
+    top two gate logits lie within float32 rounding may pick the other
+    expert. ``record()`` keeps each call's choices; ``replay(split)``
+    returns them in the reference's order (block b, choice k is call
+    b * top_k + k, sliced from the sharded run's (S, T/S) choices);
+    ``flips`` counts the tokens whose own choice differed."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        orig = torch.argmax
+        torch.argmax = fn
+        try:
+            yield self
+        finally:
+            torch.argmax = orig
+
+    def record(self):
+        orig = torch.argmax
+
+        def recording(t, *args, **kwargs):
+            out = orig(t, *args, **kwargs)
+            self.calls.append(out.detach())
+            return out
+        return self._patched(recording)
+
+    def replay(self, top_k: int):
+        calls = iter(range(len(self.calls) * self.calls[0].shape[0]))
+
+        def replaying(t, *args, **kwargs):
+            j = next(calls)
+            return self.calls[j % top_k][j // top_k]
+        return self._patched(replaying)
+
+    def flips(self, own: "ArgmaxReplay", top_k: int) -> int:
+        mine = torch.stack(self.calls)  # (top_k, S, T/S)
+        theirs = torch.stack([torch.stack(own.calls[k::top_k]) for k in range(top_k)])
+        return int((mine != theirs).sum())
+
+
+def parallel_mlp_phase(gen) -> dict:
+    """The TP MLP at BERT-base's width (768 -> 3072 -> 768, x (8, 512,
+    768)) on PAR_SHARDS shards and on (2, 2) dp x tp against the
+    single-device block, forward and grads; MoELayer at Switch-Base-8's
+    expert width (D 768, F 3072, 8 experts, top-2, capacity factor 1.25,
+    MOE_TOKENS tokens) on PAR_SHARDS shards against the per-shard apply
+    with the sharded run's routing replayed (and the flipped tokens
+    counted)."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    D, Fh, S = PAR_EMBED, PAR_FFN, PAR_SHARDS
+    params = init_tp_mlp(D, Fh, generator=torch.Generator().manual_seed(5))
+    x = torch.randn((PAR_ATTN_BATCH, PAR_ATTN_SEQ, D), generator=gen).to(dev)
+    r = torch.randn(x.shape, generator=gen).to(dev)
+
+    def single(p):
+        return gelu(x @ p["w_in"] + p["b_in"]) @ p["w_out"] + p["b_out"]
+
+    ref = {k: v.clone().requires_grad_() for k, v in params.items()}
+    y_ref = single(ref)
+    (y_ref * r).sum().backward()
+    tp_rows = []
+    for shape, names, dp in (((S,), ("tp",), None), ((2, 2), ("dp", "tp"), "dp")):
+        mesh = ShardMesh([dev] * S, shape=shape, axis_names=names)
+        fwd = make_tp_mlp(mesh, dp_axis=dp)
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        y = fwd(shard_tp_mlp(p, mesh), x)
+        err = rel_errs({"y": y}, {"y": y_ref}, f"tp mlp {names}")
+        (y * r).sum().backward()
+        gerr = rel_errs({k: v.grad for k, v in p.items()}, {k: v.grad for k, v in ref.items()},
+                        f"tp mlp grads {names}")
+        with torch.inference_mode():
+            sharded = shard_tp_mlp(params, mesh)
+            tp_rows.append({"mesh": dict(zip(names, shape)), "rel_err_vs_single": err["y"],
+                            "grad_rel_err_vs_single": gerr, **times(lambda: fwd(sharded, x))})
+    with torch.inference_mode():
+        single_t = times(lambda: single(params))
+
+    moe = MoELayer(D, MOE_EXPERTS, Fh, top_k=MOE_TOPK, capacity_factor=MOE_CF,
+                   generator=torch.Generator().manual_seed(6))
+    xm = torch.randn((MOE_TOKENS, D), generator=gen).to(dev)
+    mesh = ShardMesh([dev] * S, axis_names=("ep",))
+    fn = moe.make_sharded_apply(mesh, return_aux=True)
+    blocks = xm.chunk(S)
+    sharded_routes, own_routes = ArgmaxReplay(), ArgmaxReplay()
+    with torch.inference_mode():
+        with sharded_routes.record():
+            y, aux = fn(xm)
+        with sharded_routes.replay(MOE_TOPK):
+            want = torch.cat([moe.apply(b) for b in blocks])
+        with own_routes.record():
+            own = torch.cat([moe.apply(b) for b in blocks])
+        err = rel_errs({"y": y}, {"y": want}, "moe sharded vs per-shard (routes replayed)")
+        moe_row = {"tokens": MOE_TOKENS, "experts": MOE_EXPERTS, "top_k": MOE_TOPK,
+                   "capacity_factor": MOE_CF,
+                   "capacity_per_shard": expert_capacity(MOE_TOKENS // S, MOE_EXPERTS, MOE_TOPK,
+                                                         MOE_CF),
+                   "rel_err_vs_per_shard_replayed": err["y"],
+                   "rel_err_vs_per_shard_own_routes": float(f"{rel_err(y, own):.3e}"),
+                   "flipped_choices": sharded_routes.flips(own_routes, MOE_TOPK),
+                   "aux": float(aux), **times(lambda: fn(xm)),
+                   "per_shard_apply": times(lambda: [moe.apply(b) for b in blocks])}
+    return dict(tp={"d_model": D, "d_hidden": Fh, "x": list(x.shape), "rows": tp_rows,
+                    "single_device": single_t},
+                moe=moe_row, shards=S, seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def parallel_pipeline_phase(gen) -> dict:
+    """BERT-base's 12 encoder blocks in PIPE_STAGES stages of 3 on
+    ShardMesh(["cuda:0"] * PIPE_STAGES, axis "stage"), PIPE_MICRO micro-
+    batches of (1, 512, 768): the GPipe forward (pipeline_apply) against
+    the sequential stack, and one 1F1B step's loss and grads
+    (pipeline_train_step_1f1b, mean squared error to a seeded target)
+    against sequential autograd."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    model = bert_base(generator=torch.Generator().manual_seed(8))
+    per = model.num_layers // PIPE_STAGES
+    stages = [torch.nn.Sequential(*model.blocks[s * per:(s + 1) * per])
+              for s in range(PIPE_STAGES)]
+    pm = PipelineModule(stages, axis="stage")
+    mesh = ShardMesh([dev] * PIPE_STAGES, axis_names=("stage",))
+    x = torch.randn((PIPE_MICRO, 1, PIPE_SEQ, model.embed_dim), generator=gen).to(dev)
+    tgt = torch.randn(x.shape, generator=gen).to(dev)
+
+    def sequential(m):
+        h = x[m]
+        for st in stages:
+            h = st(h)
+        return h
+
+    with torch.inference_mode():
+        stacked = pm.init()
+        y = pm.apply(stacked, x, mesh)
+        want = torch.stack([sequential(m) for m in range(PIPE_MICRO)])
+        fwd_err = rel_errs({"y": y}, {"y": want}, "gpipe vs sequential")["y"]
+        gpipe_t = times(lambda: pm.apply(stacked, x, mesh), iters=5)
+        seq_t = times(lambda: [sequential(m) for m in range(PIPE_MICRO)], iters=5)
+
+    def mse(a, t):
+        return ((a - t) ** 2).mean()
+
+    stacked = {k: v.detach() for k, v in pm.init().items()}
+    loss, grads = pipeline_train_step_1f1b(pm.stage_fn(), mse, stacked, x, tgt, mesh)
+    model.zero_grad(set_to_none=True)
+    want_loss = sum(mse(sequential(m), tgt[m]) for m in range(PIPE_MICRO)) / PIPE_MICRO
+    want_loss.backward()
+    want_grads = stack_stage_params([{k: p.grad for k, p in st.named_parameters()}
+                                     for st in stages])
+    loss_err = rel_errs({"loss": loss.reshape(1)}, {"loss": want_loss.detach().reshape(1)},
+                        "1f1b loss")["loss"]
+    gerr = rel_errs(grads, want_grads, "1f1b grads")
+    step_t = times(lambda: pipeline_train_step_1f1b(pm.stage_fn(), mse, stacked, x, tgt, mesh),
+                   iters=3)
+
+    def sequential_step():
+        model.zero_grad(set_to_none=True)
+        (sum(mse(sequential(m), tgt[m]) for m in range(PIPE_MICRO)) / PIPE_MICRO).backward()
+    return dict(model="bert_base blocks (12 layers, width 768, 12 heads, MLP 3072; seeded)",
+                stages=PIPE_STAGES, blocks_per_stage=per, micro_batches=PIPE_MICRO,
+                micro_batch=[1, PIPE_SEQ, model.embed_dim], mesh=f"ShardMesh(['cuda:0'] * "
+                f"{PIPE_STAGES}, axis 'stage')", gpipe_rel_err_vs_sequential=fwd_err,
+                gpipe=gpipe_t, sequential=seq_t, f1b1_loss=float(loss),
+                f1b1_loss_rel_err=loss_err, f1b1_grad_rel_err_max=max(gerr.values()),
+                f1b1_step=step_t, sequential_autograd_step=times(sequential_step, iters=3),
+                f1b1_cycles=PIPE_MICRO + 2 * (PIPE_STAGES - 1),
+                seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def reshard_sweep(mesh, x: torch.Tensor) -> dict:
+    """Every S0 / S1 / B / P transition of ``x`` on ``mesh`` (each mesh
+    axis), each result's whole value equal to x bit for bit."""
+    atoms = ["S0", "S1", "B", "P"]
+    sbps = [(a,) for a in atoms] if len(mesh.shape) == 1 else list(itertools.product(atoms,
+                                                                                     atoms))
+    t0 = time.perf_counter()
+    placed = {s: to_global(x, s, mesh) for s in sbps}
+    for s in sbps:
+        for d in sbps:
+            if not torch.equal(reshard(placed[s], d).full(), x):
+                raise AssertionError(f"reshard {s} -> {d} on {mesh.shape} changed the value")
+    torch.cuda.synchronize()
+    return {"mesh": list(mesh.shape), "transitions": len(sbps) ** 2,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def parallel_ddp_global_phase(gen) -> dict:
+    """ddp_train_step with torch.optim.SGD on a BERT-base classifier
+    (bert_base(n_classes=2), global batch DDP_BATCH, T = DDP_SEQ) on
+    PAR_SHARDS shards against the single-device step from the same
+    weights; every S / B / P transition of reshard on a RESHARD_SHAPE
+    tensor over 1-D PAR_SHARDS and (2, 2); the rank form of one TP and one
+    ring case over an NCCL group of world size 1 against the shard mesh
+    at S = 1."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    S = PAR_SHARDS
+    models = [bert_base(n_classes=2, generator=torch.Generator().manual_seed(9))
+              for _ in range(2)]
+    tokens = torch.randint(0, models[0].vocab_size, (DDP_BATCH, DDP_SEQ), generator=gen).to(dev)
+    labels = torch.randint(0, 2, (DDP_BATCH,), generator=gen).to(dev)
+    mesh = ShardMesh([dev] * S)
+    opts = [torch.optim.SGD(m.parameters(), lr=DDP_LR) for m in models]
+    ddp_step = ddp_train_step(lambda t, l: F.cross_entropy(models[0](t), l), opts[0], mesh)
+    loss = ddp_step(tokens, labels)
+    opts[1].zero_grad(set_to_none=True)
+    want_loss = F.cross_entropy(models[1](tokens), labels)
+    want_loss.backward()
+    want_loss = want_loss.detach()
+    opts[1].step()
+    named = [dict(m.named_parameters()) for m in models]
+    gerr = rel_errs({k: p.grad for k, p in named[0].items()},
+                    {k: p.grad for k, p in named[1].items()}, "ddp grads")
+    perr = rel_errs(named[0], named[1], "ddp params")
+
+    def single_step():
+        opts[1].zero_grad(set_to_none=True)
+        F.cross_entropy(models[1](tokens), labels).backward()
+        opts[1].step()
+    ddp = {"model": "bert_base(n_classes=2), seeded", "batch": DDP_BATCH, "seq": DDP_SEQ,
+           "optimizer": f"torch.optim.SGD(lr={DDP_LR})", "loss": float(loss),
+           "loss_rel_err": abs(float(loss) - float(want_loss)) / abs(float(want_loss)),
+           "grad_rel_err_max": max(gerr.values()), "param_rel_err_max": max(perr.values()),
+           **times(lambda: ddp_step(tokens, labels), iters=5),
+           "single_device_step": times(single_step, iters=5)}
+    if ddp["loss_rel_err"] > MAIN_PATH_REL_TOL:
+        raise AssertionError(f"ddp loss {float(loss)} vs single {float(want_loss)}")
+    del models, opts, named
+
+    xr = torch.randn(RESHARD_SHAPE, generator=gen).to(dev)
+    sweeps = [reshard_sweep(ShardMesh([dev] * S), xr),
+              reshard_sweep(ShardMesh([dev] * S, shape=(2, 2), axis_names=("a", "b")), xr)]
+    mesh = ShardMesh([dev] * S)
+    hops = {}
+    for src, dst, what in (("S0", "B", "all_gather"), ("S0", "S1", "all_to_all"),
+                           ("P", "B", "all_reduce"), ("P", "S0", "reduce_scatter"),
+                           ("B", "S0", "slice")):
+        g = to_global(xr, src, mesh)
+        hops[f"{src}->{dst} ({what})"] = round(time_cuda(lambda: reshard(g, dst)), 4)
+
+    # the rank form at NCCL world size 1 against the shard mesh at S = 1
+    params = init_tp_mlp(PAR_EMBED, PAR_FFN, generator=torch.Generator().manual_seed(10))
+    xt = torch.randn((2, 128, PAR_EMBED), generator=gen).to(dev)
+    ring = RingAttention(PAR_EMBED, PAR_HEADS, generator=torch.Generator().manual_seed(11))
+    cases = {"tp": lambda m: make_tp_mlp(m, "x")(shard_tp_mlp(params, m, "x"), xt),
+             "ring": lambda m: ring.make_sharded_apply(m, "x", is_causal=True)(xt)}
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(backend="nccl", init_method=f"file://{tmp}/store", world_size=1,
+                               rank=0)
+        try:
+            backend = torch.distributed.get_backend()
+            with torch.inference_mode():
+                ranked = {k: f(RankGroup()) for k, f in cases.items()}
+        finally:
+            distributed.destroy()
+    if backend != "nccl":
+        raise AssertionError(f"rank form: backend {backend}, expected nccl")
+    with torch.inference_mode():
+        meshed = {k: f(ShardMesh([dev])) for k, f in cases.items()}
+    rank = {"backend": backend, "world_size": 1,
+            "rel_err_vs_shard_mesh": rel_errs(ranked, meshed, "rank form vs shard mesh")}
+    return dict(ddp=ddp, reshard=sweeps, reshard_shape=list(RESHARD_SHAPE), reshard_ms=hops,
+                rank_form=rank, seconds=round(time.perf_counter() - t_phase, 2))
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -3401,7 +3867,13 @@ def main() -> int:
     fields, dist_launches = dist_main_path(a_hat, cfg, op, x, y, model, logits, gen)
     emit("dist_main_path", **fields)
 
-    # -- 25.-28. the attention path: the flash kernel against its plain
+    # -- 25. the distributed training example: arxiv in TRAIN_DIST_SHARDS
+    #        shards on one card, its loop, and main through the launcher --
+    fields, td_launches = train_dist_phase("ogbn-arxiv", a_hat, cfg, x, y)
+    dist_launches["bucket_spmm"]["train_dist_loop"] = td_launches["bucket_spmm"]
+    emit("train_dist", **fields)
+
+    # -- 26.-29. the attention path: the flash kernel against its plain
     #            version, BERT-base inference with every block's attention
     #            run again through MultiheadAttention(flash=True), one
     #            block's gradients, the kernel at BERT-base's shape ---------
@@ -3419,7 +3891,22 @@ def main() -> int:
                                      max(r["max_abs_err"] for r in fa_rows
                                          if r["dtype"] == "float32"))
 
-    # -- 29.-35. the microbenchmarks: each tool's entry point at its
+    # -- 30.-33. the parallel strategies on PAR_SHARDS shards of the card:
+    #            Ulysses and the ring, the TP MLP and the MoE layer, the
+    #            GPipe and 1F1B pipeline, DDP, the global view, the rank
+    #            form at NCCL world size 1 --------------------------------------
+    # (no Pallas kernel of the JAX package is on these paths, so the port
+    # launches none of its kernels there)
+    for name, phase in (("parallel_attention", parallel_attention_phase),
+                        ("parallel_mlp", parallel_mlp_phase),
+                        ("parallel_pipeline", parallel_pipeline_phase),
+                        ("parallel_ddp_global", parallel_ddp_global_phase)):
+        fields, launched = counted(lambda: phase(gen))
+        if launched:
+            raise AssertionError(f"{name} launched port kernels: {launched}")
+        emit(name, **fields, kernel_launches=launched)
+
+    # -- 34.-40. the microbenchmarks: each tool's entry point at its
     #            default size, then its kernels against their plain
     #            versions -------------------------------------------------------
     micro = {}
@@ -3441,7 +3928,7 @@ def main() -> int:
                         else f"max|k-p| <= {MICROBENCH_NORM_TOL} max|p|"),
              rows=rows)
 
-    # -- 36. the kernels, 37. the card, 38. the result ------------------------
+    # -- 41. the kernels, 42. the card, 43. the result ------------------------
     # launches: one GCN forward (three SpMMs) on the kernel's engine, or
     # (expansion2) the two arxiv SpMMs of its entry point; the times and
     # the bound: all launches of one SpMM at d=128, launches_per_spmm of
@@ -3478,7 +3965,9 @@ def main() -> int:
          **({"dist_launches": dist_launches[k],
              "dist_launches_scope": f"dist_spmm on ogbn-arxiv in {DIST_SHARDS} shards: per "
                                     "plan one forward and one backward at d=128; gcn_<plan> "
-                                    "one dist_gcn_apply; train_step_P1 one training step"}
+                                    "one dist_gcn_apply; train_step_P1 one training step; "
+                                    f"train_dist_loop {TRAIN_DIST_STEPS} steps of the "
+                                    "distributed example (hidden 32)"}
             if k in dist_launches else {})}
         for k in SOURCES if k not in MICROBENCH_MAIN and k != "flash_attention"]
     entries.append(

@@ -120,3 +120,28 @@ def transformer_params_from_numpy(params: Mapping[str, Mapping]) -> Dict[str, to
                 sd[f"blocks.{i}.{name}.{key}"] = _f32(leaf)
         sd.update(mha_params_from_numpy(block["attn"], f"blocks.{i}.attn."))
     return sd
+
+
+def _exact(params: Mapping[str, np.ndarray], keys, what: str) -> Dict[str, torch.Tensor]:
+    if set(params) != set(keys):
+        raise KeyError(f"{what} params need keys {sorted(keys)}, got {sorted(params)}")
+    return OrderedDict((k, _f32(params[k])) for k in keys)
+
+
+def tp_mlp_params_from_numpy(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``init_tp_mlp`` dict ``{"w_in", "b_in", "w_out", "b_out"}``
+    (whole, weights (in, out)) as the port's ``parallel.tp`` dict."""
+    return _exact(params, ("w_in", "b_in", "w_out", "b_out"), "TP MLP")
+
+
+def moe_params_from_numpy(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``MoELayer`` dict ``{"wg", "w1", "b1", "w2", "b2"}`` (experts
+    stacked on the leading axis) as a ``state_dict`` for ``MoELayer``."""
+    return _exact(params, ("wg", "w1", "b1", "w2", "b2"), "MoE")
+
+
+def stage_params_from_numpy(stacked: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``stack_stage_params`` dict of a stage's parameters (each
+    stacked on a leading stage axis) as the port's, which keeps the stage
+    axis (``parallel.pipeline``)."""
+    return OrderedDict((k, _f32(v)) for k, v in stacked.items())

@@ -50,6 +50,7 @@ from of_spmm_tpu_torch import comm
 from of_spmm_tpu_torch.distributed import current_device
 from of_spmm_tpu_torch.ops.autograd import _spmm_impl
 from of_spmm_tpu_torch.ops.cuda.spmm import bucket_work
+from of_spmm_tpu_torch.parallel.mesh import MeshAxes, RankAxis, StackedAxis, coords
 from of_spmm_tpu_torch.parallel.partition import RowPartitionPlan, make_panel_plan
 from of_spmm_tpu_torch.sparse.binned import BinnedEll, EllBucket
 from of_spmm_tpu_torch.sparse.panels import attach_windows, compact_masks, ensure_masks
@@ -182,20 +183,50 @@ class _Placements:
         return hit[1]
 
 
-class ShardMesh(_Placements):
+class ShardMesh(_Placements, MeshAxes):
     """S shards in one process, shard p on ``devices[p]``. A device may
     appear several times: ``ShardMesh(["cuda:0"] * 4)`` runs four shards on
-    one card, ``ShardMesh(["cpu"] * 4)`` on the CPU."""
+    one card, ``ShardMesh(["cpu"] * 4)`` on the CPU. ``shape`` and
+    ``axis_names`` name the mesh's axes (default: one axis, "x"); shard p
+    sits at coordinate p of the shape, row-major (``parallel.mesh.coords``).
 
-    def __init__(self, devices: Sequence):
+    The parallel strategies (tp, sp, ring, ep, pipeline, ddp, the global
+    view) run a ShardMesh's shards batched on one device (``device``):
+    a mesh of several cards runs them over ranks, one per card
+    (RankGroup)."""
+
+    def __init__(self, devices: Sequence, shape: Optional[Sequence[int]] = None,
+                 axis_names: Optional[Sequence[str]] = None):
         super().__init__()
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("a ShardMesh needs at least one device")
+        self._set_axes(len(self.devices), shape, axis_names)
 
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        """The one device of a mesh whose shards share it."""
+        if len(set(self.devices)) != 1:
+            raise ValueError(f"the parallel strategies run a ShardMesh's shards on one device, "
+                             f"this mesh has {sorted(map(str, set(self.devices)))}: run one "
+                             f"rank per card (RankGroup) instead")
+        return self.devices[0]
+
+    def axis(self, name: str) -> StackedAxis:
+        return StackedAxis(self.shape, self.axis_index(name))
+
+    def local_coords(self) -> List[Tuple[int, ...]]:
+        """The coordinates of the shards this process holds: all of them."""
+        return coords(self.shape)
+
+    def sum_shared(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the shards of a value each holds a share of, kept
+        here as one tensor (a replicated parameter's gradient): ``t``."""
+        return t
 
     def place(self, plan: RowPartitionPlan) -> List[ShardPlan]:
         """Every shard's part of ``plan`` on its device (once per plan)."""
@@ -211,12 +242,18 @@ class ShardMesh(_Placements):
         return self._cached(plan, lambda: _long(a, device), name, torch.device(device))
 
 
-class RankGroup(_Placements):
+class RankGroup(_Placements, MeshAxes):
     """This process's rank of a ``torch.distributed`` group (None: the
     default group), its shard on ``device`` (default: the current card
-    under NCCL, the CPU under gloo)."""
+    under NCCL, the CPU under gloo).
 
-    def __init__(self, group=None, device=None):
+    ``shape`` and ``axis_names`` lay the default group's ranks out as a
+    mesh (row-major, one process group per axis, through
+    ``torch.distributed.device_mesh.init_device_mesh``); by default the
+    group is one axis, "x"."""
+
+    def __init__(self, group=None, device=None, shape: Optional[Sequence[int]] = None,
+                 axis_names: Optional[Sequence[str]] = None):
         super().__init__()
         if not dist.is_initialized():
             raise RuntimeError("RankGroup needs a process group: run "
@@ -225,6 +262,35 @@ class RankGroup(_Placements):
         self.rank = dist.get_rank(group)
         self.size = dist.get_world_size(group)
         self.device = torch.device(device) if device is not None else current_device(group)
+        self._set_axes(self.size, shape, axis_names)
+        self._mesh = None
+        if len(self.shape) > 1:
+            if group is not None:
+                raise ValueError("a RankGroup of several axes lays out the default group")
+            from torch.distributed.device_mesh import init_device_mesh
+            self._mesh = init_device_mesh(self.device.type, self.shape,
+                                          mesh_dim_names=self.axis_names)
+
+    @property
+    def coord(self) -> Tuple[int, ...]:
+        """This rank's mesh coordinates."""
+        if self._mesh is None:
+            return (self.rank,)
+        return tuple(int(c) for c in self._mesh.get_coordinate())
+
+    def axis(self, name: str) -> RankAxis:
+        i = self.axis_index(name)
+        if self._mesh is None:
+            return RankAxis(self.group, self.rank, self.size)
+        return RankAxis(self._mesh.get_group(name), self.coord[i], self.shape[i])
+
+    def local_coords(self) -> List[Tuple[int, ...]]:
+        """The coordinates of the shards this process holds: its own."""
+        return [self.coord]
+
+    def sum_shared(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of a value each holds its share of."""
+        return comm.all_reduce(t, self.group)
 
     def place(self, plan: RowPartitionPlan) -> ShardPlan:
         """This rank's part of ``plan`` on its device (once per plan)."""

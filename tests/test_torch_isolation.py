@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of of_spmm_tpu_torch
-loads neither JAX nor the JAX package, and its entry points run on the
-card unless the caller names another device."""
+(the parallel strategies and the distributed example among them) loads
+neither JAX nor the JAX package, and its entry points run on the card
+unless the caller names another device."""
 
 import os
 import subprocess
@@ -10,8 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+from of_spmm_tpu_torch.examples import train_dist
 from of_spmm_tpu_torch.models import GCN
 from of_spmm_tpu_torch.ops import make_operator
+from of_spmm_tpu_torch.parallel import (
+    MoELayer, RingAttention, SequenceParallelAttention, init_tp_mlp)
 from of_spmm_tpu_torch.sparse.formats import CSR
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,16 +29,22 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "of_spmm_tpu" or m.startswith("of_spmm_tpu."))
-print(len(names), bad)
+print(len(names), bad, ",".join(names))
 """
+
+# the modules of the distribution layer and its example that must be among them
+PARALLEL = ["parallel." + m for m in ("mesh", "global_view", "tp", "sp", "ring", "ep",
+                                      "pipeline", "ddp", "auto_sharding")]
+PARALLEL += ["examples.train_dist", "utils.errors"]
 
 
 def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, capture_output=True,
                          text=True, timeout=120, env={**os.environ, "PYTHONPATH": _REPO})
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
+    n, bad, names = out.stdout.strip().split(" ", 2)
     assert int(n) >= 15 and bad == "[]", out.stdout
+    assert {f"of_spmm_tpu_torch.{m}" for m in PARALLEL} <= set(names.split(","))
 
 
 def test_entry_points_default_to_the_card():
@@ -48,3 +58,17 @@ def test_entry_points_default_to_the_card():
             make_operator(csr)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             GCN((2, 2))
+
+
+def test_parallel_entry_points_default_to_the_card():
+    makers = [lambda: init_tp_mlp(4, 8), lambda: MoELayer(4, 2, 8),
+              lambda: SequenceParallelAttention(4, 2), lambda: RingAttention(4, 2)]
+    if torch.cuda.is_available():
+        assert init_tp_mlp(4, 8)["w_in"].is_cuda
+        assert all(next(m().parameters()).is_cuda for m in makers[1:])
+    else:
+        for make in makers:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_dist.main(["--steps", "1"])
