@@ -24,6 +24,18 @@ the training example's ``train``; the same for GraphSAGE on arxiv's
 mean adjacency (not symmetric: transpose plans of their own), and one
 GAT step on cora against the CPU.
 
+Then the training stack (graph/, optim/, amp/, utils/checkpoint.py): the
+GCN example's TrainGraph (Adam, warmup + cosine, clipping) on the tiered
+arxiv operator, 20 steps in float32 against PR 13's step and 20 under
+AMP (bf16 compute, float32 masters; the first step's loss and grads
+against impl="torch"), every step's bucket_spmm and gather_rows launches
+held exactly, a save / load resume against the uninterrupted run; then
+the BERT example (examples/train_bert.py) at its defaults in float32,
+with AMP and with grad accumulation 2, BERT-base masked-LM steps at full
+width (AMP against float32, grad accumulation 2 against 1, ZeRO-1 on
+four shards of the card against stage 0), and the lazy sparse Adam
+update of BERT-base's token table against dense Adam.
+
 Then the locality reorder and SpGEMM: GCN inference on arxiv with its
 node ids shuffled by a seeded permutation (as bench.py --shuffled does)
 through make_operator(reorder="match") on the panels, fused and ranges
@@ -93,6 +105,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import itertools
 import json
@@ -112,8 +125,11 @@ import torch.nn.functional as F
 
 from of_spmm_tpu_torch import distributed, native
 from of_spmm_tpu_torch.data import load_graph, random_features
-from of_spmm_tpu_torch.examples.train_gcn import make_optimizer, train, train_step
-from of_spmm_tpu_torch.examples import train_dist
+from of_spmm_tpu_torch.amp import DEFAULT_POLICY
+from of_spmm_tpu_torch.examples.train_gcn import make_graph, make_optimizer, train, train_step
+from of_spmm_tpu_torch.examples import train_bert, train_dist
+from of_spmm_tpu_torch.graph import compute_call
+from of_spmm_tpu_torch.optim.indexed_slices import IndexedSlices, sparse_adam_update
 from of_spmm_tpu_torch.models import (
     GAT, GCN, GraphSAGE, bert_base, mean_adjacency, normalized_adjacency)
 from of_spmm_tpu_torch.nn import MultiheadAttention, gelu
@@ -241,6 +257,14 @@ MAIN_PATH_REL_TOL = 1e-4
 TRAIN_LAYOUTS = ("tiered", "panels", "fused", "ranges", "expansion")
 TRAIN_STEPS, TRAIN_EPOCHS, TRAIN_LR = 20, 5, 1e-2
 GAT_HEADS, GAT_HIDDEN = 4, 8
+# the TrainGraph phases: the GCN example's graph for GRAPH_STEPS steps per
+# precision (PR 13's step beside its first GRAPH_REF_STEPS, the resume
+# check saving after GRAPH_RESUME_AT), the AMP step's bar against the
+# plain version; the BERT example at its defaults; BERT-base masked LM
+GRAPH_STEPS, GRAPH_REF_STEPS, GRAPH_RESUME_AT, GRAPH_AMP_TOL, RESUME_TOL = 20, 5, 10, 1e-2, 1e-6
+BERT_EXAMPLE_STEPS = 20
+MLM_BATCH, MLM_SEQ, MLM_VOCAB, MLM_LR = 8, 128, 30522, 1e-4
+MLM_AMP_STEPS, MLM_ZERO_STEPS, MLM_ZERO_SHARDS, MLM_TIME_ITERS, MLM_AMP_TOL = 10, 2, 4, 5, 1e-2
 # the kernels a training step on each layout launches: kernel -> layout
 TRAIN_KERNELS = {"bucket_spmm": "tiered", "gather_rows": "tiered", "panel_spmm": "panels",
                  "fused_spmm": "fused", "ranges_spmm": "ranges", "expansion_spmm": "expansion"}
@@ -1593,13 +1617,13 @@ def grads_of(model: torch.nn.Module, fn) -> tuple:
     return loss.detach(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
 
-def grad_errs(got: tuple, want: tuple, what: str) -> dict:
+def grad_errs(got: tuple, want: tuple, what: str, tol: float = MAIN_PATH_REL_TOL) -> dict:
     """The loss's and each grad's max-relative error; raises above
-    MAIN_PATH_REL_TOL or on a non-finite value."""
-    errs = {"loss": rel_err(got[0].reshape(1), want[0].reshape(1))}
+    ``tol`` or on a non-finite value."""
+    errs = {"loss": rel_err(got[0].reshape(1).float(), want[0].reshape(1).float())}
     errs.update({n: rel_err(g, want[1][n]) for n, g in got[1].items()})
     finite = torch.isfinite(got[0]) and all(torch.isfinite(g).all() for g in got[1].values())
-    if not finite or max(errs.values()) > MAIN_PATH_REL_TOL:
+    if not finite or max(errs.values()) > tol:
         raise AssertionError(f"{what}: loss and grads max-relative {errs}, finite {bool(finite)}")
     return {k: float(f"{v:.3e}") for k, v in errs.items()}
 
@@ -1705,6 +1729,327 @@ def train_main_path(a_hat: CSR, cfg, x: torch.Tensor, y: torch.Tensor, gen) -> t
                        "schedule": "warmup(cosine_annealing(lr, epochs), 10)",
                        "losses": [round(v, 6) for v in losses.tolist()],
                        "seconds": round(t_train, 3)}), launches
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms for the block: ``index_add_`` (the
+    tiered finish's split-row sums, the plain segment sums) sorts instead
+    of adding with atomics, whose order varies from run to run."""
+    prev, prev_warn = (torch.are_deterministic_algorithms_enabled(),
+                       torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
+
+
+def param_errs(got: torch.nn.Module, want: torch.nn.Module, what: str, tol: float) -> dict:
+    """The largest max-relative error of a parameter against its
+    counterpart, and that parameter's name; raises above ``tol`` or on a
+    non-finite value."""
+    ref = dict(want.named_parameters())
+    errs = {n: rel_err(p.detach(), ref[n].detach()) for n, p in got.named_parameters()}
+    finite = all(bool(torch.isfinite(p).all()) for p in got.parameters())
+    worst = max(errs, key=errs.get)
+    if not finite or errs[worst] > tol:
+        raise AssertionError(f"{what}: {worst} rel err {errs[worst]} (tol {tol}), finite {finite}")
+    return {"max_rel_err": float(f"{errs[worst]:.3e}"), "worst": worst}
+
+
+def graph_steps(graph, args: tuple, steps: int, expected: dict, what: str,
+                save_after: int = 0, path: str = "") -> torch.Tensor:
+    """``steps`` steps of ``graph``, each one's kernel launches held to
+    ``expected`` (counts set to 0 before the step, read after it); saves
+    the graph after step ``save_after`` when given. Returns the losses."""
+    losses = []
+    for k in range(1, steps + 1):
+        kernels.reset_launch_counts()
+        losses.append(graph(*args)["loss"].float())
+        torch.cuda.synchronize()
+        counts = dict(kernels.LAUNCHES)
+        if counts != expected:
+            raise AssertionError(f"{what} step {k} launches {counts}, expected {expected}")
+        if k == save_after:
+            graph.save(path)
+    return torch.stack(losses)
+
+
+def resume_figures(model_of, op: SpmmOperator, x: torch.Tensor, y: torch.Tensor, amp: bool,
+                   trained: torch.nn.Module, path: str, expected: dict, name: str,
+                   plain_path: str) -> dict:
+    """The resume against the uninterrupted run. ``trained`` took
+    GRAPH_STEPS steps on the kernels and was saved to ``path`` after
+    GRAPH_RESUME_AT. On the kernels the resumed run's spread is reported
+    beside a second uninterrupted run's: bucket_spmm sums a wide row's
+    slot chunks with shared-memory atomics, and Adam carries those last
+    bits 10 steps on. The held check runs both on the plain path
+    (impl="torch") under ``deterministic()``, within RESUME_TOL."""
+    out = {}
+    resumed = model_of()
+    graph = make_graph(resumed, op, TRAIN_LR, GRAPH_STEPS, amp=amp)
+    graph.load(path)
+    graph_steps(graph, (x, y), GRAPH_STEPS - GRAPH_RESUME_AT, expected, f"{name} resumed")
+    rerun = model_of()
+    graph_steps(make_graph(rerun, op, TRAIN_LR, GRAPH_STEPS, amp=amp), (x, y), GRAPH_STEPS,
+                expected, f"{name} rerun")
+    out["kernels_resume_rel_err"] = param_errs(resumed, trained, "resume", float("inf"))
+    out["kernels_rerun_rel_err"] = param_errs(rerun, trained, "rerun", float("inf"))
+    none = {k: 0 for k in expected}
+    with deterministic():
+        plain = model_of()
+        graph_steps(make_graph(plain, op, TRAIN_LR, GRAPH_STEPS, amp=amp, impl="torch"),
+                    (x, y), GRAPH_STEPS, none, f"{name} plain", GRAPH_RESUME_AT, plain_path)
+        resumed = model_of()
+        graph = make_graph(resumed, op, TRAIN_LR, GRAPH_STEPS, amp=amp, impl="torch")
+        graph.load(plain_path)
+        graph_steps(graph, (x, y), GRAPH_STEPS - GRAPH_RESUME_AT, none, f"{name} plain resumed")
+        out["plain_resume_rel_err"] = param_errs(resumed, plain, f"TrainGraph GCN {name} resume",
+                                                 RESUME_TOL)
+    return out
+
+
+def train_graph_gcn(op: SpmmOperator, cfg, x: torch.Tensor, y: torch.Tensor) -> tuple:
+    """The GCN example's TrainGraph (Adam at warmup + cosine, clipping at
+    5.0; examples/train_gcn.py make_graph) on arxiv's tiered operator at
+    GCN_DIMS, GRAPH_STEPS steps in float32 and as many under AMP (bf16
+    compute, float32 masters). float32: the first GRAPH_REF_STEPS losses
+    against PR 13's step (make_optimizer's torch.optim.Adam + LambdaLR +
+    clip_grad_norm_) from the same weights at MAIN_PATH_REL_TOL. AMP: the
+    first step's loss and grads through the kernels against impl="torch"
+    at GRAPH_AMP_TOL with the same ReLU branches, float32 masters, finite
+    losses, the last below the first. Both: every step's launches held
+    exactly, a resume (saved after GRAPH_RESUME_AT steps, loaded into a
+    new graph on fresh weights, run to the end; ``resume_figures``),
+    ``step_figures``. Returns (the phase's fields, launches per step)."""
+    t_phase = time.perf_counter()
+    state = GCN(GCN_DIMS, generator=torch.Generator().manual_seed(0)).state_dict()
+
+    def model_of():
+        m = GCN(GCN_DIMS)
+        m.load_state_dict(state)
+        return m
+
+    expected = step_launches(op, len(GCN_DIMS) - 1, len(GCN_DIMS) - 2)
+    ref_model = model_of()
+    opt, sched = make_optimizer(ref_model, TRAIN_LR, GRAPH_STEPS)
+    ref = []
+    for _ in range(GRAPH_REF_STEPS):
+        ref.append(train_step(ref_model, op, x, y, opt))
+        sched.step()
+    ref = torch.stack(ref)
+    del ref_model, opt, sched
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for amp in (False, True):
+            name = "amp_bf16" if amp else "fp32"
+            model, row = model_of(), {"precision": name}
+            if amp:
+                relu = ReluMasks()
+
+                def loss_of(impl):
+                    return lambda: compute_call(
+                        lambda m, xx, yy: m.loss_fn(op, xx, yy, impl=impl), model,
+                        DEFAULT_POLICY, (x, y))
+                with relu.record():
+                    got = grads_of(model, loss_of("auto"))
+                with relu.replay():
+                    want = grads_of(model, loss_of("torch"))
+                row["first_step_rel_err_vs_torch"] = grad_errs(
+                    got, want, "TrainGraph GCN AMP first step", GRAPH_AMP_TOL)
+                row["first_step_loss_dtype"] = str(got[0].dtype)
+            graph = make_graph(model, op, TRAIN_LR, GRAPH_STEPS, amp=amp)
+            path = os.path.join(tmp, f"{name}.npz")
+            losses = graph_steps(graph, (x, y), GRAPH_STEPS, expected, f"TrainGraph GCN {name}",
+                                 GRAPH_RESUME_AT, path)
+            if not torch.isfinite(losses).all():
+                raise AssertionError(f"TrainGraph GCN {name}: losses {losses.tolist()}")
+            if any(p.dtype != torch.float32 for p in model.parameters()):
+                raise AssertionError(f"TrainGraph GCN {name}: master parameters not float32")
+            if amp:
+                if not losses[-1] < losses[0]:
+                    raise AssertionError(f"TrainGraph GCN AMP: losses {losses.tolist()}")
+            else:
+                err = rel_err(losses[:GRAPH_REF_STEPS], ref)
+                if err > MAIN_PATH_REL_TOL:
+                    raise AssertionError(f"TrainGraph GCN fp32 vs PR 13's step: losses "
+                                         f"{losses[:GRAPH_REF_STEPS].tolist()} vs "
+                                         f"{ref.tolist()}, rel err {err}")
+                row["rel_err_vs_pr13_step"] = float(f"{err:.3e}")
+            row.update(resume_figures(model_of, op, x, y, amp, model, path, expected, name,
+                                      os.path.join(tmp, f"{name}_plain.npz")))
+            row.update(losses=[round(v, 6) for v in losses.tolist()],
+                       **step_figures(lambda: graph(x, y), TRAIN_STEPS))
+            rows.append(row)
+    return dict(graph="ogbn-arxiv (synthetic, symmetrized, self-loops)", model="GCN",
+                dims=GCN_DIMS, layout="tiered", steps=GRAPH_STEPS, lr=TRAIN_LR,
+                graph_config="adam(warmup(cosine_annealing(lr, steps), 10)), clip_grad_norm=5.0",
+                tf32=False, launches_per_step={k: n for k, n in expected.items() if n},
+                reference_step="make_optimizer + train_step (PR 13)",
+                amp_tolerance=GRAPH_AMP_TOL, resume_after=GRAPH_RESUME_AT, precisions=rows,
+                seconds=round(time.perf_counter() - t_phase, 2)), expected
+
+
+def mlm_batch(stream) -> tuple:
+    """The stream's next batch with its second half's mask (and so its
+    inputs) set to the first half's: both halves count as many masked
+    tokens, so the masked mean of the batch is the mean of the halves'."""
+    inputs, targets, mask = next(stream)
+    h = mask.shape[0] // 2
+    mask = torch.cat([mask[:h], mask[:h]])
+    return torch.where(mask, torch.zeros_like(targets), targets), targets, mask
+
+
+def device_busy_ms(fn) -> float:
+    """The kernel time of one fn() call: torch.profiler's device events
+    summed."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def step_figures(step, iters: int) -> dict:
+    """A training step's device ms (CUDA events), wall ms, kernel ms
+    (profiler) and the device's idle share of the wall time, and its peak
+    memory; ``step`` trains meanwhile."""
+    _, peak = peak_mib(step)
+    ms, wall = time_cuda(step, iters=iters), wall_ms(step, iters=iters)
+    busy = device_busy_ms(step)
+    return {"step_ms": round(ms, 4), "step_wall_ms": round(wall, 4),
+            "step_kernel_ms": round(busy, 4), "device_idle_share": round(1 - busy / wall, 4),
+            "step_peak_mib": peak}
+
+
+def bert_figures(graph, batch: tuple) -> dict:
+    """``step_figures`` of a BERT step on ``batch`` and its tokens/s."""
+    fig = step_figures(lambda: graph(*batch), MLM_TIME_ITERS)
+    return {**fig, "tokens_per_s": round(batch[0].numel() / (fig["step_ms"] / 1e3), 1)}
+
+
+def train_bert_phase(gen) -> dict:
+    """The BERT example (examples/train_bert.py) at its defaults for
+    BERT_EXAMPLE_STEPS steps in float32, with AMP and with grad
+    accumulation 2; then BERT-base masked LM at full width (bert_base
+    hidden states, the example's tied-head loss, MLM_BATCH x MLM_SEQ,
+    AdamW at MLM_LR with warmup + cosine): MLM_AMP_STEPS AMP steps, the
+    first AMP loss against the float32 first loss at MLM_AMP_TOL, one
+    float32 step with grad accumulation 2 against one without on the same
+    batch (loss and first moments, i.e. grads, at MAIN_PATH_REL_TOL), and
+    ZeRO-1 on MLM_ZERO_SHARDS shards of the card against stage 0 after
+    MLM_ZERO_STEPS steps (both under ``deterministic()``); last, sparse_adam_update on the token table
+    with one batch's ids against dense Adam on the touched rows."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    example = {}
+    for name, kw in (("fp32", {}), ("amp", dict(amp=True)), ("grad_acc2", dict(grad_acc=2))):
+        model = train_bert.make_model(device=dev)
+        graph = train_bert.make_graph(model, BERT_EXAMPLE_STEPS, **kw)
+        stream = train_bert.batch_stream(MLM_BATCH, 128, 1024, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = train_bert.train(graph, stream, BERT_EXAMPLE_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"train_bert {name}: losses {losses}")
+        example[name] = {"losses": [round(v, 5) for v in losses], "seconds": round(secs, 3),
+                         "tokens_per_s": round(BERT_EXAMPLE_STEPS * MLM_BATCH * 128 / secs, 1)}
+    del model, graph
+
+    base = bert_base(generator=torch.Generator().manual_seed(3))
+    stream = train_bert.batch_stream(MLM_BATCH, MLM_SEQ, MLM_VOCAB, dev, seed=1)
+    first = next(stream)
+    fields = {"model": "bert_base (12 layers, width 768, 12 heads, MLP 3072, vocab 30522)",
+              "batch": MLM_BATCH, "seq": MLM_SEQ, "lr": MLM_LR,
+              "optimizer": "adamw(warmup(cosine_annealing(lr, steps), steps // 10), "
+                           "weight_decay=0.01)", "tf32": False}
+    g32 = train_bert.make_graph(copy.deepcopy(base), MLM_AMP_STEPS, MLM_LR)
+    loss32 = float(g32(*first)["loss"])
+    fields["fp32"] = {"first_loss": loss32, **bert_figures(g32, first)}
+    del g32
+    gamp = train_bert.make_graph(copy.deepcopy(base), MLM_AMP_STEPS, MLM_LR, amp=True)
+    amp_losses = train_bert.train(gamp, itertools.chain([first], stream), MLM_AMP_STEPS)
+    amp_err = abs(amp_losses[0] - loss32) / abs(loss32)
+    if not np.isfinite(amp_losses).all() or amp_err > MLM_AMP_TOL:
+        raise AssertionError(f"BERT-base AMP losses {amp_losses}, first vs fp32 {loss32}: "
+                             f"rel {amp_err}")
+    fields["amp"] = {"losses": [round(v, 5) for v in amp_losses],
+                     "first_loss_rel_err_vs_fp32": float(f"{amp_err:.3e}"),
+                     **bert_figures(gamp, first)}
+    del gamp
+
+    batch = mlm_batch(stream)
+    accs = {}
+    for k in (1, 2):
+        g = train_bert.make_graph(copy.deepcopy(base), 1, MLM_LR, grad_acc=k)
+        accs[k] = (g(*batch)["loss"], dict(zip(g.names, g.state["opt"].state_tree()["m"])))
+    acc_errs = {"loss": rel_err(accs[2][0].reshape(1), accs[1][0].reshape(1))}
+    acc_errs.update({n: rel_err(m, accs[1][1][n]) for n, m in accs[2][1].items()})
+    worst = max(acc_errs, key=acc_errs.get)
+    if acc_errs[worst] > MAIN_PATH_REL_TOL:
+        raise AssertionError(f"BERT-base grad accumulation 2 vs 1: {worst} rel err "
+                             f"{acc_errs[worst]}")
+    fields["grad_accumulation"] = {"micro_batches": 2, "compared": "loss and Adam's m = 0.1 g",
+                                   "max_rel_err": float(f"{acc_errs[worst]:.3e}"),
+                                   "worst": worst}
+    del accs, g
+
+    mesh = ShardMesh(["cuda:0"] * MLM_ZERO_SHARDS)
+    batches = [next(stream) for _ in range(MLM_ZERO_STEPS)]
+    zero = {}
+    with deterministic():  # the same grads in both: the key bias's are rounding noise,
+        for stage in (0, 1):  # which Adam turns into +-lr steps
+            m = copy.deepcopy(base)
+            g = train_bert.make_graph(m, MLM_ZERO_STEPS, MLM_LR, zero_stage=stage,
+                                      mesh=mesh if stage else None)
+            for b in batches:
+                g(*b)
+            zero[stage] = (m, g)
+    ostate = zero[1][1].state["opt"]
+    fields["zero1"] = {
+        "shards": MLM_ZERO_SHARDS, "steps": MLM_ZERO_STEPS,
+        "sharded_params": int(sum(ostate.sharded)), "replicated_params": int(
+            len(ostate.sharded) - sum(ostate.sharded)),
+        "param_rel_err_vs_stage0": param_errs(zero[1][0], zero[0][0], "BERT-base ZeRO-1",
+                                              MAIN_PATH_REL_TOL)}
+    del zero, ostate, base
+
+    table = torch.randn((MLM_VOCAB, 768), generator=gen).to(dev)
+    m0 = (0.01 * torch.randn((MLM_VOCAB, 768), generator=gen)).to(dev)
+    v0 = (0.01 * torch.rand((MLM_VOCAB, 768), generator=gen)).to(dev)
+    ids = first[0].reshape(-1)
+    g = IndexedSlices(ids, torch.randn((ids.shape[0], 768), generator=gen).to(dev), MLM_VOCAB)
+    b1, b2, eps, lr, t = 0.9, 0.999, 1e-8, 1e-3, 3
+
+    def dense_adam():
+        gd = g.dense()
+        m = b1 * m0 + (1 - b1) * gd
+        v = b2 * v0 + (1 - b2) * gd * gd
+        return table - lr * (m / (1 - b1 ** t)) / (torch.sqrt(v / (1 - b2 ** t)) + eps), m, v
+
+    got = sparse_adam_update(table, m0, v0, t, g, lr=lr, b1=b1, b2=b2, eps=eps)
+    touched = torch.zeros(MLM_VOCAB, dtype=torch.bool, device=dev)
+    touched[ids] = True
+    sparse_errs = {}
+    for name, a, d, old in zip(("param", "m", "v"), got, dense_adam(), (table, m0, v0)):
+        want = torch.where(touched[:, None], d, old)
+        sparse_errs[name] = rel_err(a, want)
+        if sparse_errs[name] > MAIN_PATH_REL_TOL or not torch.equal(a[~touched], old[~touched]):
+            raise AssertionError(f"sparse_adam_update {name}: rel err {sparse_errs[name]} or "
+                                 "an untouched row changed")
+    fields["sparse_update"] = {
+        "table": [MLM_VOCAB, 768], "ids": int(ids.shape[0]),
+        "unique_ids": int(touched.sum()),
+        "rel_err_vs_dense_on_touched_rows": {k: float(f"{v:.3e}") for k, v in sparse_errs.items()},
+        "sparse_adam_update_ms": round(time_cuda(lambda: sparse_adam_update(
+            table, m0, v0, t, g, lr=lr, b1=b1, b2=b2, eps=eps), iters=20), 4),
+        "dense_adam_whole_table_ms": round(time_cuda(dense_adam, iters=20), 4)}
+    return dict(example=example, bert_base_mlm=fields,
+                seconds=round(time.perf_counter() - t_phase, 2))
 
 
 def sage_train(csr: CSR, cfg, x: torch.Tensor, y: torch.Tensor, gen) -> tuple:
@@ -3851,6 +4196,16 @@ def main() -> int:
     fields, sage_launches = sage_train(csr, cfg, x, y, gen)
     emit("sage_train", **fields)
 
+    # -- 21a.-21b. the training stack: the GCN example's TrainGraph on the
+    #             tiered arxiv operator, fp32 and AMP; the BERT example and
+    #             BERT-base masked LM through TrainGraph (no port kernel) ----
+    fields, graph_launches = train_graph_gcn(op, cfg, x, y)
+    emit("train_graph_gcn", **fields)
+    fields, launched = counted(lambda: train_bert_phase(gen))
+    if launched:
+        raise AssertionError(f"train_bert launched port kernels: {launched}")
+    emit("train_bert", **fields, kernel_launches=launched)
+
     # -- 22.-23. the locality reorder: GCN inference on shuffled arxiv
     #            through make_operator(reorder="match") on panels, fused and
     #            ranges; SpGEMM: the arxiv 2-hop product, host and card --
@@ -3958,6 +4313,10 @@ def main() -> int:
              "train_launches_scope": f"one training step on ogbn-arxiv "
                                      f"(layout='{TRAIN_KERNELS[k]}'): GCN, GraphSAGE"}
             if k in TRAIN_KERNELS else {}),
+         **({"graph_train_launches": graph_launches[k],
+             "graph_train_launches_scope": "one TrainGraph step of the GCN example on "
+                                           "ogbn-arxiv (tiered), fp32 and AMP alike"}
+            if k in ("bucket_spmm", "gather_rows") else {}),
          **({"reorder_launches": reorder_launches[k],
              "reorder_launches_scope": "one GCN forward on shuffled ogbn-arxiv through "
                                        f"make_operator(reorder='{REORDER_METHOD}')"}

@@ -13,7 +13,12 @@ edge-list ops, GCN, GraphSAGE and GAT with full-batch training
 SpMM and GCN step on a shard mesh or over ``torch.distributed`` ranks
 (``parallel``, ``comm``, ``distributed``, ``train``), and the attention
 path (flash attention, multi-head attention and the BERT-style
-transformer encoder) for inference.
+transformer encoder), and the training stack: optimizers and schedules
+(``optim``), mixed precision and loss scaling (``amp``), training graphs
+with grad accumulation, activation checkpointing and ZeRO-1 (``graph``),
+checkpoints (``utils.checkpoint``), datasets and the loader (``data``),
+losses (``nn.losses``), with the GCN example under ``--amp`` and the
+BERT masked-LM example (``python -m of_spmm_tpu_torch.examples.train_bert``).
 
     from of_spmm_tpu_torch.data import load_graph, random_features
     from of_spmm_tpu_torch.models import GCN, bert_base, normalized_adjacency

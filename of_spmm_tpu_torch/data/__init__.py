@@ -1,4 +1,12 @@
 from of_spmm_tpu_torch.data.cache import cache_path, cache_root, cached
+from of_spmm_tpu_torch.data.dataset import (
+    DataLoader,
+    Dataset,
+    ShardedDataset,
+    TensorDataset,
+    TokenDataset,
+    shard_dataset,
+)
 from of_spmm_tpu_torch.data.graphs import (
     NAMED_CONFIGS,
     GraphConfig,
@@ -7,5 +15,6 @@ from of_spmm_tpu_torch.data.graphs import (
     synthetic_edges,
 )
 
-__all__ = ["cached", "cache_root", "cache_path", "NAMED_CONFIGS", "GraphConfig",
-           "load_graph", "random_features", "synthetic_edges"]
+__all__ = ["DataLoader", "Dataset", "TensorDataset", "TokenDataset", "ShardedDataset",
+           "shard_dataset", "cached", "cache_root", "cache_path", "NAMED_CONFIGS",
+           "GraphConfig", "load_graph", "random_features", "synthetic_edges"]

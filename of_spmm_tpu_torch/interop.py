@@ -1,12 +1,16 @@
-"""Carry parameters over from the JAX package's models (as numpy)."""
+"""Carry parameters and training state over from the JAX package (as
+numpy): each model's parameter tree as a ``state_dict``, and an
+optimizer state or a whole ``TrainGraph`` state as the port's."""
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping
 
 import numpy as np
 import torch
+
+from of_spmm_tpu_torch.utils.tree import nest, unnest
 
 
 def _f32(a) -> torch.Tensor:
@@ -145,3 +149,50 @@ def stage_params_from_numpy(stacked: Mapping[str, np.ndarray]) -> Dict[str, torc
     stacked on a leading stage axis) as the port's, which keeps the stage
     axis (``parallel.pipeline``)."""
     return OrderedDict((k, _f32(v)) for k, v in stacked.items())
+
+
+# ---------------------------------------------------------------------------
+# Training state: optimizer states and a whole TrainGraph state_dict.
+# ---------------------------------------------------------------------------
+
+ParamsFromNumpy = Callable[[Mapping], Mapping[str, torch.Tensor]]
+
+
+def _nested(params_from_numpy: ParamsFromNumpy, tree) -> dict:
+    """A JAX parameter-shaped tree (numpy leaves) converted by
+    ``params_from_numpy`` and nested by the port's parameter names."""
+    return nest(params_from_numpy(tree))
+
+
+def optimizer_state_from_numpy(state: Mapping, params_from_numpy: ParamsFromNumpy) -> dict:
+    """A JAX optimizer state (``{"step", "m", "v"}``, ``{"step", "accum",
+    "z"}``, ...; leaves as numpy) as the port's: each parameter-shaped
+    slot converted by ``params_from_numpy`` (e.g. ``gcn_params_from_numpy``)
+    and nested by the port's names, ``step`` an int32 tensor. Load it with
+    ``TrainGraph.load_state_dict`` (inside a whole state) or
+    ``optim.Optimizer.load_state_tree``."""
+    out = {}
+    for name, v in state.items():
+        out[name] = (torch.tensor(np.asarray(v), dtype=torch.int32) if name == "step"
+                     else _nested(params_from_numpy, v))
+    return out
+
+
+def train_state_from_numpy(sd: Mapping, params_from_numpy: ParamsFromNumpy) -> dict:
+    """A JAX ``TrainGraph.state_dict()`` (leaves as numpy: params, the
+    optimizer state, the scaler state, step_count) as the port's
+    ``TrainGraph.state_dict()`` tree, for ``TrainGraph.load_state_dict``:
+    a JAX graph's training continues in the port."""
+    state = {"opt": optimizer_state_from_numpy(sd["state"]["opt"], params_from_numpy)}
+    if "scaler" in sd["state"]:
+        state["scaler"] = {k: torch.tensor(np.asarray(v)) for k, v in sd["state"]["scaler"].items()}
+    return {"params": _nested(params_from_numpy, sd["params"]), "state": state,
+            "step_count": torch.tensor(int(np.asarray(sd["step_count"])), dtype=torch.int64)}
+
+
+def identity_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX tree whose nesting already is the port model's parameter
+    names (a module whose submodules are named as the JAX keys, e.g.
+    ``layer_0`` / ``layer_2`` for a Sequential): its leaves as float32
+    tensors under dotted names."""
+    return OrderedDict((k, _f32(v)) for k, v in unnest(params).items())

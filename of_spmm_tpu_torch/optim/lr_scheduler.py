@@ -1,9 +1,11 @@
 """Learning-rate schedules as plain ``step -> lr`` functions.
 
-Counterparts of ``cosine_annealing`` and ``warmup`` of the JAX package's
-``of_spmm_tpu/optim/lr_scheduler.py``. The step counts optimizer updates
-from 1, as there: the JAX ``adam`` evaluates its schedule at
-``state.step + 1``.
+Counterparts of the JAX package's ``of_spmm_tpu/optim/lr_scheduler.py``:
+``constant``, ``step_lr``, ``multistep_lr``, ``exponential_lr``,
+``cosine_annealing``, ``polynomial_lr`` and the ``warmup`` wrapper. The
+step counts optimizer updates from 1, as there: every JAX optimizer
+evaluates its schedule at ``state.step + 1``, and so do the port's
+(optim/optimizers.py).
 
 ``lambda_lr`` drives a ``torch.optim`` optimizer with such a schedule.
 ``LambdaLR`` evaluates its factor at k - 1 for the k-th update (once at
@@ -15,11 +17,42 @@ previous step's rate and warmup would start one step late.
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
 Schedule = Callable[[int], float]
+
+
+def constant(lr: float) -> Schedule:
+    return lambda step: float(lr)
+
+
+def step_lr(lr: float, step_size: int, gamma: float = 0.1) -> Schedule:
+    """Decay by ``gamma`` every ``step_size`` steps: lr gamma^((step - 1) // step_size)."""
+    return lambda step: lr * gamma ** ((step - 1) // step_size)
+
+
+def multistep_lr(lr: float, milestones: Sequence[int], gamma: float = 0.1) -> Schedule:
+    """lr gamma^k, k the number of milestones below ``step``."""
+    ms = sorted(int(m) for m in milestones)
+    return lambda step: lr * gamma ** sum(step > m for m in ms)
+
+
+def exponential_lr(lr: float, gamma: float) -> Schedule:
+    return lambda step: lr * gamma ** (step - 1)
+
+
+def polynomial_lr(lr: float, decay_steps: int, end_lr: float = 0.0,
+                  power: float = 1.0) -> Schedule:
+    """(lr - end_lr) (1 - t / decay_steps)^power + end_lr with
+    t = clip(step - 1, 0, decay_steps)."""
+
+    def f(step: int) -> float:
+        t = min(max(step - 1, 0), decay_steps)
+        return (lr - end_lr) * (1 - t / decay_steps) ** power + end_lr
+
+    return f
 
 
 def cosine_annealing(lr: float, t_max: int, eta_min: float = 0.0) -> Schedule:

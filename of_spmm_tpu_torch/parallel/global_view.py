@@ -32,10 +32,12 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Callable, Optional, Sequence, Tuple, Union
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from of_spmm_tpu_torch.utils.tree import tree_map
 
 SbpAtom = str  # "S0", "S1", ..., "B", "P"
 Sbp = Union[SbpAtom, Sequence[SbpAtom]]
@@ -137,15 +139,6 @@ class GlobalTensor:
         """The global value, on every process (a reshard to B on every
         mesh axis)."""
         return reshard(self, ("B",) * len(self.sbp)).local[0]
-
-
-def tree_map(fn: Callable, x):
-    """``fn`` on every leaf of a dict / list / tuple tree."""
-    if isinstance(x, dict):
-        return type(x)((k, tree_map(fn, v)) for k, v in x.items())
-    if isinstance(x, (list, tuple)):
-        return type(x)(tree_map(fn, v) for v in x)
-    return fn(x)
 
 
 def _take_block(local: torch.Tensor, d: int, ax) -> torch.Tensor:

@@ -1,3 +1,9 @@
+from of_spmm_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    load_sharded,
+    save_checkpoint,
+    save_sharded,
+)
 from of_spmm_tpu_torch.utils.config import FLAGS
 from of_spmm_tpu_torch.utils.device import resolve_device
 from of_spmm_tpu_torch.utils.roofline import (
@@ -16,7 +22,7 @@ from of_spmm_tpu_torch.utils.roofline import (
     time_cuda,
 )
 
-__all__ = ["FLAGS", "resolve_device", "PEAK_HBM_BYTES_PER_S", "PEAK_FP32_FLOPS",
+__all__ = ["FLAGS", "load_checkpoint", "load_sharded", "save_checkpoint", "save_sharded", "resolve_device", "PEAK_HBM_BYTES_PER_S", "PEAK_FP32_FLOPS",
            "PEAK_TENSOR16_FLOPS", "PEAK_TF32_FLOPS", "AttentionTraffic",
            "detect_peak_tensor16", "detect_peak_tf32",
            "SpmmTraffic", "PanelTraffic", "detect_peak_bw", "detect_peak_fp32", "spmm_report",

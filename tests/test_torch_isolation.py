@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of of_spmm_tpu_torch
-(the parallel strategies and the distributed example among them) loads
-neither JAX nor the JAX package, and its entry points run on the card
-unless the caller names another device."""
+(the parallel strategies, the training stack and the examples among
+them) loads neither JAX nor the JAX package, and its entry points run on
+the card unless the caller names another device."""
 
 import os
 import subprocess
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from of_spmm_tpu_torch.examples import train_dist
+from of_spmm_tpu_torch.examples import train_bert, train_dist, train_gcn
 from of_spmm_tpu_torch.models import GCN
 from of_spmm_tpu_torch.ops import make_operator
 from of_spmm_tpu_torch.parallel import (
@@ -36,6 +36,10 @@ print(len(names), bad, ",".join(names))
 PARALLEL = ["parallel." + m for m in ("mesh", "global_view", "tp", "sp", "ring", "ep",
                                       "pipeline", "ddp", "auto_sharding")]
 PARALLEL += ["examples.train_dist", "utils.errors"]
+# the training stack and its examples
+PARALLEL += ["optim.optimizers", "optim.indexed_slices", "optim.lr_scheduler", "amp", "graph",
+             "utils.checkpoint", "utils.tree", "data.dataset", "nn.losses",
+             "examples.train_bert", "examples.train_gcn"]
 
 
 def test_port_imports_no_jax():
@@ -72,3 +76,14 @@ def test_parallel_entry_points_default_to_the_card():
                 make()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_dist.main(["--steps", "1"])
+
+
+def test_example_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        assert next(train_bert.make_model(64, 16, 32, 4, 1, 64).parameters()).is_cuda
+        return
+    for main in (train_gcn.main, train_bert.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--steps", "1"] if main is train_bert.main else ["--epochs", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_bert.make_model(64, 16, 32, 4, 1, 64)

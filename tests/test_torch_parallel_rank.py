@@ -10,7 +10,9 @@ written to ``tmp_path``, on ``RankGroup(shape=..., axis_names=...)``
 group meets at a ``file://`` store there). World size 2 runs 1-D meshes;
 world size 4 runs tensor parallelism on (2, 2) dp x tp, the pipeline on
 (2, 2) stage x data and the global view's every 2-D transition on
-(2, 2), the rest on 1-D meshes of 4. Each rank saves what it got as
+(2, 2), the rest on 1-D meshes of 4; ZeRO-1 of a TrainGraph (Adam, the
+optimizer state S(0) over the ranks) on 1-D meshes of both sizes, with
+a save_sharded / load_sharded round trip. Each rank saves what it got as
 ``.npy``; each case is then its own test at rtol 1e-4 / atol 1e-5:
 a rank's block against the same block of the one-process result, a
 replicated result against the whole, and a gradient as the sum of the
@@ -35,13 +37,14 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCH_TIMEOUT = 240
 
 
-def drive(make_mesh, world):
+def drive(make_mesh, world, workdir):
     """Every strategy on meshes from ``make_mesh(shape, axis_names)``:
     {name: (kind, tensor, (shape, axis_names, sbp) or None)}; kind
     "block" (each shard's block of a global value under sbp), "same"
     (every rank holds the whole value), "share" (a gradient: the ranks'
     shares sum to it), "local" (stacked GlobalTensor blocks)."""
     import itertools
+    import os
 
     import numpy as np
     import torch
@@ -142,6 +145,57 @@ def drive(make_mesh, world):
     out["ddp.loss"] = ("same", step(rnd((16, 8), 12), rnd((16, 4), 13)), None)
     for k, v in model.named_parameters():
         out[f"ddp.param.{k}"] = ("same", v, None)
+
+    # ZeRO-1, 1-D: 3 Adam steps of a TrainGraph holding the optimizer state
+    # S(0) over "x" (the loss over ranks: each rank's block of the batch);
+    # each rank's state blocks, the parameters, stage 0 in this process,
+    # and a save_sharded / load_sharded round trip of the graph's state
+    from of_spmm_tpu_torch import optim
+    from of_spmm_tpu_torch.graph import GraphConfig, TrainGraph
+    from of_spmm_tpu_torch.utils.checkpoint import load_sharded, save_sharded
+    from of_spmm_tpu_torch.utils.tree import tree_map, unnest
+
+    class MLP(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layer_0 = Linear(8, 64, device="cpu", generator=gen(14))
+            self.layer_2 = Linear(64, 8, device="cpu", generator=gen(15))
+
+        def forward(self, a):
+            return self.layer_2(torch.relu(self.layer_0(a)))
+
+    mesh = make_mesh((world,), ("x",))
+    batches = [(rnd((16, 8), 16 + s), rnd((16, 8), 20 + s)) for s in range(3)]
+    graphs = {}
+    # LAMB's trust ratio reads whole tensors: over ranks its norms of a
+    # ZeRO-held parameter sum over the blocks
+    for opt, prefix in ((optim.adam(1e-2), "zero"),
+                        (optim.lamb(1e-2, weight_decay=0.01), "zero.lamb")):
+        for stage, m in ((1, mesh), (0, None)):
+            zm = MLP()
+            graphs[prefix, stage] = TrainGraph(lambda mod, a, b: ((mod(a) - b) ** 2).mean(), opt,
+                                               zm, GraphConfig(zero_stage=stage, zero_min_size=64),
+                                               mesh=m)
+            for a, b in batches:
+                loss = graphs[prefix, stage](a, b)["loss"]
+            for k, v in zm.named_parameters():
+                out[f"{prefix}.{'param' if stage else 'stage0.param'}.{k}"] = ("same", v, None)
+        out[f"{prefix}.loss"] = ("same", loss, None)
+    graphs = {stage: graphs["zero", stage] for stage in (1, 0)}
+    sd = graphs[1].state_dict()
+    for k, v in unnest(sd["state"]["opt"]).items():
+        if isinstance(v, par.GlobalTensor):
+            out[f"zero.state.{k}"] = ("local", v.local, None)
+    ck = os.path.join(workdir, "zero_ck")
+    save_sharded(ck, sd)
+    back = load_sharded(ck, tree_map(lambda v: par.GlobalTensor(torch.zeros_like(v.local), v.sbp,
+                                                                v.mesh)
+                                     if isinstance(v, par.GlobalTensor) else torch.zeros_like(v),
+                                     sd))
+    flat, got = unnest(sd), unnest(back)
+    same = [torch.equal(*(t.local if isinstance(t, par.GlobalTensor) else t
+                          for t in (flat[k], got[k]))) for k in flat]
+    out["zero.ckpt_roundtrip"] = ("same", torch.tensor(all(same)), None)
     return out
 
 
@@ -156,7 +210,7 @@ out_dir, store = sys.argv[1], sys.argv[2]
 rank, size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
 distributed.initialize(backend="gloo", init_method="file://" + store, world_size=size, rank=rank)
 for name, (kind, t, _) in drive(lambda shape, names: RankGroup(shape=shape, axis_names=names),
-                                size).items():
+                                size, out_dir).items():
     np.save(os.path.join(out_dir, f"{name}.r{rank}.npy"), t.detach().numpy())
 np.save(os.path.join(out_dir, f"isolation.r{rank}.npy"), np.array(not any(
     m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "of_spmm_tpu"
@@ -166,9 +220,9 @@ distributed.destroy()
 '''
 
 
-def _mesh_results(world):
+def _mesh_results(world, workdir):
     return drive(lambda shape, names: ShardMesh(["cpu"] * math.prod(shape), shape=shape,
-                                                axis_names=names), world)
+                                                axis_names=names), world, str(workdir))
 
 
 @pytest.fixture(scope="module", params=[2, 4])
@@ -188,7 +242,9 @@ def ranks(request, tmp_path_factory):
 
     def load(name):
         return [np.load(out / f"{name}.r{r}.npy") for r in range(world)]
-    return world, load, _mesh_results(world)
+    mesh_dir = tmp / "mesh"
+    mesh_dir.mkdir()
+    return world, load, _mesh_results(world, mesh_dir)
 
 
 CASES = ["tp.y", "tp.grad.w_in", "tp.grad.b_in", "tp.grad.w_out", "tp.grad.b_out",
@@ -197,7 +253,14 @@ CASES = ["tp.y", "tp.grad.w_in", "tp.grad.b_in", "tp.grad.w_out", "tp.grad.b_out
            for k in ("in_w", "out_w", "in_b", "out_b")),
          "ep.y", "ep.aux", *(f"ep.grad.{k}" for k in ("wg", "w1", "b1", "w2", "b2")),
          "gpipe.y", "gpipe.grad.w", "gpipe.grad.b", "1f1b.loss", "1f1b.grad.w", "1f1b.grad.b",
-         "reshard.local", "reshard.full", "ddp.loss", "ddp.param.w", "ddp.param.b"]
+         "reshard.local", "reshard.full", "ddp.loss", "ddp.param.w", "ddp.param.b",
+         *(f"zero.{w}.{k}" for w in ("param", "stage0.param")
+           for k in ("layer_0.w", "layer_0.b", "layer_2.w", "layer_2.b")),
+         *(f"zero.lamb.{w}.{k}" for w in ("param", "stage0.param")
+           for k in ("layer_0.w", "layer_0.b", "layer_2.w", "layer_2.b")),
+         "zero.loss", "zero.lamb.loss", "zero.ckpt_roundtrip",
+         *(f"zero.state.{s}.{k}" for s in ("m", "v") for k in ("layer_0.w", "layer_0.b",
+                                                                 "layer_2.w"))]
 
 
 def _close(got, want):
@@ -229,6 +292,22 @@ def test_rank_form_equals_shard_mesh(ranks, name):
                                                          shape=shape, axis_names=names)))
         for g, w in zip(got, blocks):
             _close(g, w.numpy())
+
+
+def test_rank_zero1_holds_blocks_and_equals_stage0(ranks):
+    """Each rank holds 1/world of each S(0) state leaf (the 8-row weight's
+    moments, the 64-row bias's and weight's) and, after 3 Adam (and 3
+    LAMB) steps, the parameters of stage 0 (one process, the whole
+    batch)."""
+    world, load, mesh = ranks
+    for s in ("m", "v"):
+        for k, rows in (("layer_0.w", 8), ("layer_0.b", 64), ("layer_2.w", 64)):
+            assert all(b.shape[:2] == (1, rows // world) for b in load(f"zero.state.{s}.{k}"))
+    for prefix in ("zero", "zero.lamb"):
+        for k in ("layer_0.w", "layer_0.b", "layer_2.w", "layer_2.b"):
+            for got in load(f"{prefix}.param.{k}"):
+                _close(got, mesh[f"{prefix}.stage0.param.{k}"][1].detach().numpy())
+    assert all(bool(r) for r in load("zero.ckpt_roundtrip"))
 
 
 def test_rank_processes_load_no_jax(ranks):

@@ -11,7 +11,11 @@
 - the warmup + cosine schedule step by step (and the LambdaLR offset), one
   clip + Adam update on fixed gradients, and three training steps against
   JAX's ``TrainGraph``;
-- dropout in train mode, and ``loss_fn`` running without it as JAX's does.
+- dropout in train mode, and ``loss_fn`` running without it as JAX's does;
+- the example under ``--amp`` (TrainGraph, bf16) against JAX's TrainGraph
+  with AMP at rtol 2e-2; the BERT example's loss and loop (2 layers,
+  width 32, vocabulary 64, seq 16) against the JAX example's loss and
+  TrainGraph on the same weights, then with AMP and grad accumulation.
 """
 
 import functools
@@ -29,7 +33,7 @@ from of_spmm_tpu.models.gcn import GCN as JGCN
 from of_spmm_tpu.ops import autograd as jag
 from of_spmm_tpu.sparse.formats import CSR as JCSR
 from of_spmm_tpu_torch.data.graphs import load_graph, random_features
-from of_spmm_tpu_torch.examples import train_gcn
+from of_spmm_tpu_torch.examples import train_bert, train_gcn
 from of_spmm_tpu_torch.interop import gcn_params_from_numpy
 from of_spmm_tpu_torch.models import GCN
 from of_spmm_tpu_torch.ops import autograd as ag
@@ -290,8 +294,76 @@ def test_dropout_train_mode_and_loss_fn_ignores_it():
 
 
 def test_example_refuses_amp():
-    with pytest.raises(SystemExit):
-        train_gcn.main(["--amp", "--device", "cpu"])
+    """--amp is ported: the example's ``train(..., amp=True)`` (TrainGraph,
+    bf16 compute on float32 masters) on cora for 3 epochs against the JAX
+    example's TrainGraph with ``GraphConfig(amp=True, clip_grad_norm=5.0)``
+    at rtol 2e-2 (bf16), and ``main(["--amp", ...])`` runs."""
+    op, jop, model, jmodel, params, x, dims = _gcn_pair("cora")
+    _, cfg = load_graph("cora", symmetrize=True)
+    _, y = random_features(cfg)
+    lr, epochs = 1e-2, 3
+    jsched = joptim.lr_scheduler.warmup(
+        joptim.lr_scheduler.cosine_annealing(lr, t_max=epochs), train_gcn.WARMUP_STEPS)
+    graph = TrainGraph(lambda p, xx, yy: jmodel.loss_fn(p, jop, xx, yy, impl="xla"),
+                       joptim.adam(lr=jsched), params,
+                       config=JTrainConfig(amp=True, clip_grad_norm=train_gcn.CLIP_NORM))
+    jlosses = [float(graph(jnp.asarray(x), jnp.asarray(y))["loss"]) for _ in range(epochs)]
+    losses = train_gcn.train(model, op, _t(x), _t(y).long(), epochs, lr, impl="cuda", amp=True)
+    assert losses.dtype == torch.float32
+    np.testing.assert_allclose(losses.numpy(), jlosses, rtol=2e-2)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert train_gcn.main(["--amp", "--device", "cpu", "--epochs", "2"]) == 0
+
+
+def _bert_pair(vocab=64, seq=16, width=32, layers=2):
+    """The JAX encoder (seeded) and the port's example model carrying its
+    weights: 2 layers, width 32, 4 heads, MLP 64."""
+    from of_spmm_tpu.models import TransformerEncoder as JEncoder
+    from of_spmm_tpu_torch.interop import transformer_params_from_numpy
+
+    jmodel = JEncoder(vocab_size=vocab, max_len=seq, embed_dim=width, num_heads=4,
+                      num_layers=layers, mlp_dim=2 * width)
+    params = jmodel.init(jax.random.key(0))
+    model = train_bert.make_model(vocab, seq, width, 4, layers, 2 * width, device="cpu")
+    model.load_state_dict(transformer_params_from_numpy(jax.tree.map(np.asarray, params)))
+    return jmodel, params, model
+
+
+def test_bert_example_matches_jax_loss_and_train_graph():
+    """train_bert's loss and loop (fp32, 3 steps) against the JAX example's
+    loss and TrainGraph (adamw, warmup-cosine) on the same weights and
+    batches; then --amp and --grad-acc 2 give finite losses, and main runs."""
+    from of_spmm_tpu import nn as jnn
+    steps, batch, seq, vocab = 3, 4, 16, 64
+    jmodel, params, model = _bert_pair(vocab, seq)
+    stream = train_bert.batch_stream(batch, seq, vocab, "cpu")
+    batches = [next(stream) for _ in range(steps)]
+
+    def jloss(p, inputs, targets, mask):
+        h = jmodel.apply(p, inputs)
+        logits = (h @ p["tok"]["weight"].T) / np.sqrt(128)
+        nll = jnn.losses.cross_entropy(logits.reshape(-1, vocab), targets.reshape(-1),
+                                       reduction="none")
+        m = mask.reshape(-1).astype(nll.dtype)
+        return (nll * m).sum() / jnp.maximum(m.sum(), 1.0)
+
+    jb = [tuple(jnp.asarray(t.numpy().astype(np.int32) if t.dtype != torch.bool else t.numpy())
+                for t in b) for b in batches]
+    _close(train_bert.mlm_loss(model, *batches[0]), jloss(params, *jb[0]))
+    sched = joptim.lr_scheduler.warmup(joptim.lr_scheduler.cosine_annealing(1e-3, t_max=3), 1)
+    jg = TrainGraph(jloss, joptim.adamw(sched, weight_decay=0.01), params, config=JTrainConfig())
+    jlosses = [float(jg(*b)["loss"]) for b in jb]
+    got = train_bert.train(train_bert.make_graph(model, steps, lr=1e-3), iter(batches), steps)
+    np.testing.assert_allclose(got, jlosses, rtol=RTOL)
+    for kw in (dict(amp=True), dict(grad_acc=2)):
+        _, _, m = _bert_pair(vocab, seq)
+        out = train_bert.train(train_bert.make_graph(m, steps, lr=1e-3, **kw), iter(batches),
+                               steps)
+        assert np.isfinite(out).all()
+        if kw.get("amp"):  # grad_acc's first loss is the mean of two half-batch means
+            np.testing.assert_allclose(out[0], jlosses[0], rtol=2e-2)
+    assert train_bert.main(["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+                            "--vocab", "64", "--amp", "--grad-acc", "2"]) == 0
 
 
 def test_registry_matches_jax():
