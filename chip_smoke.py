@@ -86,6 +86,21 @@ with torch.optim.SGD on a BERT-base classifier against the single-device
 step; every S / B / P transition of reshard on 1-D and (2, 2) meshes;
 and the TP and ring rank forms at NCCL world size 1.
 
+Then the vision path (the rest of nn/ and the CNNs; cuDNN convolutions,
+no kernel of the port): ResNet-50 (resnet50, 1,000 classes) on 32 x 3 x
+224 x 224 in float32, its eval logits against the same weights in
+float64 and one SGD training step held stage by stage (stem, 16 blocks,
+head) against float64 on the float32 run's own stage inputs and output
+gradients, with its ReLU branches and max-pool argmaxes replayed: every
+gradient, BatchNorm buffer and updated parameter; the whole step against
+float64 beside it (train-mode BatchNorm compounds float32 rounding about
+1.3x a block); VGG16 and AlexNet at B = 16, eval logits against float64
+and the dropout of a seeded generator reproducible; each with its eval
+and step times, images/s and peak memory; and each ported module of nn/
+(LSTM and GRU at T 128, B 32, 512 -> 1024, Conv3d, ConvTranspose2d,
+bilinear interpolate, GroupNorm, InstanceNorm2d, BatchNorm) on the card
+against the CPU, forward and gradients.
+
 Last, the microbenchmarks (of_spmm_tpu_torch/tools/): the SpMM inner
 loop (microbench_blockfma, microbench_mxu, microbench_cond, proto_fused)
 and the gathers (microbench_gather, microbench_gather2 with window and
@@ -131,8 +146,11 @@ from of_spmm_tpu_torch.examples import train_bert, train_dist
 from of_spmm_tpu_torch.graph import compute_call
 from of_spmm_tpu_torch.optim.indexed_slices import IndexedSlices, sparse_adam_update
 from of_spmm_tpu_torch.models import (
-    GAT, GCN, GraphSAGE, bert_base, mean_adjacency, normalized_adjacency)
+    GAT, GCN, GraphSAGE, alexnet, bert_base, mean_adjacency, normalized_adjacency, resnet50, vgg16)
+from of_spmm_tpu_torch import nn as onn
+from of_spmm_tpu_torch import optim
 from of_spmm_tpu_torch.nn import MultiheadAttention, gelu
+from of_spmm_tpu_torch.nn.losses import cross_entropy
 from of_spmm_tpu_torch.ops import (
     make_operator, place_operator, place_plan, place_spgemm_plan, spgemm, spgemm_device,
     spgemm_numeric, spgemm_numeric_padded, spgemm_numeric_products, spgemm_symbolic,
@@ -292,6 +310,11 @@ MOE_EXPERTS, MOE_TOPK, MOE_CF, MOE_TOKENS = 8, 2, 1.25, 4096
 PIPE_STAGES, PIPE_MICRO, PIPE_SEQ = 4, 8, 512
 DDP_BATCH, DDP_SEQ, DDP_LR = 8, 128, 1e-2
 RESHARD_SHAPE = (4096, 768)
+# the vision path: ResNet-50 at B 32 x 3 x 224 x 224 (eval, one SGD step),
+# VGG16 and AlexNet at B 16; the nn/ modules each at one size a user runs
+RESNET_BATCH, VISION_BATCH, VISION_SIZE, VISION_CLASSES = 32, 16, 224, 1000
+VISION_LR, VISION_MOMENTUM, VISION_ITERS = 0.1, 0.9, 10
+RNN_T, RNN_B, RNN_I, RNN_H = 128, 32, 512, 1024
 # kBatch, kListCap, kChunk of csrc/panels.cu and csrc/staged_spmm.cuh
 PANEL_BATCH, PANEL_LIST, PANEL_CHUNK = 8, 4096, 8
 UNIT_CAPS = (2048, 4096, 8192, 16384, 65536)  # work-unit edge caps the panel phases time
@@ -3104,6 +3127,396 @@ def parallel_ddp_global_phase(gen) -> dict:
                 rank_form=rank, seconds=round(time.perf_counter() - t_phase, 2))
 
 
+class PoolArgmax:
+    """Holds each 2-D max pool's argmax of one forward fixed for another,
+    as ReluMasks holds the ReLU branches: two forwards in float32 and
+    float64 may disagree on which of a window's two largest values (within
+    rounding of each other) is the largest, and the window's gradient then
+    goes to the other one. Under ``record()`` F.max_pool2d keeps each
+    call's argmax, its windows' least gap between the largest and the
+    second largest value where the largest is positive (``margin()``) and
+    the count of such windows whose two are equal (``ties``); under
+    ``replay()`` its i-th call takes argmax_i's elements."""
+
+    def __init__(self):
+        self.argmax, self.gaps, self.ties = [], [], 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        orig = F.max_pool2d
+        F.max_pool2d = fn
+        try:
+            yield self
+        finally:
+            F.max_pool2d = orig
+
+    def record(self):
+        orig = F.max_pool2d
+
+        def recording(h, kernel_size, stride=None, padding=0):
+            out, idx = orig(h, kernel_size, stride, padding, return_indices=True)
+            self.argmax.append(idx)
+            k, s, p = (tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+                       for v in (kernel_size, stride or kernel_size, padding))
+            win = F.unfold(F.pad(h.detach(), (p[1], p[1], p[0], p[0]), value=-float("inf")),
+                           k, stride=s)
+            top = win.reshape(h.shape[0], h.shape[1], k[0] * k[1], -1).topk(2, dim=2).values
+            gap = (top[:, :, 0] - top[:, :, 1])[top[:, :, 0] > 0]
+            self.ties += int((gap == 0).sum())
+            self.gaps.append(gap[gap > 0].min())
+            return out
+        return self._patched(recording)
+
+    def replay(self):
+        it = iter(self.argmax)
+
+        def replaying(h, kernel_size, stride=None, padding=0):
+            idx = next(it).to(h.device)
+            return h.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        return self._patched(replaying)
+
+    def flips(self, other: "PoolArgmax") -> int:
+        return sum(int((a != b).sum()) for a, b in zip(self.argmax, other.argmax))
+
+    def margin(self) -> float:
+        return float(f"{float(min(g.cpu() for g in self.gaps)):.3e}")
+
+
+def forward_macs(model: torch.nn.Module, x: torch.Tensor) -> int:
+    """Multiply-adds of one forward of ``model`` on ``x`` per sample,
+    counted from the layer shapes: each convolution's output elements
+    times its weight's (in / groups) k...k, each Linear's outputs times
+    its inputs."""
+    total, hooks = [0], []
+
+    def conv_hook(mod, _, out):
+        total[0] += out.numel() * (mod.w.numel() // mod.w.shape[0])
+
+    def linear_hook(mod, _, out):
+        total[0] += out.numel() * mod.w.shape[0]
+
+    for mod in model.modules():
+        if isinstance(mod, (onn.Conv1d, onn.Conv2d, onn.Conv3d)):
+            hooks.append(mod.register_forward_hook(conv_hook))
+        elif isinstance(mod, onn.Linear):
+            hooks.append(mod.register_forward_hook(linear_hook))
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0] // x.shape[0]
+
+
+def vision_figures(model: torch.nn.Module, x: torch.Tensor, y: torch.Tensor, macs: int,
+                   peak_fp32: float, train_kw: dict) -> dict:
+    """Eval forward and one training step (forward with ``train_kw``,
+    cross_entropy, backward, SGD with momentum) on the card: ms (CUDA
+    events), wall ms, images/s and peak MiB above what was held, beside
+    the FLOP bound at the fp32 peak (a step counted as 3x the forward's
+    multiply-adds). Trains ``model`` meanwhile."""
+    b = x.shape[0]
+    fields = {"forward_macs_per_image": macs}
+    with torch.inference_mode():
+        fwd = lambda: model(x)  # noqa: E731
+        _, fields["eval_peak_mib"] = peak_mib(fwd)
+        ms, wall = time_cuda(fwd, iters=VISION_ITERS), wall_ms(fwd, iters=VISION_ITERS)
+    bound = 2 * macs * b / peak_fp32 * 1e3
+    fields.update(eval_ms=round(ms, 4), eval_wall_ms=round(wall, 4),
+                  eval_images_per_s=round(b / (ms / 1e3), 1), eval_bound_ms=round(bound, 4),
+                  eval_fraction_of_fp32_peak=round(bound / ms, 4))
+    opt = optim.sgd(VISION_LR, momentum=VISION_MOMENTUM).init(model.parameters())
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        cross_entropy(model(x, **train_kw), y).backward()
+        opt.step()
+
+    _, fields["train_step_peak_mib"] = peak_mib(step)
+    ms, wall = time_cuda(step, iters=VISION_ITERS), wall_ms(step, iters=VISION_ITERS)
+    fields.update(train_step_ms=round(ms, 4), train_step_wall_ms=round(wall, 4),
+                  train_images_per_s=round(b / (ms / 1e3), 1),
+                  train_step_bound_ms=round(3 * bound, 4),
+                  train_step_fraction_of_fp32_peak=round(3 * bound / ms, 4))
+    return fields
+
+
+def eval_vs_float64(model: torch.nn.Module, x: torch.Tensor, what: str) -> tuple:
+    """The eval logits on the card and their max-relative error against
+    the same module and weights in float64 on the card."""
+    ref = copy.deepcopy(model).double()
+    with torch.inference_mode():
+        logits = model(x)
+        want = ref(x.double())
+    del ref
+    if logits.shape != (x.shape[0], VISION_CLASSES) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{what} logits {tuple(logits.shape)} not finite or wrong shape")
+    err = rel_err(logits.double(), want)
+    if err > MAIN_PATH_REL_TOL:
+        raise AssertionError(f"{what} eval logits vs float64: rel err {err}")
+    return logits, float(f"{err:.3e}")
+
+
+def resnet_stages(model) -> list:
+    """ResNet's forward as (name, fn(h, train)) stages: stem, each block,
+    then the pooled head (forward runs the same calls in the same order)."""
+    stages = [("stem", model.stem)]
+    stages += [(f"block_{i}", getattr(model, f"block_{i}")) for i in range(model.n_blocks)]
+    return stages + [("head", lambda h, train: model.classify(h))]
+
+
+def resnet_stage_check(m32, m64, stages32: list, x: torch.Tensor, y: torch.Tensor,
+                       relu: ReluMasks, pool: PoolArgmax) -> dict:
+    """Each stage of the float32 step held against the same stage in
+    float64 fed the float32 run's own stage input and output gradient
+    (the head: its loss), the float32 run's ReLU branches and max-pool
+    argmaxes replayed: its output, its input's gradient, its parameters'
+    gradients and its BatchNorm buffers, at MAIN_PATH_REL_TOL. Leaves
+    every stage's float64 gradients in ``m64``. Returns the worst error
+    of each kind and where it lies."""
+    p32, b32 = dict(m32.named_parameters()), dict(m32.named_buffers())
+    worst = {}
+
+    def note(kind: str, name: str, err: float) -> None:
+        if err > worst.get(kind, (0.0, ""))[0]:
+            worst[kind] = (err, name)
+
+    m64.zero_grad(set_to_none=True)
+    with relu.replay(), pool.replay():
+        for (name, fn), (h_in, h_out) in zip(resnet_stages(m64), stages32):
+            # a leaf input: the backward reaches this stage's parameters only
+            inp = (x if h_in is None else h_in.detach()).double().requires_grad_(h_in is not None)
+            out = fn(inp, True)
+            if name == "head":
+                loss = cross_entropy(out, y)
+                loss.backward()
+                note("loss", name,
+                     rel_err(h_out.detach().reshape(1).double(), loss.detach().reshape(1)))
+            else:
+                out.backward(h_out.grad.double())
+                note("output", name, rel_err(h_out.detach().double(), out.detach()))
+            if h_in is not None:
+                note("input_grad", name, rel_err(h_in.grad.double(), inp.grad))
+            mine = (f"{name}.", f"{name}_")
+            for n, p in m64.named_parameters():
+                if n.startswith(mine):
+                    note("param_grad", n, rel_err(p32[n].grad.double(), p.grad))
+            for n, b in m64.named_buffers():
+                if n.startswith(mine):
+                    note("bn_buffer", n, rel_err(b32[n].double(), b))
+    bad = {k: v for k, v in worst.items() if v[0] > MAIN_PATH_REL_TOL}
+    if bad:
+        raise AssertionError(f"ResNet-50 train step, stage by stage vs float64: {bad}")
+    return {k: {"max_rel_err": float(f"{v[0]:.3e}"), "at": v[1]} for k, v in worst.items()}
+
+
+def resnet_main_path(gen, peak_fp32: float) -> dict:
+    """ResNet-50 (resnet50(), 1,000 classes, uncut, seeded weights) on
+    RESNET_BATCH x 3 x 224 x 224 in float32: the eval logits against
+    float64; one training step (forward with train=True, cross_entropy,
+    backward, optim.sgd with momentum), run stage by stage (stem, 16
+    blocks, head; ResNet.forward's calls) with the float32 run's ReLU
+    branches and max-pool argmaxes recorded (ReluMasks, PoolArgmax). Each
+    stage is held against itself in float64 on the float32 run's stage
+    input and output gradient (``resnet_stage_check``): every gradient,
+    BatchNorm buffer, stage output and the loss at MAIN_PATH_REL_TOL, and
+    the parameters after SGD against SGD on those float64 gradients. The
+    whole step against the float64 step from the same weights and input
+    (branches replayed) is reported beside it, not held: train-mode
+    BatchNorm compounds float32 rounding about 1.3x a block, so the last
+    blocks' grads end 1.2e-4 off float64 whatever computes them. The
+    flips against float64's own branches and the margins are reported;
+    then the eval and step times."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    model = resnet50(generator=torch.Generator().manual_seed(11))
+    x = torch.randn((RESNET_BATCH, 3, VISION_SIZE, VISION_SIZE), generator=gen).to(dev)
+    y = torch.randint(0, VISION_CLASSES, (RESNET_BATCH,), generator=gen).to(dev)
+    _, eval_err = eval_vs_float64(model, x, "ResNet-50")
+
+    m32, e2e64, local64, own64 = (copy.deepcopy(model) for _ in range(4))
+    for m in (e2e64, local64, own64):
+        m.double()
+    relu, pool = ReluMasks(), PoolArgmax()
+    stages32, h = [], None
+    m32.zero_grad(set_to_none=True)
+    with relu.record(), pool.record():
+        for _, fn in resnet_stages(m32):
+            out = fn(x if h is None else h, True)
+            out.retain_grad()
+            stages32.append((h, out))
+            h = out
+        loss32 = cross_entropy(h, y)
+        stages32[-1] = (stages32[-1][0], loss32)
+    loss32.backward()
+    got = (loss32.detach(), {n: p.grad.detach().clone() for n, p in m32.named_parameters()})
+    stage_errs = resnet_stage_check(m32, local64, stages32, x, y, relu, pool)
+
+    # float64 on its own branches: the flips, and how far each stage's
+    # output has drifted from float32's
+    own_relu, own_pool = ReluMasks(), PoolArgmax()
+    drift, h = [], x.double()
+    with torch.no_grad(), own_relu.record(), own_pool.record():
+        for (name, fn), (_, out32) in zip(resnet_stages(own64)[:-1], stages32):
+            h = fn(h, True)
+            drift.append(float(f"{rel_err(out32.detach().double(), h):.2e}"))
+    flips = {"relu_flips": relu.flips(own_relu), "relu_margin": relu.margin(),
+             "maxpool_flips": pool.flips(own_pool), "maxpool_margin": pool.margin(),
+             "maxpool_positive_ties": pool.ties, "train_stage_output_drift_vs_float64": drift}
+    del own64, own_relu, own_pool, stages32, h, out
+    with relu.replay(), pool.replay():
+        want = grads_of(e2e64, lambda: cross_entropy(e2e64(x.double(), train=True), y))
+    del relu, pool
+    e2e = {"loss": rel_err(got[0].reshape(1).double(), want[0].reshape(1))}
+    e2e.update({n: rel_err(g.double(), want[1][n]) for n, g in got[1].items()})
+    worst = max((k for k in e2e if k != "loss"), key=e2e.get)
+    buf = {n: rel_err(b.double(), dict(e2e64.named_buffers())[n]) for n, b in m32.named_buffers()}
+    worst_buf = max(buf, key=buf.get)
+    for m in (m32, local64, e2e64):
+        optim.sgd(VISION_LR, momentum=VISION_MOMENTUM).init(m.parameters()).step()
+    step_errs = param_errs(m32, local64, "ResNet-50 parameters after SGD vs float64 (stage "
+                           "grads)", MAIN_PATH_REL_TOL)
+    e2e_step = rel_errs(dict(m32.named_parameters()), dict(e2e64.named_parameters()),
+                        "ResNet-50 parameters after SGD vs float64 (whole step)", float("inf"))
+    worst_step = max(e2e_step, key=e2e_step.get)
+    loss = float(got[0])
+    del m32, local64, e2e64, got, want
+    macs = forward_macs(model, x[:1])
+    figs = vision_figures(model, x, y, macs, peak_fp32, {"train": True})
+    return dict(model="resnet50 (Bottleneck (3, 4, 6, 3), width 64, 1000 classes, uncut)",
+                params=onn.param_count(model), batch=RESNET_BATCH,
+                input=[3, VISION_SIZE, VISION_SIZE], dtype="float32", tf32=False,
+                step="forward(train=True) + cross_entropy + backward + "
+                     f"sgd(lr={VISION_LR}, momentum={VISION_MOMENTUM})",
+                eval_logits_rel_err_vs_float64=eval_err, loss=loss,
+                train_stage_rel_err_vs_float64=stage_errs,
+                train_params_after_sgd_vs_float64=step_errs,
+                train_end_to_end_rel_err_vs_float64={
+                    "loss": float(f"{e2e['loss']:.3e}"), "worst_grad": worst,
+                    "worst_grad_rel_err": float(f"{e2e[worst]:.3e}"),
+                    "grads_above_1e-4": sum(1 for k, v in e2e.items() if k != "loss" and v > 1e-4),
+                    "worst_bn_buffer": worst_buf,
+                    "worst_bn_buffer_rel_err": float(f"{buf[worst_buf]:.3e}"),
+                    "worst_param_after_sgd": worst_step,
+                    "worst_param_after_sgd_rel_err": e2e_step[worst_step]},
+                **flips, **figs, seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def vision_models_phase(gen, peak_fp32: float) -> dict:
+    """VGG16 and AlexNet (1,000 classes, uncut, seeded weights) on
+    VISION_BATCH x 3 x 224 x 224 in float32: the eval logits against
+    float64; a train-mode forward with a seeded CUDA generator twice (its
+    dropout masks reproducible: the two equal, both off the eval logits)
+    and once without a generator (no dropout: the eval logits); then the
+    eval and training-step times."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    x = torch.randn((VISION_BATCH, 3, VISION_SIZE, VISION_SIZE), generator=gen).to(dev)
+    y = torch.randint(0, VISION_CLASSES, (VISION_BATCH,), generator=gen).to(dev)
+    rows = {}
+    for seed, (name, make) in enumerate((("vgg16", vgg16), ("alexnet", alexnet)), 12):
+        model = make(generator=torch.Generator().manual_seed(seed))
+        logits, err = eval_vs_float64(model, x, name)
+        with torch.inference_mode():
+            a, b = (model(x, train=True, generator=torch.Generator(device=dev).manual_seed(7))
+                    for _ in range(2))
+            plain = model(x, train=True)
+        no_dropout_err = rel_err(plain, logits)
+        if not torch.equal(a, b) or rel_err(a, logits) < 1e-3 or no_dropout_err > MAIN_PATH_REL_TOL:
+            raise AssertionError(f"{name} dropout: two seeded runs equal {torch.equal(a, b)}, "
+                                 f"off eval by {rel_err(a, logits)}; without a generator "
+                                 f"{no_dropout_err} off eval")
+        rows[name] = {
+            "params": onn.param_count(model), "eval_logits_rel_err_vs_float64": err,
+            "dropout": {"seeded_runs_equal": True,
+                        "rel_change_vs_eval": float(f"{rel_err(a, logits):.3e}"),
+                        "no_generator_rel_err_vs_eval": float(f"{no_dropout_err:.3e}")},
+            **vision_figures(model, x, y, forward_macs(model, x[:1]), peak_fp32,
+                             {"train": True,
+                              "generator": torch.Generator(device=dev).manual_seed(8)})}
+        del model, logits, a, b, plain
+    return dict(models="vgg16 (configuration D), alexnet (torchvision's single tower); 1000 "
+                       "classes, uncut", batch=VISION_BATCH, input=[3, VISION_SIZE, VISION_SIZE],
+                dtype="float32", tf32=False,
+                step="forward(train=True, generator) + cross_entropy + backward + "
+                     f"sgd(lr={VISION_LR}, momentum={VISION_MOMENTUM})",
+                **rows, seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def _leaves(out) -> list:
+    return [t for o in out for t in _leaves(o)] if isinstance(out, (tuple, list)) else [out]
+
+
+def nn_module_cases() -> list:
+    """(name, make(device, generator), input shapes, forward kwargs): each
+    ported module at one size a user would run."""
+    return [
+        ("lstm", lambda d, g: onn.LSTM(RNN_I, RNN_H, device=d, generator=g),
+         [(RNN_T, RNN_B, RNN_I)], {}),
+        ("gru", lambda d, g: onn.GRU(RNN_I, RNN_H, device=d, generator=g),
+         [(RNN_T, RNN_B, RNN_I)], {}),
+        ("conv3d", lambda d, g: onn.Conv3d(16, 32, 3, padding=1, device=d, generator=g),
+         [(4, 16, 16, 56, 56)], {}),
+        ("conv_transpose2d_stride2", lambda d, g: onn.ConvTranspose2d(
+            64, 32, 4, stride=2, padding=1, device=d, generator=g), [(8, 64, 56, 56)], {}),
+        ("interpolate_bilinear_x2", lambda d, g: onn.Upsample(2, mode="bilinear"),
+         [(8, 64, 56, 56)], {}),
+        ("groupnorm", lambda d, g: onn.GroupNorm(32, 256, device=d), [(8, 256, 56, 56)], {}),
+        ("instancenorm2d", lambda d, g: onn.InstanceNorm2d(256, affine=True, device=d),
+         [(8, 256, 56, 56)], {}),
+        ("batchnorm_train", lambda d, g: onn.BatchNorm(256, device=d), [(8, 56, 56, 256)],
+         {"train": True}),
+    ]
+
+
+def nn_modules_phase(gen) -> dict:
+    """Each ported module of nn/ on the card against the same module (the
+    same weights) on the CPU on the same inputs: the outputs, and where
+    the module has parameters the gradients of sum(out * cot) with
+    respect to them and to the inputs (BatchNorm's updated buffers too),
+    at MAIN_PATH_REL_TOL max-relative; the card's forward and forward +
+    backward ms."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    rows = {}
+    for i, (name, make, shapes, kw) in enumerate(nn_module_cases()):
+        host = make("cpu", torch.Generator().manual_seed(20 + i))
+        card = copy.deepcopy(host).to(dev)
+        xs = [torch.randn(shape, generator=gen) for shape in shapes]
+        has_params = any(True for _ in host.parameters())
+        results = []
+        for mod, inputs in ((host, [x.clone().requires_grad_(has_params) for x in xs]),
+                            (card, [x.to(dev).requires_grad_(has_params) for x in xs])):
+            out = _leaves(mod(*inputs, **kw))
+            got = {f"out{j}": o for j, o in enumerate(out)}
+            if has_params:
+                cots = [torch.randn(o.shape, generator=torch.Generator().manual_seed(j)).to(
+                    o.device) for j, o in enumerate(out)]
+                sum((o * c).sum() for o, c in zip(out, cots)).backward()
+                got.update({f"grad_{n}": p.grad for n, p in mod.named_parameters()})
+                got.update({f"grad_input{j}": x.grad for j, x in enumerate(inputs)})
+                got.update({f"buffer_{n}": b for n, b in mod.named_buffers()})
+            results.append({k: v.detach().cpu() for k, v in got.items()})
+        errs = rel_errs(results[1], results[0], f"nn {name} card vs CPU")
+        xd = [x.to(dev).requires_grad_(has_params) for x in xs]
+        with torch.inference_mode():
+            fwd_ms = time_cuda(lambda: card(*[x.detach() for x in xd], **kw), iters=VISION_ITERS)
+
+        def fwd_bwd():
+            sum(o.sum() for o in _leaves(card(*xd, **kw))).backward()
+
+        row = {"input": [list(s) for s in shapes], "params": onn.param_count(card),
+               "max_rel_err_vs_cpu": max(errs.values()), "worst": max(errs, key=errs.get),
+               "compared": sorted(errs), "forward_ms": round(fwd_ms, 4)}
+        if has_params:
+            row["forward_backward_ms"] = round(time_cuda(fwd_bwd, iters=VISION_ITERS), 4)
+        rows[name] = row
+        del host, card, results, xd
+    return dict(modules=rows, dtype="float32", tf32=False,
+                seconds=round(time.perf_counter() - t_phase, 2))
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
@@ -4257,6 +4670,18 @@ def main() -> int:
                         ("parallel_pipeline", parallel_pipeline_phase),
                         ("parallel_ddp_global", parallel_ddp_global_phase)):
         fields, launched = counted(lambda: phase(gen))
+        if launched:
+            raise AssertionError(f"{name} launched port kernels: {launched}")
+        emit(name, **fields, kernel_launches=launched)
+
+    # -- 33a.-33c. the vision path: ResNet-50, VGG16 and AlexNet at ImageNet
+    #             width, and each module of nn/ on the card against the CPU
+    # (the JAX package computes these with XLA outside any Pallas kernel, so
+    # the port launches none of its kernels there)
+    for name, phase in (("resnet_main_path", lambda: resnet_main_path(gen, peak_fp32)),
+                        ("vision_models", lambda: vision_models_phase(gen, peak_fp32)),
+                        ("nn_modules", lambda: nn_modules_phase(gen))):
+        fields, launched = counted(phase)
         if launched:
             raise AssertionError(f"{name} launched port kernels: {launched}")
         emit(name, **fields, kernel_launches=launched)

@@ -5,7 +5,7 @@ optimizer state or a whole ``TrainGraph`` state as the port's."""
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -149,6 +149,85 @@ def stage_params_from_numpy(stacked: Mapping[str, np.ndarray]) -> Dict[str, torc
     stacked on a leading stage axis) as the port's, which keeps the stage
     axis (``parallel.pipeline``)."""
     return OrderedDict((k, _f32(v)) for k, v in stacked.items())
+
+
+def conv_params_from_numpy(params: Mapping[str, np.ndarray], prefix: str = ""
+                           ) -> Dict[str, torch.Tensor]:
+    """A JAX convolution's ``{"w"[, "b"]}`` (Conv1d / 2d / 3d, OI*;
+    ConvTranspose1d / 2d / 3d, IO*) as a ``state_dict`` for the port's
+    module of the same name (same keys, same shapes), under ``prefix``."""
+    if "w" not in params or not set(params) <= {"w", "b"}:
+        raise KeyError(f"conv params need keys ['w'] (optional ['b']), got {sorted(params)}")
+    return OrderedDict((prefix + k, _f32(params[k])) for k in ("w", "b") if k in params)
+
+
+def rnn_params_from_numpy(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A JAX LSTM's, GRU's or RNN's ``{"w_ih", "w_hh", "b_ih", "b_hh"}``
+    (torch's gate order) as a ``state_dict`` for ``nn.LSTM`` / ``GRU`` /
+    ``RNN``."""
+    return _exact(params, ("w_ih", "w_hh", "b_ih", "b_hh"), "RNN")
+
+
+def _with_state(params: Mapping, state: Optional[Mapping]) -> Dict[str, torch.Tensor]:
+    """A JAX tree of parameters and one of mutable state (BatchNorm's
+    ``mean`` / ``var``; ``None`` where a module has none) as one
+    ``state_dict`` under the trees' dotted keys: the state's leaves are
+    the port modules' buffers."""
+    sd = identity_params_from_numpy(params)
+    sd.update(identity_params_from_numpy(_drop_none(state or {})))
+    return sd
+
+
+def _drop_none(tree: Mapping) -> dict:
+    return {k: _drop_none(v) if isinstance(v, Mapping) else v
+            for k, v in tree.items() if v is not None}
+
+
+def _numbered(params: Mapping, prefix: str, n: int) -> None:
+    keys = sorted(k for k in params if k.startswith(prefix))
+    if keys != sorted(f"{prefix}{i}" for i in range(n)):
+        raise KeyError(f"expected keys {prefix}0..{prefix}{n - 1}, got {keys}")
+
+
+def sequential_params_from_numpy(params: Mapping[str, Mapping],
+                                 state: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """A JAX Sequential's ``{"layer_i": {...}}`` (and its ``init_state()``
+    or a ``new_state``, for BatchNorm children) as a ``state_dict`` for
+    ``nn.Sequential`` built of the same layers: ``layer_i.<key>``."""
+    _numbered(params, "layer_", len(params))
+    return _with_state(params, state)
+
+
+def resnet_params_from_numpy(params: Mapping[str, Mapping],
+                             state: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
+    """A JAX ResNet's parameters (``stem_conv``, ``stem_bn``,
+    ``block_<i>/{conv<j>, bn<j>, down_conv, down_bn}``, ``head``) and its
+    BatchNorm state (``init_state()`` or the ``new_state`` of a training
+    forward) as a ``state_dict`` for ``models.ResNet``: the running
+    ``mean`` / ``var`` become the BatchNorms' buffers."""
+    _numbered(params, "block_", sum(1 for k in params if k.startswith("block_")))
+    if set(state) != {k for k in params if k.startswith(("block_", "stem_bn"))}:
+        raise KeyError(f"ResNet state keys {sorted(state)} do not match its parameters'")
+    return _with_state(params, state)
+
+
+def _convnet_params(params: Mapping[str, Mapping], n_convs: int, what: str
+                    ) -> Dict[str, torch.Tensor]:
+    if set(params) != {f"conv_{i}" for i in range(n_convs)} | {f"fc_{i}" for i in range(3)}:
+        raise KeyError(f"{what} params need conv_0..conv_{n_convs - 1} and fc_0..fc_2, "
+                       f"got {sorted(params)}")
+    return identity_params_from_numpy(params)
+
+
+def vgg16_params_from_numpy(params: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
+    """The JAX VGG16's ``{"conv_i": {"w", "b"}, "fc_i": {"w", "b"}}`` as a
+    ``state_dict`` for ``models.VGG16`` (Linear weights stay (in, out))."""
+    return _convnet_params(params, 13, "VGG16")
+
+
+def alexnet_params_from_numpy(params: Mapping[str, Mapping]) -> Dict[str, torch.Tensor]:
+    """The JAX AlexNet's tree as a ``state_dict`` for ``models.AlexNet``."""
+    return _convnet_params(params, 5, "AlexNet")
 
 
 # ---------------------------------------------------------------------------

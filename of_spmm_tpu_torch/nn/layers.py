@@ -1,4 +1,5 @@
-"""Dense layers of the transformer path, as ``torch.nn.Module``s.
+"""Dense layers, norms and activations, as ``torch.nn.Module``s and
+functions.
 
 Counterparts of the JAX package's ``of_spmm_tpu/nn/layers.py`` modules,
 with the same parameter names, shapes and initial distributions, so a
@@ -12,9 +13,22 @@ JAX parameter tree carries over unchanged (interop.py):
 - ``Embedding``: the package gather, so an index outside the table gives
   a zero row (``F.embedding`` would raise).
 - ``gelu``: the tanh approximation, as ``jax.nn.gelu`` is by default.
+- ``BatchNorm``: features on the **last** axis (``forward``), or on axis
+  1 (``channels_first``, NCHW, which ResNet uses). ``gamma`` / ``beta``,
+  running ``mean`` / ``var`` as buffers. ``train=True`` normalises with
+  the batch's population variance and updates the buffers in place,
+  (1 - m) * running + m * batch with the unbiased batch variance; the
+  JAX module returns ``(y, new_state)`` instead. Eval mode uses the
+  buffers. Both are ``F.batch_norm`` on the channel axis.
+- ``GroupNorm`` (``F.group_norm``) and ``InstanceNorm2d``
+  (``F.instance_norm``, ``affine=False`` by default), population variance.
+- The activations ``relu``, ``silu``, ``sigmoid``, ``tanh``, ``softmax``,
+  ``log_softmax`` (axis -1), ``leaky_relu`` (slope 0.01) and ``elu``
+  (alpha 1), with ``jax.nn``'s defaults. ``relu`` looks ``torch.relu`` up
+  at each call, so a patched ``torch.relu`` sees every call.
 
-Each module takes ``device`` (None: the card, raising without one) and an
-optional CPU ``generator`` for its initial values.
+Each module with parameters takes ``device`` (None: the card, raising
+without one) and an optional CPU ``generator`` for its initial values.
 """
 
 from __future__ import annotations
@@ -34,6 +48,18 @@ def _uniform(shape, bound: float, device, generator) -> torch.nn.Parameter:
     return torch.nn.Parameter(((u * 2 - 1) * bound).to(device))
 
 
+def kaiming_uniform(shape, fan_in: int, device, generator) -> torch.nn.Parameter:
+    """Uniform in +-sqrt(1 / fan_in) (the JAX package's ``_kaiming_uniform``)."""
+    return _uniform(shape, math.sqrt(1.0 / max(fan_in, 1)), device, generator)
+
+
+def _affine(n: int, affine: bool, device):
+    if not affine:
+        return None, None
+    return (torch.nn.Parameter(torch.ones(n, device=device)),
+            torch.nn.Parameter(torch.zeros(n, device=device)))
+
+
 class Linear(torch.nn.Module):
     """y = x @ w + b (w stored (in_features, out_features))."""
 
@@ -41,9 +67,8 @@ class Linear(torch.nn.Module):
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
-        bound = math.sqrt(1.0 / max(in_features, 1))
-        self.w = _uniform((in_features, out_features), bound, dev, generator)
-        self.b = _uniform((out_features,), bound, dev, generator) if use_bias else None
+        self.w = kaiming_uniform((in_features, out_features), in_features, dev, generator)
+        self.b = kaiming_uniform((out_features,), in_features, dev, generator) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = x @ self.w
@@ -115,3 +140,88 @@ class Embedding(torch.nn.Module):
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """GELU, tanh approximation (``jax.nn.gelu``'s default form)."""
     return F.gelu(x, approximate="tanh")
+
+
+class BatchNorm(torch.nn.Module):
+    """Batch normalisation over the features of the last axis, with running
+    statistics (buffers ``mean`` / ``var``) updated in place under
+    ``train=True``."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 affine: bool = True, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.num_features, self.eps, self.momentum = int(num_features), float(eps), float(momentum)
+        self.gamma, self.beta = _affine(self.num_features, affine, dev)
+        self.register_buffer("mean", torch.zeros(self.num_features, device=dev))
+        self.register_buffer("var", torch.ones(self.num_features, device=dev))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.channels_first(x.movedim(-1, 1), train).movedim(1, -1)
+
+    def channels_first(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The same normalisation of ``x`` with its features on axis 1."""
+        return F.batch_norm(x, self.mean, self.var, self.gamma, self.beta, training=train,
+                            momentum=self.momentum, eps=self.eps)
+
+
+class GroupNorm(torch.nn.Module):
+    """Group normalisation over (N, C, *spatial) inputs."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5,
+                 affine: bool = True, device=None):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError("num_channels must divide num_groups")
+        dev = resolve_device(device)
+        self.num_groups, self.eps = int(num_groups), float(eps)
+        self.gamma, self.beta = _affine(int(num_channels), affine, dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x, self.num_groups, self.gamma, self.beta, self.eps)
+
+
+class InstanceNorm2d(torch.nn.Module):
+    """Per-(sample, channel) normalisation over H and W of NCHW inputs."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = False,
+                 device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.eps = float(eps)
+        self.gamma, self.beta = _affine(int(num_features), affine, dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.instance_norm(x, weight=self.gamma, bias=self.beta, eps=self.eps)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
+def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.log_softmax(x, dim=axis)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope)
+
+
+def elu(x: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    return F.elu(x, alpha)

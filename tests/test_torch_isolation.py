@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of of_spmm_tpu_torch
-(the parallel strategies, the training stack and the examples among
-them) loads neither JAX nor the JAX package, and its entry points run on
-the card unless the caller names another device."""
+(the parallel strategies, the training stack, the examples and the
+vision models among them) loads neither JAX nor the JAX package, and its
+entry points run on the card unless the caller names another device."""
 
 import os
 import subprocess
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from of_spmm_tpu_torch.examples import train_bert, train_dist, train_gcn
-from of_spmm_tpu_torch.models import GCN
+from of_spmm_tpu_torch.models import GCN, resnet50, vgg16
 from of_spmm_tpu_torch.ops import make_operator
 from of_spmm_tpu_torch.parallel import (
     MoELayer, RingAttention, SequenceParallelAttention, init_tp_mlp)
@@ -40,6 +40,9 @@ PARALLEL += ["examples.train_dist", "utils.errors"]
 PARALLEL += ["optim.optimizers", "optim.indexed_slices", "optim.lr_scheduler", "amp", "graph",
              "utils.checkpoint", "utils.tree", "data.dataset", "nn.losses",
              "examples.train_bert", "examples.train_gcn"]
+# the rest of nn/ and the vision models
+PARALLEL += ["nn.conv", "nn.volumetric", "nn.rnn", "nn.extras", "nn.module", "models.resnet",
+             "models.vision"]
 
 
 def test_port_imports_no_jax():
@@ -87,3 +90,13 @@ def test_example_entry_points_default_to_the_card():
             main(["--steps", "1"] if main is train_bert.main else ["--epochs", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_bert.make_model(64, 16, 32, 4, 1, 64)
+
+
+def test_vision_models_default_to_the_card():
+    if torch.cuda.is_available():
+        assert next(resnet50().parameters()).is_cuda and next(resnet50().buffers()).is_cuda
+        assert next(vgg16().parameters()).is_cuda
+        return
+    for make in (resnet50, vgg16):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
