@@ -101,6 +101,24 @@ and step times, images/s and peak memory; and each ported module of nn/
 bilinear interpolate, GroupNorm, InstanceNorm2d, BatchNorm) on the card
 against the CPU, forward and gradients.
 
+Then the embedding path and the input pipeline (no kernel of the port;
+each phase holds its launches at none): ShardedEmbedding at MLPerf
+DLRM's Criteo Terabyte table (40,000,000 x 128) S(0) over four shards of
+the card, B = 65,536 seeded ids with about 1% outside the table, its
+forward against a dense zero-filled lookup bit for bit, the table's grad
+against the dense lookup's, one SGD step, the dense grad's zero-fill
+and the same lookup through gather_rows on the flattened table (its
+launches counted apart); a MultiTableEmbedding of four CachedEmbeddings
+(dim 128, 2^23-row PersistentTables behind 2^17 cache slots on the
+card) through 12 steps of the JAX training loop on power-law ids, with
+LRU evictions and dirty write-backs, held against the same ids on the
+CPU (slots and meta equal), then flush and a snapshot round trip, the
+phases in profiler ranges and the losses through SummaryWriter; and
+512 seeded 375 x 500 images written into record files, read through
+RecordDataset, RandomResizedCrop / flip / Normalize and the DataLoader at
+0 and 8 workers (the two passes bit-equal), then ResNet-50 trained from
+them, beside resnet_main_path's step.
+
 Last, the microbenchmarks (of_spmm_tpu_torch/tools/): the SpMM inner
 loop (microbench_blockfma, microbench_mxu, microbench_cond, proto_fused)
 and the gathers (microbench_gather, microbench_gather2 with window and
@@ -139,14 +157,19 @@ import torch
 import torch.nn.functional as F
 
 from of_spmm_tpu_torch import distributed, native
-from of_spmm_tpu_torch.data import load_graph, random_features
+from of_spmm_tpu_torch.data import (
+    Compose, DataLoader, Dataset, Normalize, RandomHorizontalFlip, RandomResizedCrop,
+    RecordDataset, RecordWriter, load_graph, random_features)
+from of_spmm_tpu_torch.data import vision as vision_data
+from of_spmm_tpu_torch.embedding import CachedEmbedding, MultiTableEmbedding, PersistentTable
 from of_spmm_tpu_torch.amp import DEFAULT_POLICY
 from of_spmm_tpu_torch.examples.train_gcn import make_graph, make_optimizer, train, train_step
 from of_spmm_tpu_torch.examples import train_bert, train_dist
 from of_spmm_tpu_torch.graph import compute_call
 from of_spmm_tpu_torch.optim.indexed_slices import IndexedSlices, sparse_adam_update
 from of_spmm_tpu_torch.models import (
-    GAT, GCN, GraphSAGE, alexnet, bert_base, mean_adjacency, normalized_adjacency, resnet50, vgg16)
+    GAT, GCN, GraphSAGE, ShardedEmbedding, alexnet, bert_base, mean_adjacency,
+    normalized_adjacency, resnet50, vgg16)
 from of_spmm_tpu_torch import nn as onn
 from of_spmm_tpu_torch import optim
 from of_spmm_tpu_torch.nn import MultiheadAttention, gelu
@@ -155,7 +178,8 @@ from of_spmm_tpu_torch.ops import (
     make_operator, place_operator, place_plan, place_spgemm_plan, spgemm, spgemm_device,
     spgemm_numeric, spgemm_numeric_padded, spgemm_numeric_products, spgemm_symbolic,
     spgemm_symbolic_padded, spgemm_symbolic_products, spmm, spmm_expansion2, spmm_internal)
-from of_spmm_tpu_torch.ops.autograd import SpmmOperator
+from of_spmm_tpu_torch.ops import reference as ref
+from of_spmm_tpu_torch.ops.autograd import SpmmOperator, gather
 from of_spmm_tpu_torch.ops.cuda import expansion as ekernels
 from of_spmm_tpu_torch.ops.cuda import expansion2 as e2kernels
 from of_spmm_tpu_torch.ops.cuda import flash_attention as fakernels
@@ -196,6 +220,7 @@ from of_spmm_tpu_torch.tools import microbench_gather2 as tgather2
 from of_spmm_tpu_torch.tools import microbench_mxu as tmxu
 from of_spmm_tpu_torch.tools import proto_fused as tproto
 from of_spmm_tpu_torch.train import dist_gcn_apply, make_dist_train_step
+from of_spmm_tpu_torch.utils import SummaryWriter, profiler, read_events
 from of_spmm_tpu_torch.utils.roofline import (
     AttentionTraffic, ExpansionTraffic, PanelTraffic, SpmmTraffic, StagedTraffic, detect_peak_bw,
     WARMUP_CALLS, detect_peak_fp32, detect_peak_tensor16, detect_peak_tf32, spmm_report, time_cuda,
@@ -315,6 +340,18 @@ RESHARD_SHAPE = (4096, 768)
 RESNET_BATCH, VISION_BATCH, VISION_SIZE, VISION_CLASSES = 32, 16, 224, 1000
 VISION_LR, VISION_MOMENTUM, VISION_ITERS = 0.1, 0.9, 10
 RNN_T, RNN_B, RNN_I, RNN_H = 128, 32, 512, 1024
+# the embedding path: MLPerf DLRM's Criteo Terabyte table (--max-ind-range=
+# 40000000, sparse feature size 128) S(0) over 4 shards of the card, a
+# batch of ids with about 1% outside the table, one SGD step; the tiered
+# cache: 4 of DLRM's 26 tables (independent: a cut), each 2^23 rows behind
+# 2^17 slots, B ids a table a step from a power law; the input pipeline:
+# ImageNet-sized uint8 images in record files into ResNet-50
+SHARDED_ROWS, SHARDED_DIM, SHARDED_SHARDS, SHARDED_BATCH = 40_000_000, 128, 4, 65_536
+SHARDED_OUT_OF_RANGE, SHARDED_LR, SHARDED_ITERS = 0.01, 0.1, 5
+CACHE_TABLES, CACHE_DIM, CACHE_TABLE_ROWS, CACHE_SLOTS = 4, 128, 1 << 23, 1 << 17
+CACHE_BATCH, CACHE_STEPS, CACHE_ZIPF, CACHE_LR = 65_536, 12, 1.05, 1.0
+RECORD_IMAGES, RECORD_SHAPE, RECORD_FILES, RECORD_BATCH = 512, (375, 500, 3), 4, 32
+RECORD_WORKERS, RECORD_STEPS, RECORD_SEED = (0, 8), 8, 51
 # kBatch, kListCap, kChunk of csrc/panels.cu and csrc/staged_spmm.cuh
 PANEL_BATCH, PANEL_LIST, PANEL_CHUNK = 8, 4096, 8
 UNIT_CAPS = (2048, 4096, 8192, 16384, 65536)  # work-unit edge caps the panel phases time
@@ -3517,6 +3554,445 @@ def nn_modules_phase(gen) -> dict:
                 seconds=round(time.perf_counter() - t_phase, 2))
 
 
+# ---------------------------------------------------------------------------
+# The embedding path and the input pipeline (no kernel of the port: the JAX
+# package computes them with XLA gathers and scatters and host numpy).
+# ---------------------------------------------------------------------------
+
+
+def power_law_ids(rng, n: int, n_ids: int, exponent: float) -> np.ndarray:
+    """n ids in [0, n_ids) with P(id = k) ~ (k + 1)^-exponent (the bounded
+    continuous power law's inverse CDF, floored)."""
+    u = rng.random(n)
+    a = 1.0 - exponent
+    ids = np.floor(((n_ids ** a - 1.0) * u + 1.0) ** (1.0 / a)) - 1.0
+    return np.minimum(ids, n_ids - 1).astype(np.int64)
+
+
+def profiled(fn) -> tuple:
+    """fn()'s result, its wall seconds (to a synchronize) and the kernel ms
+    torch.profiler's device events sum to meanwhile."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+
+
+def sharded_embedding_phase(gen, peak_bw: float) -> dict:
+    """ShardedEmbedding(SHARDED_ROWS, SHARDED_DIM) S(0) over SHARDED_SHARDS
+    shards of the card, seeded ids (B = SHARDED_BATCH, about
+    SHARDED_OUT_OF_RANGE of them negative or >= SHARDED_ROWS): the forward
+    against a dense zero-filled lookup of the same table bit for bit, the
+    table's grad against the dense lookup's at 1e-5 + 1e-4|p| (touched
+    rows; every other row zero in both), one SGD step; forward, forward +
+    backward and update ms, peak memory, the forward's byte bound, the
+    dense grad's zero-fill, and the same lookup through gather_rows on the
+    flattened table (bit-equal; its launches counted apart)."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = ShardMesh([str(dev)] * SHARDED_SHARDS)
+    emb = ShardedEmbedding(SHARDED_ROWS, SHARDED_DIM)
+    t0 = time.perf_counter()
+    params = emb.init(torch.Generator().manual_seed(21), mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    w = params["weight"].local  # (S, rows, D), a leaf
+    table = w.detach().reshape(-1, SHARDED_DIM)  # the same storage, one table
+    rng = np.random.default_rng(22)
+    ids = rng.integers(0, SHARDED_ROWS, SHARDED_BATCH)
+    bad = rng.choice(SHARDED_BATCH, int(SHARDED_OUT_OF_RANGE * SHARDED_BATCH), replace=False)
+    half = len(bad) // 2
+    ids[bad[:half]] = -rng.integers(1, SHARDED_ROWS, half)
+    ids[bad[half:]] = rng.integers(SHARDED_ROWS, 2 * SHARDED_ROWS, len(bad) - half)
+    ids_t = torch.from_numpy(ids).to(dev)
+    cot = torch.randn((SHARDED_BATCH, SHARDED_DIM), generator=gen).to(dev)
+    valid = (ids_t >= 0) & (ids_t < SHARDED_ROWS)
+    touched = torch.unique(ids_t[valid])
+
+    def forward():
+        with torch.no_grad():
+            return emb.apply(params, ids_t, mesh)
+
+    def forward_backward():
+        w.grad = None
+        (emb.apply(params, ids_t, mesh) * cot).sum().backward()
+
+    (out, launched) = counted(forward)
+    want = ref.gather(table, ids_t)
+    if launched or not torch.equal(out, want) or out[~valid].any():
+        raise AssertionError(f"sharded lookup vs dense zero-filled lookup: bit-equal "
+                             f"{torch.equal(out, want)}, launches {launched}")
+    # the same lookup through the gather_rows kernel on the flattened table
+    ids32 = ids_t.to(torch.int32)
+    got, g_launched = counted(lambda: kernels.gather_rows(table, ids32))
+    if not torch.equal(got, want) or g_launched != {"gather_rows": 1}:
+        raise AssertionError(f"gather_rows on the flattened table: not bit-equal or launches "
+                             f"{g_launched}")
+    del got, want
+
+    _, launched = counted(forward_backward)
+    grad = w.grad.reshape(-1, SHARDED_DIM)
+    got_rows = grad[touched].clone()
+    got_nonzero = int((grad != 0).any(1).sum())
+    del grad
+    w.grad = None
+    dense = table.detach().requires_grad_()  # the same storage, a leaf of its own
+    (gather(dense, ids_t) * cot).sum().backward()
+    want_nonzero = int((dense.grad != 0).any(1).sum())
+    grad_err = check_close(got_rows, dense.grad[touched], "sharded lookup grad vs dense")
+    del dense, got_rows
+    if launched or got_nonzero != want_nonzero or got_nonzero > touched.numel():
+        raise AssertionError(f"sharded grad: nonzero rows {got_nonzero} vs dense "
+                             f"{want_nonzero} ({touched.numel()} touched), launches {launched}")
+
+    forward_backward()
+    sample = torch.randint(0, SHARDED_ROWS, (SHARDED_BATCH,), generator=gen).to(dev)
+    before, before_sample = table[touched].clone(), table[sample].clone()
+    step_want = before.add(w.grad.reshape(-1, SHARDED_DIM)[touched], alpha=-SHARDED_LR)
+
+    def sgd():
+        with torch.no_grad():
+            w.add_(w.grad, alpha=-SHARDED_LR)
+
+    _, launched = counted(sgd)
+    untouched = ~torch.isin(sample, touched)
+    if launched or not torch.equal(table[touched], step_want) or not torch.equal(
+            table[sample][untouched], before_sample[untouched]):
+        raise AssertionError("sharded SGD step: touched rows off or an untouched row changed")
+    del before, before_sample, step_want
+
+    fwd_ms = time_cuda(forward, iters=SHARDED_ITERS)
+    fb_ms = time_cuda(forward_backward, iters=SHARDED_ITERS)
+    sgd_ms = time_cuda(sgd, iters=SHARDED_ITERS)
+    w.grad = None
+    fill = torch.empty_like(table)
+    fill_ms = time_cuda(fill.zero_, iters=SHARDED_ITERS)
+    del fill
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    n_rows = int(touched.numel())
+    fwd_bytes = ids_t.numel() * 8 + n_rows * SHARDED_DIM * 4 + out.numel() * 4
+    grad_bytes = SHARDED_ROWS * SHARDED_DIM * 4
+
+    gather_ms = time_cuda(lambda: kernels.gather_rows(table, ids32), iters=20)
+    del params, w, table, out
+    torch.cuda.empty_cache()
+    return dict(
+        table=[SHARDED_ROWS, SHARDED_DIM], shards=SHARDED_SHARDS, mesh="ShardMesh(['cuda:0'] * 4)",
+        table_gb=round(grad_bytes / 1e9, 3), batch=SHARDED_BATCH,
+        ids_out_of_range=int(len(bad)), unique_rows=n_rows, init_seconds=round(init_s, 3),
+        forward_bit_equal_to_dense_lookup=True, grad_max_abs_err_vs_dense=grad_err,
+        grad_tolerance="|k-p| <= 1e-5 + 1e-4|p| on touched rows; the rest zero in both",
+        grad_nonzero_rows=got_nonzero, sgd_lr=SHARDED_LR,
+        forward_ms=round(fwd_ms, 4), forward_backward_ms=round(fb_ms, 4),
+        update_ms=round(sgd_ms, 4), peak_gib=round(peak, 3),
+        forward_bytes=fwd_bytes, forward_bound_ms=round(fwd_bytes / peak_bw * 1e3, 4),
+        forward_fraction_of_bound=round(fwd_bytes / peak_bw * 1e3 / fwd_ms, 4),
+        dense_grad_zero_fill_ms=round(fill_ms, 4),
+        dense_grad_zero_fill_bound_ms=round(grad_bytes / peak_bw * 1e3, 4),
+        zero_fill_share_of_backward=round(fill_ms / max(fb_ms - fwd_ms, 1e-9), 4),
+        update_bound_ms=round(3 * grad_bytes / peak_bw * 1e3, 4),
+        gather_rows_flattened_ms=round(gather_ms, 4), gather_rows_bit_equal=True,
+        gather_rows_launches=g_launched,
+        rank_form="gloo ranks on the CPU (tests/test_torch_parallel_rank.py): NCCL refuses "
+                  "two ranks on one card",
+        seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def cache_tables(root: str, device) -> MultiTableEmbedding:
+    """CACHE_TABLES cached tables under ``root``, each a PersistentTable of
+    CACHE_TABLE_ROWS rows of CACHE_DIM (seed = its index) behind
+    CACHE_SLOTS slots on ``device``."""
+    return MultiTableEmbedding({
+        f"t{i}": CachedEmbedding(PersistentTable(os.path.join(root, f"t{i}"), CACHE_DIM,
+                                                 CACHE_TABLE_ROWS, seed=i),
+                                 CACHE_SLOTS, device=device) for i in range(CACHE_TABLES)})
+
+
+def cache_targets(device) -> torch.Tensor:
+    """The regression targets: id x's target row is row x % 4096 of a seeded
+    table (the same bits on every device)."""
+    t = torch.randn((4096, CACHE_DIM), generator=torch.Generator().manual_seed(31))
+    return t.to(device)
+
+
+def cache_run(mt: MultiTableEmbedding, steps: list, device, stats: dict = None) -> tuple:
+    """The JAX training loop (tests/test_one_embedding.py: lookup, loss, the
+    rows' grad, apply_grad) over ``steps`` (per step, each table's ids),
+    each phase inside a profiler range; with ``stats`` (on the card) the
+    per-step host ms, the device part's CUDA events, hits, evictions and
+    write-backs land there. Returns (caches, losses, slots)."""
+    caches = mt.init_caches()
+    targets = cache_targets(device)
+    losses, slots_all = [], []
+    for step_ids in steps:
+        step_losses, step_slots = [], []
+        for (name, emb), ids in zip(mt.tables.items(), step_ids):
+            cache, meta = caches[name]
+            if stats is not None:
+                uniq, counts = np.unique(ids, return_counts=True)
+                hit = np.fromiter((x in meta.index for x in uniq.tolist()), bool, len(uniq))
+                old_ids, old_dirty = meta.slot_ids.copy(), meta.dirty.copy()
+            t0 = time.perf_counter()
+            with profiler.record("prepare"):
+                slots, cache = emb.prepare(ids, cache, meta)
+            host = time.perf_counter() - t0
+            tgt = targets[torch.from_numpy(ids % 4096).to(device)]
+            if stats is not None:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            with profiler.record("lookup_grad_apply"):
+                rows = emb.lookup(cache, slots).requires_grad_()
+                loss = ((rows - tgt) ** 2).sum(1).mean()
+                loss.backward()
+                emb.apply_grad(cache, slots, rows.grad, meta, lr=CACHE_LR)
+            step_losses.append(loss.detach())
+            step_slots.append(slots)
+            if stats is not None:
+                ev[1].record()
+                evicted = (old_ids >= 0) & (old_ids != meta.slot_ids)
+                stats.setdefault("prepare_ms", []).append(host * 1e3)
+                stats.setdefault("events", []).append(ev)
+                stats.setdefault("hits", []).append(int(counts[hit].sum()))
+                stats.setdefault("evictions", []).append(int(evicted.sum()))
+                stats.setdefault("write_backs", []).append(int((evicted & old_dirty).sum()))
+        losses.append([float(v) for v in torch.stack(step_losses).cpu()])
+        slots_all.append(step_slots)
+    return caches, losses, slots_all
+
+
+def one_embedding_main_path() -> dict:
+    """A MultiTableEmbedding of CACHE_TABLES CachedEmbeddings (dim
+    CACHE_DIM, PersistentTables of CACHE_TABLE_ROWS rows, CACHE_SLOTS cache
+    slots on the card) through CACHE_STEPS steps of the JAX training loop,
+    each drawing CACHE_BATCH ids a table from a seeded power law
+    (exponent CACHE_ZIPF over CACHE_TABLE_ROWS ids); prepare (host) and
+    lookup + grad + apply_grad (device) in profiler ranges and under
+    torch.profiler for the device's idle share. LRU evictions with dirty
+    write-back must happen. The same ids through the port on the CPU:
+    slots and meta equal, losses, caches and flushed rows within 1e-5 +
+    1e-4|p|. Then flush, save_snapshot, load_snapshot (the round trip
+    exact after the tables change), and the losses through SummaryWriter
+    and read_events."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    rngs = [np.random.default_rng((41, i)) for i in range(CACHE_TABLES)]
+    steps = [[power_law_ids(r, CACHE_BATCH, CACHE_TABLE_ROWS, CACHE_ZIPF) for r in rngs]
+             for _ in range(CACHE_STEPS)]
+    with tempfile.TemporaryDirectory() as root:
+        mt = cache_tables(os.path.join(root, "card"), dev)
+        stats = {}
+        with profiler.profile() as ranges:
+            ((caches, losses, slots), launched), wall, busy = profiled(
+                lambda: counted(lambda: cache_run(mt, steps, dev, stats)))
+        device_ms = [a.elapsed_time(b) for a, b in stats["events"]]
+        if launched:
+            raise AssertionError(f"one_embedding launched port kernels: {launched}")
+        timed = slice(CACHE_TABLES, None)  # after the first step's cold fill
+        if sum(stats["write_backs"][timed]) == 0:
+            raise AssertionError(f"no LRU eviction with write-back in {CACHE_STEPS} steps: "
+                                 f"{stats['evictions']}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"one_embedding losses {losses}")
+
+        cpu = cache_tables(os.path.join(root, "cpu"), "cpu")
+        t0 = time.perf_counter()
+        cpu_caches, cpu_losses, cpu_slots = cache_run(cpu, steps, "cpu")
+        cpu_s = time.perf_counter() - t0
+        errs = {"loss": check_close(torch.tensor(losses), torch.tensor(cpu_losses),
+                                    "one_embedding losses card vs CPU")}
+        for s, cs in zip(slots, cpu_slots):
+            if not all(np.array_equal(a, b) for a, b in zip(s, cs)):
+                raise AssertionError("one_embedding slots differ between the card and the CPU")
+        for name in mt.tables:
+            (cache, meta), (ccache, cmeta) = caches[name], cpu_caches[name]
+            if not (all(np.array_equal(getattr(meta, k), getattr(cmeta, k))
+                        for k in ("slot_ids", "last_used", "dirty"))
+                    and meta.clock == cmeta.clock and meta.index == cmeta.index):
+                raise AssertionError(f"one_embedding meta {name} differs between card and CPU")
+            errs[f"cache_{name}"] = check_close(cache.cpu(), ccache,
+                                                f"one_embedding cache {name} card vs CPU")
+
+        t0 = time.perf_counter()
+        with profiler.profile() as flush_ranges:
+            for name, emb in mt.tables.items():
+                with profiler.record("flush"):
+                    emb.flush(*caches[name])
+        flush_s = time.perf_counter() - t0
+        for name, emb in cpu.tables.items():
+            emb.flush(*cpu_caches[name])
+        live = {}
+        for name in mt.tables:
+            table, ctable = mt.tables[name].table, cpu.tables[name].table
+            live[name] = np.nonzero(table._ids >= 0)[0]
+            if not np.array_equal(table._ids, ctable._ids):
+                raise AssertionError(f"one_embedding table {name}: ids differ card vs CPU")
+            ids = table._ids[live[name]]
+            errs[f"table_{name}"] = check_close(torch.from_numpy(table.get(ids)),
+                                                torch.from_numpy(ctable.get(ids)),
+                                                f"one_embedding flushed rows {name} card vs CPU")
+        t0 = time.perf_counter()
+        mt.save_snapshot("snap")
+        save_s = time.perf_counter() - t0
+        saved = {n: e.table.get(e.table._ids[live[n]]) for n, e in mt.tables.items()}
+        for n, e in mt.tables.items():  # change the tables, then restore them
+            e.table.put(e.table._ids[live[n]][:1000], np.zeros((1000, CACHE_DIM), np.float32))
+        t0 = time.perf_counter()
+        mt.load_snapshot("snap")
+        load_s = time.perf_counter() - t0
+        for n, e in mt.tables.items():
+            if e.table.n_rows != len(live[n]) or not np.array_equal(
+                    e.table.get(e.table._ids[live[n]]), saved[n]):
+                raise AssertionError(f"one_embedding snapshot round trip of {n} not exact")
+        logdir = os.path.join(root, "summary")
+        with SummaryWriter(logdir) as sw:
+            for i, step in enumerate(losses):
+                sw.add_scalars("loss", dict(zip(mt.tables, step)), step=i)
+        logged = [e["value"] for e in read_events(logdir)]
+        if logged != [v for step in losses for v in step]:
+            raise AssertionError("one_embedding: the summary's losses differ from the run's")
+        table_rows = {n: int(len(v)) for n, v in live.items()}
+    n = CACHE_STEPS * CACHE_TABLES
+    lookups = n * CACHE_BATCH
+    return dict(
+        tables=CACHE_TABLES, dim=CACHE_DIM, table_rows=CACHE_TABLE_ROWS,
+        table_gib=round(CACHE_TABLE_ROWS * CACHE_DIM * 4 / 2 ** 30, 3),
+        cache_slots=CACHE_SLOTS, cache_mib=round(CACHE_SLOTS * CACHE_DIM * 4 / 2 ** 20, 1),
+        batch=CACHE_BATCH, steps=CACHE_STEPS, zipf=CACHE_ZIPF, lr=CACHE_LR,
+        loss="((rows - target) ** 2).sum(1).mean()",
+        losses_first_last=[losses[0], losses[-1]],
+        prepare_host_ms_per_table_step=round(float(np.mean(stats["prepare_ms"][timed])), 3),
+        device_ms_per_table_step=round(float(np.mean(device_ms[timed])), 4),
+        prepare_host_ms_per_step=round(float(np.sum(stats["prepare_ms"][timed])) /
+                                       (CACHE_STEPS - 1), 3),
+        device_ms_per_step=round(float(np.sum(device_ms[timed])) / (CACHE_STEPS - 1), 4),
+        wall_seconds=round(wall, 3), kernel_ms=round(busy, 3),
+        device_idle_share=round(1 - busy / (wall * 1e3), 4),
+        hit_rate=round(sum(stats["hits"]) / lookups, 4),
+        hit_rate_after_first_step=round(sum(stats["hits"][timed]) / (lookups - CACHE_TABLES *
+                                                                      CACHE_BATCH), 4),
+        evictions=int(sum(stats["evictions"])), write_backs=int(sum(stats["write_backs"])),
+        evictions_per_step=[sum(stats["evictions"][i:i + CACHE_TABLES])
+                            for i in range(0, n, CACHE_TABLES)],
+        table_rows_touched=table_rows,
+        max_abs_err_vs_cpu=max(errs.values()), cpu_seconds=round(cpu_s, 2),
+        flush_seconds=round(flush_s, 3), save_snapshot_seconds=round(save_s, 3),
+        load_snapshot_seconds=round(load_s, 3), snapshot_round_trip_exact=True,
+        ranges={"steps": ranges.key_averages().splitlines(),
+                "flush": flush_ranges.key_averages().splitlines()},
+        summary_events=len(logged), kernel_launches=launched,
+        seconds=round(time.perf_counter() - t_phase, 2))
+
+
+class RecordImages(Dataset):
+    """The record files' images decoded, through a transform seeded per
+    index (rank 0 of 1): (float32 CHW image, int64 label)."""
+
+    def __init__(self, paths, transform):
+        self.records, self.transform = RecordDataset(paths), transform
+
+    def __len__(self):
+        return len(self.records)
+
+    def __getitem__(self, i):
+        ex = self.records[i]
+        img = np.frombuffer(ex["image"], np.uint8).reshape(tuple(ex["shape"]))
+        return self.transform(img, np.random.default_rng((RECORD_SEED, i))), np.int64(
+            ex["label"][0])
+
+
+def records_input_pipeline(resnet_step_ms: float) -> dict:
+    """RECORD_IMAGES seeded uint8 images of RECORD_SHAPE (a raw-bytes
+    feature beside its shape and a label in 0-999) written into
+    RECORD_FILES files with RecordWriter and read back through
+    RecordDataset, through Compose(RandomResizedCrop(224),
+    RandomHorizontalFlip(), Normalize()) and the port's DataLoader (B =
+    RECORD_BATCH, shuffled) with each of RECORD_WORKERS workers: the two
+    passes bit-equal, each one's images/s; then RECORD_STEPS SGD steps of
+    resnet50() fed from it (momentum), end to end and under the profiler
+    for the device's idle share, beside resnet_main_path's step."""
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    tf = Compose((RandomResizedCrop(VISION_SIZE), RandomHorizontalFlip(), Normalize()))
+    rng = np.random.default_rng(RECORD_SEED)
+    with tempfile.TemporaryDirectory() as root:
+        paths = [os.path.join(root, f"part-{i}.rec") for i in range(RECORD_FILES)]
+        t0 = time.perf_counter()
+        writers = [RecordWriter(p) for p in paths]
+        for i in range(RECORD_IMAGES):
+            img = rng.integers(0, 256, RECORD_SHAPE, dtype=np.uint8)
+            writers[i % RECORD_FILES].write_example(
+                {"image": img.tobytes(), "shape": list(RECORD_SHAPE),
+                 "label": [int(rng.integers(0, VISION_CLASSES))]})
+        for w in writers:
+            w.close()
+        write_s = time.perf_counter() - t0
+        file_bytes = sum(os.path.getsize(p) for p in paths)
+        ds = RecordImages(paths, tf)
+        passes, rates = {}, {}
+        for workers in RECORD_WORKERS:
+            loader = DataLoader(ds, batch_size=RECORD_BATCH, shuffle=True, seed=RECORD_SEED,
+                                num_workers=workers)
+            t0 = time.perf_counter()
+            passes[workers] = [(x.numpy().copy(), y.numpy().copy()) for x, y in loader]
+            rates[workers] = len(ds) / (time.perf_counter() - t0)
+        first, second = (passes[w] for w in RECORD_WORKERS)
+        if len(first) != len(ds) // RECORD_BATCH or not all(
+                np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                for a, b in zip(first, second)):
+            raise AssertionError("records pipeline: two passes with one seed differ")
+        del passes, first, second
+
+        model = resnet50(generator=torch.Generator().manual_seed(12))
+        opt = optim.sgd(VISION_LR, momentum=VISION_MOMENTUM).init(model.parameters())
+        loader = DataLoader(ds, batch_size=RECORD_BATCH, shuffle=True, seed=RECORD_SEED + 1,
+                            num_workers=RECORD_WORKERS[-1])
+
+        waits = []
+
+        def train_from_records():
+            losses, batches = [], iter(loader)
+            for _ in range(RECORD_STEPS):
+                t0 = time.perf_counter()
+                x, y = next(batches)
+                waits.append(time.perf_counter() - t0)
+                opt.zero_grad(set_to_none=True)
+                loss = cross_entropy(model(x.to(dev), train=True), y.to(dev))
+                loss.backward()
+                opt.step()
+                losses.append(loss.detach())
+            batches.close()
+            return [float(v) for v in torch.stack(losses).cpu()]
+
+        # end to end: the workers' start and first batches included (cuDNN's
+        # algorithms for ResNet-50 at this batch are chosen in resnet_main_path)
+        (losses, launched), wall, busy = profiled(lambda: counted(train_from_records))
+    if launched or len(losses) != RECORD_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"records training: losses {losses}, launches {launched}")
+    return dict(
+        images=RECORD_IMAGES, image_shape=list(RECORD_SHAPE), files=RECORD_FILES,
+        file_bytes=file_bytes, write_seconds=round(write_s, 3),
+        transform="Compose(RandomResizedCrop(224), RandomHorizontalFlip(), Normalize())",
+        resize_branch="PIL" if vision_data.HAVE_PIL else "numpy", batch=RECORD_BATCH,
+        pipeline_images_per_s={str(w): round(r, 1) for w, r in rates.items()},
+        passes_bit_equal=True, train_steps=RECORD_STEPS, train_workers=RECORD_WORKERS[-1],
+        losses=[round(v, 5) for v in losses], train_wall_seconds=round(wall, 3),
+        train_images_per_s=round(RECORD_STEPS * RECORD_BATCH / wall, 1),
+        train_kernel_ms=round(busy, 3), device_idle_share=round(1 - busy / (wall * 1e3), 4),
+        input_wait_ms=[round(t * 1e3, 2) for t in waits],
+        input_wait_share=round(sum(waits) / wall, 4),
+        resnet_main_path_step_ms=resnet_step_ms,
+        resnet_main_path_images_per_s=round(RESNET_BATCH / (resnet_step_ms / 1e3), 1),
+        kernel_launches=launched, seconds=round(time.perf_counter() - t_phase, 2))
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
@@ -4678,13 +5154,26 @@ def main() -> int:
     #             width, and each module of nn/ on the card against the CPU
     # (the JAX package computes these with XLA outside any Pallas kernel, so
     # the port launches none of its kernels there)
+    vision = {}
     for name, phase in (("resnet_main_path", lambda: resnet_main_path(gen, peak_fp32)),
                         ("vision_models", lambda: vision_models_phase(gen, peak_fp32)),
                         ("nn_modules", lambda: nn_modules_phase(gen))):
         fields, launched = counted(phase)
         if launched:
             raise AssertionError(f"{name} launched port kernels: {launched}")
+        vision[name] = fields
         emit(name, **fields, kernel_launches=launched)
+
+    # -- 33d.-33f. the embedding path and the input pipeline: the sharded
+    #             lookup at DLRM's Criteo Terabyte table, the tiered cache
+    #             under a power-law id stream, ResNet-50 trained from record
+    #             files (no kernel of the port: each phase holds its launches
+    #             at none, but for sharded_embedding's gather_rows comparison,
+    #             counted apart)
+    emit("sharded_embedding", **sharded_embedding_phase(gen, peak_bw))
+    emit("one_embedding_main_path", **one_embedding_main_path())
+    emit("records_input_pipeline",
+         **records_input_pipeline(vision["resnet_main_path"]["train_step_ms"]))
 
     # -- 34.-40. the microbenchmarks: each tool's entry point at its
     #            default size, then its kernels against their plain

@@ -18,7 +18,13 @@ transformer encoder), and the training stack: optimizers and schedules
 with grad accumulation, activation checkpointing and ZeRO-1 (``graph``),
 checkpoints (``utils.checkpoint``), datasets and the loader (``data``),
 losses (``nn.losses``), with the GCN example under ``--amp`` and the
-BERT masked-LM example (``python -m of_spmm_tpu_torch.examples.train_bert``).
+BERT masked-LM example (``python -m of_spmm_tpu_torch.examples.train_bert``),
+the rest of ``nn`` with ResNet-50, VGG16 and AlexNet, and the embedding
+path: ``models.Embedding``, ``models.ShardedEmbedding`` (the id-shuffle
+lookup over a row-sharded table) and ``embedding`` (the tiered store:
+a file-backed table behind a row cache on the card), with record files
+and image transforms (``data``), the profiler and the summary writer
+(``utils``).
 
     from of_spmm_tpu_torch.data import load_graph, random_features
     from of_spmm_tpu_torch.models import GCN, bert_base, normalized_adjacency

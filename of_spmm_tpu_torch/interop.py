@@ -10,6 +10,8 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from of_spmm_tpu_torch.embedding.one_embedding import _CacheMeta
+from of_spmm_tpu_torch.parallel.global_view import GlobalTensor, sbp_for, to_global
 from of_spmm_tpu_torch.utils.tree import nest, unnest
 
 
@@ -275,3 +277,37 @@ def identity_params_from_numpy(params: Mapping) -> Dict[str, torch.Tensor]:
     ``layer_0`` / ``layer_2`` for a Sequential): its leaves as float32
     tensors under dotted names."""
     return OrderedDict((k, _f32(v)) for k, v in unnest(params).items())
+
+
+# ---------------------------------------------------------------------------
+# The embedding path.
+# ---------------------------------------------------------------------------
+
+
+def embedding_params_from_numpy(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX ``Embedding`` dict ``{"weight"}`` (``models/embedding.py`` or
+    ``nn.layers``) as a ``state_dict`` for ``models.Embedding``."""
+    return _exact(params, ("weight",), "Embedding")
+
+
+def sharded_embedding_params_from_numpy(params: Mapping[str, np.ndarray], mesh,
+                                        axis: str = "x") -> dict:
+    """The JAX ``ShardedEmbedding`` dict ``{"weight"}`` (the whole
+    (padded_rows, D) table) as the port's: ``{"weight": GlobalTensor}``
+    placed S(0) over ``axis`` of ``mesh`` (a ``ShardMesh`` or a
+    ``RankGroup``), its blocks a leaf that requires grad."""
+    w = _exact(params, ("weight",), "ShardedEmbedding")["weight"]
+    g = to_global(w, sbp_for(mesh, **{axis: "S0"}), mesh)
+    return {"weight": GlobalTensor(g.local.detach().clone().requires_grad_(), g.sbp, mesh)}
+
+
+def cached_embedding_state_from_numpy(cache, meta) -> tuple:
+    """A JAX ``CachedEmbedding``'s cache array and ``_CacheMeta`` as the
+    port's ``(cache tensor, _CacheMeta)`` (the cache a float32 CPU tensor,
+    to move where the port's ``CachedEmbedding`` runs; the meta's arrays,
+    clock and index copied field for field)."""
+    state = _CacheMeta(slot_ids=np.array(meta.slot_ids, np.int64),
+                       last_used=np.array(meta.last_used, np.int64),
+                       dirty=np.array(meta.dirty, bool), clock=int(meta.clock),
+                       index={int(k): int(v) for k, v in meta.index.items()})
+    return _f32(cache), state

@@ -5,6 +5,8 @@ from of_spmm_tpu_torch.utils.checkpoint import (
     save_sharded,
 )
 from of_spmm_tpu_torch.utils.config import FLAGS
+from of_spmm_tpu_torch.utils import profiler
+from of_spmm_tpu_torch.utils.summary import SummaryWriter, read_events
 from of_spmm_tpu_torch.utils.device import resolve_device
 from of_spmm_tpu_torch.utils.roofline import (
     PEAK_FP32_FLOPS,
@@ -26,4 +28,4 @@ __all__ = ["FLAGS", "load_checkpoint", "load_sharded", "save_checkpoint", "save_
            "PEAK_TENSOR16_FLOPS", "PEAK_TF32_FLOPS", "AttentionTraffic",
            "detect_peak_tensor16", "detect_peak_tf32",
            "SpmmTraffic", "PanelTraffic", "detect_peak_bw", "detect_peak_fp32", "spmm_report",
-           "time_cuda"]
+           "time_cuda", "profiler", "SummaryWriter", "read_events"]

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of of_spmm_tpu_torch
-(the parallel strategies, the training stack, the examples and the
-vision models among them) loads neither JAX nor the JAX package, and its
-entry points run on the card unless the caller names another device."""
+(the parallel strategies, the training stack, the examples, the vision
+models and the embedding path among them) loads neither JAX nor the JAX
+package, and its entry points run on the card unless the caller names
+another device."""
 
 import os
 import subprocess
@@ -11,11 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from of_spmm_tpu_torch.embedding import CachedEmbedding, PersistentTable
 from of_spmm_tpu_torch.examples import train_bert, train_dist, train_gcn
-from of_spmm_tpu_torch.models import GCN, resnet50, vgg16
+from of_spmm_tpu_torch.models import GCN, Embedding, ShardedEmbedding, resnet50, vgg16
 from of_spmm_tpu_torch.ops import make_operator
 from of_spmm_tpu_torch.parallel import (
-    MoELayer, RingAttention, SequenceParallelAttention, init_tp_mlp)
+    MoELayer, RingAttention, SequenceParallelAttention, default_mesh, init_tp_mlp)
 from of_spmm_tpu_torch.sparse.formats import CSR
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,6 +45,9 @@ PARALLEL += ["optim.optimizers", "optim.indexed_slices", "optim.lr_scheduler", "
 # the rest of nn/ and the vision models
 PARALLEL += ["nn.conv", "nn.volumetric", "nn.rnn", "nn.extras", "nn.module", "models.resnet",
              "models.vision"]
+# the embedding path, records and image transforms, profiler and summary
+PARALLEL += ["embedding.one_embedding", "models.embedding", "models.sharded_embedding",
+             "data.records", "data.vision", "utils.profiler", "utils.summary"]
 
 
 def test_port_imports_no_jax():
@@ -100,3 +105,16 @@ def test_vision_models_default_to_the_card():
     for make in (resnet50, vgg16):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+def test_embedding_entry_points_default_to_the_card(tmp_path):
+    emb = CachedEmbedding(PersistentTable(str(tmp_path / "t"), 4, 16), capacity=8)
+    if torch.cuda.is_available():
+        assert emb.init_cache()[0].is_cuda and Embedding(5, 3).weight.is_cuda
+        assert ShardedEmbedding(8, 2).init(None, default_mesh(1))["weight"].local.is_cuda
+        return
+    for make in (emb.init_cache, lambda: Embedding(5, 3)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        ShardedEmbedding(8, 2).init(None, default_mesh())

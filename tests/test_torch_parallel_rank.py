@@ -10,14 +10,15 @@ written to ``tmp_path``, on ``RankGroup(shape=..., axis_names=...)``
 group meets at a ``file://`` store there). World size 2 runs 1-D meshes;
 world size 4 runs tensor parallelism on (2, 2) dp x tp, the pipeline on
 (2, 2) stage x data and the global view's every 2-D transition on
-(2, 2), the rest on 1-D meshes of 4; ZeRO-1 of a TrainGraph (Adam, the
-optimizer state S(0) over the ranks) on 1-D meshes of both sizes, with
-a save_sharded / load_sharded round trip. Each rank saves what it got as
-``.npy``; each case is then its own test at rtol 1e-4 / atol 1e-5:
-a rank's block against the same block of the one-process result, a
-replicated result against the whole, and a gradient as the sum of the
-ranks' shares (each rank's loss is its share of the global loss). The
-rank processes import the port only, never JAX.
+(2, 2), the rest (the sharded embedding among them) on 1-D meshes of
+4; ZeRO-1 of a TrainGraph (Adam, the optimizer state S(0) over the
+ranks) on 1-D meshes of both sizes, with a save_sharded / load_sharded
+round trip. Each rank saves what it got as ``.npy``; each case is then
+its own test at rtol 1e-4 / atol 1e-5: a rank's block against the same
+block of the one-process result, a replicated result against the whole,
+and a gradient as the sum of the ranks' shares (each rank's loss is its
+share of the global loss). The rank processes import the port only,
+never JAX.
 """
 
 import inspect
@@ -146,6 +147,18 @@ def drive(make_mesh, world, workdir):
     for k, v in model.named_parameters():
         out[f"ddp.param.{k}"] = ("same", v, None)
 
+    # the sharded embedding, 1-D: the id-shuffle lookup (ids outside
+    # [0, 30) among them) and the table's grad, each rank's block
+    from of_spmm_tpu_torch.models import ShardedEmbedding
+    mesh = make_mesh((world,), ("x",))
+    emb = ShardedEmbedding(30, 4)
+    table = emb.init(gen(17), mesh)
+    ids = torch.from_numpy(np.random.default_rng(18).integers(-3, 34, 4 * world))
+    y = emb.apply(table, ids, mesh)
+    (y ** 2).sum().backward()
+    out["emb.y"] = ("block", y, ((world,), ("x",), ("S0",)))
+    out["emb.grad"] = ("local", table["weight"].local.grad, None)
+
     # ZeRO-1, 1-D: 3 Adam steps of a TrainGraph holding the optimizer state
     # S(0) over "x" (the loss over ranks: each rank's block of the batch);
     # each rank's state blocks, the parameters, stage 0 in this process,
@@ -253,7 +266,8 @@ CASES = ["tp.y", "tp.grad.w_in", "tp.grad.b_in", "tp.grad.w_out", "tp.grad.b_out
            for k in ("in_w", "out_w", "in_b", "out_b")),
          "ep.y", "ep.aux", *(f"ep.grad.{k}" for k in ("wg", "w1", "b1", "w2", "b2")),
          "gpipe.y", "gpipe.grad.w", "gpipe.grad.b", "1f1b.loss", "1f1b.grad.w", "1f1b.grad.b",
-         "reshard.local", "reshard.full", "ddp.loss", "ddp.param.w", "ddp.param.b",
+         "reshard.local", "reshard.full", "emb.y", "emb.grad",
+         "ddp.loss", "ddp.param.w", "ddp.param.b",
          *(f"zero.{w}.{k}" for w in ("param", "stage0.param")
            for k in ("layer_0.w", "layer_0.b", "layer_2.w", "layer_2.b")),
          *(f"zero.lamb.{w}.{k}" for w in ("param", "stage0.param")
