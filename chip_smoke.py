@@ -2,6 +2,7 @@
 """Drive the PyTorch / CUDA port (of_spmm_tpu_torch) on one NVIDIA H100.
 
     python3 chip_smoke.py        # from the root of a checkout, on a machine with the card
+    python3 chip_smoke.py --parent DIR   # op_overhead also runs the checkout at DIR
 
 Builds the port's CUDA kernels from the checkout's sources (one nvcc per
 source, started together), holds each against its plain PyTorch version
@@ -119,6 +120,20 @@ RecordDataset, RandomResizedCrop / flip / Normalize and the DataLoader at
 0 and 8 workers (the two passes bit-equal), then ResNet-50 trained from
 them, beside resnet_main_path's step.
 
+Then export and the framework's harnesses: the arxiv GCN on each of the
+five layouts, spmm_expansion2 on arxiv and the BERT-base encoder with
+flash=True (B 8, T 512) exported with the kernels kept in the program
+(each kernel a torch.library op, its ofs nodes counted against the
+eager launches), saved, loaded in this process and in a fresh python3,
+and held against eager with the launches held exactly (export_main_path);
+the ops' dispatch cost on the tiered GCN forward and a BERT-base
+masked-LM step in fresh processes, beside the parent commit's when
+``--parent DIR`` names its checkout (op_overhead); each torch-twin
+converter's module on the card against torch's own, flash MHA at
+BERT-base width among them, and autoprof's table of them
+(autotest_card); and the entry points, entry() with the
+products-small canary and dryrun_multichip(4) (entry_main_path).
+
 Last, the microbenchmarks (of_spmm_tpu_torch/tools/): the SpMM inner
 loop (microbench_blockfma, microbench_mxu, microbench_cond, proto_fused)
 and the gathers (microbench_gather, microbench_gather2 with window and
@@ -137,6 +152,7 @@ rest of the repository beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import dataclasses
@@ -144,6 +160,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -163,6 +180,9 @@ from of_spmm_tpu_torch.data import (
 from of_spmm_tpu_torch.data import vision as vision_data
 from of_spmm_tpu_torch.embedding import CachedEmbedding, MultiTableEmbedding, PersistentTable
 from of_spmm_tpu_torch.amp import DEFAULT_POLICY
+from of_spmm_tpu_torch.autoprof import profile_module, table
+from of_spmm_tpu_torch.entry import dryrun_multichip, entry
+from of_spmm_tpu_torch.export import export_model, ir_stats, load_model
 from of_spmm_tpu_torch.examples.train_gcn import make_graph, make_optimizer, train, train_step
 from of_spmm_tpu_torch.examples import train_bert, train_dist
 from of_spmm_tpu_torch.graph import compute_call
@@ -212,6 +232,9 @@ from of_spmm_tpu_torch.sparse.panels import (
 from of_spmm_tpu_torch.sparse.ranges import RangesPlan, build_ranges_plan
 from of_spmm_tpu_torch.sparse.reorder import locality_stats, reorder_locality
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
+from of_spmm_tpu_torch.testing import ATOL as AUTOTEST_ATOL
+from of_spmm_tpu_torch.testing import RTOL as AUTOTEST_RTOL
+from of_spmm_tpu_torch.testing import check_module_against_torch
 from of_spmm_tpu_torch.tools import microbench_blockfma as tblockfma
 from of_spmm_tpu_torch.tools import microbench_cond as tcond
 from of_spmm_tpu_torch.tools import microbench_dyngather as tdyn
@@ -4614,7 +4637,328 @@ def tool_of(kname: str) -> str:
     return kname
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# export, the testing harness, autoprof and the entry points
+# ---------------------------------------------------------------------------
+
+# a saved program loaded in a fresh python3 (the package imported, nothing
+# else): each case's artifact run on its saved inputs, its output saved
+# and its launches reported
+FRESH_LOAD_PROBE = """
+import json, sys, torch
+from of_spmm_tpu_torch.export import load_model
+from of_spmm_tpu_torch.ops.cuda import build
+torch.backends.cuda.matmul.allow_tf32 = False
+cases = json.load(open(sys.argv[1]))
+for c in cases:
+    m = load_model(c["path"])
+    args = [torch.load(f, map_location="cuda:0") for f in c["inputs"]]
+    with torch.no_grad():
+        m(*args)
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        y = m(*args)
+        torch.cuda.synchronize()
+    c["launches"] = {k: n for k, n in build.LAUNCHES.items() if n}
+    torch.save(y.cpu(), c["out"])
+print(json.dumps(cases))
+"""
+
+# the dispatch cost of the ofs ops: the tiered arxiv GCN forward (9
+# launches) and a BERT-base masked-LM TrainGraph step (no port kernel), in
+# a fresh process on the package at argv[1] (this checkout or a parent's)
+OP_OVERHEAD_PROBE = """
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from of_spmm_tpu_torch.data import load_graph, random_features
+from of_spmm_tpu_torch.examples import train_bert
+from of_spmm_tpu_torch.models import GCN, bert_base, normalized_adjacency
+from of_spmm_tpu_torch.ops import make_operator
+from of_spmm_tpu_torch.ops.cuda import build
+from of_spmm_tpu_torch.utils.roofline import time_cuda, wall_ms
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+iters = int(sys.argv[2])
+csr, cfg = load_graph("ogbn-arxiv", symmetrize=True)
+op = make_operator(normalized_adjacency(csr))
+x = torch.from_numpy(random_features(cfg)[0]).to("cuda:0")
+model = GCN((128, 256, 256, 40), generator=torch.Generator().manual_seed(0))
+
+def issue_ms(fn, n):
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(ts)
+
+with torch.inference_mode():
+    fwd = lambda: model(op, x)
+    fwd()
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    fwd()
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    gcn = {"ms": time_cuda(fwd, iters=iters), "wall_ms": wall_ms(fwd, iters=iters),
+           "issue_ms": issue_ms(fwd, iters), "launches": launches}
+g = train_bert.make_graph(bert_base(generator=torch.Generator().manual_seed(3)), 100, 1e-4)
+batch = next(train_bert.batch_stream(8, 128, 30522, torch.device("cuda", 0), seed=1))
+step = lambda: g(*batch)
+build.reset_launch_counts()
+bert = {"ms": time_cuda(step, iters=5), "wall_ms": wall_ms(step, iters=5),
+        "launches": {k: n for k, n in build.LAUNCHES.items() if n}}
+print(json.dumps({"gcn_forward": gcn, "bert_base_mlm_step": bert}))
+"""
+EXPORT_LAYOUTS = ("tiered", "panels", "fused", "ranges", "expansion")
+OP_OVERHEAD_ITERS = 50
+AUTOTEST_ITERS = 10  # autoprof's timed calls per module
+
+
+def export_case(name: str, fn, args: tuple, root: str, check, tol: str) -> tuple:
+    """Export ``fn`` at ``args``, hold ir_stats' ofs nodes against the
+    eager launches, save, load in this process, hold the output (``check``
+    of loaded against eager) and the launches, and time both. Returns the
+    row and what the fresh-process load needs (its case and the eager
+    output)."""
+    path = os.path.join(root, name)
+    with torch.no_grad():
+        want, eager_launches = counted(lambda: fn(*args))
+        stats = ir_stats(fn, args)
+        nodes = {k.split(".", 1)[1]: n for k, n in stats["ops"].items() if k.startswith("ofs.")}
+        if nodes != eager_launches:
+            raise AssertionError(f"export {name}: ofs nodes {nodes} != eager launches "
+                                 f"{eager_launches}")
+        t0 = time.perf_counter()
+        export_model(fn, args, path, name=name)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = load_model(path)
+        t_load = time.perf_counter() - t0
+        loaded(*args)
+        got, loaded_launches = counted(lambda: loaded(*args))
+        if loaded_launches != eager_launches:
+            raise AssertionError(f"export {name}: loaded launches {loaded_launches} != eager "
+                                 f"{eager_launches}")
+        err = check(got, want, f"export {name}: loaded vs eager")
+        row = {"case": name, "ofs_nodes": nodes, "launches": eager_launches,
+               "graph_lines": stats["n_lines"], "export_seconds": round(t_export, 3),
+               "load_seconds": round(t_load, 3),
+               "artifact_bytes": sum(os.path.getsize(os.path.join(path, f))
+                                     for f in os.listdir(path)),
+               "loaded_err": err, "tolerance": tol,
+               "eager": times(lambda: fn(*args), iters=20),
+               "loaded": times(lambda: loaded(*args), iters=20)}
+    inputs = []
+    for i, a in enumerate(args):
+        inputs.append(os.path.join(root, f"{name}.in{i}.pt"))
+        torch.save(a, inputs[-1])
+    case = {"name": name, "path": path, "inputs": inputs,
+            "out": os.path.join(root, f"{name}.out.pt")}
+    del loaded
+    return row, case, want
+
+
+def export_main_path(a_hat: CSR, cfg, x: torch.Tensor, model) -> dict:
+    """The arxiv GCN (GCN_DIMS) on each operator layout, spmm_expansion2 on
+    arxiv at d = 128, and the BERT-base encoder with flash=True at B 8,
+    T 512 (float32, TF32 off): each exported on the card with its ofs
+    nodes counted against the eager launches, saved, loaded here and in a
+    fresh python3, and held against the eager output (the kernel bar, or
+    max-relative 1e-4 for BERT) with the launches held exactly."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ofs_export_")
+    rows, cases, wants = [], [], {}
+
+    def kernel_bar(got, want, what):
+        return check_close(got, want, what)
+
+    def rel_bar(got, want, what):
+        return rel_errs({"y": got}, {"y": want}, what)["y"]
+
+    try:
+        for layout in EXPORT_LAYOUTS:
+            lop = make_operator(a_hat, layout=layout)
+            row, case, wants[layout] = export_case(
+                f"gcn_{layout}", lambda xx, lop=lop: model(lop, xx), (x,), root, kernel_bar,
+                "|k-p| <= 1e-5 + 1e-4|p|")
+            rows.append({"layout": layout, **row})
+            cases.append(case)
+            del lop
+        e2plan = place_plan(build_expansion2_plan(a_hat), x.device)
+        h = torch.randn((cfg.n_nodes, 128), generator=torch.Generator().manual_seed(20))
+        h = h.to(x.device)
+        row, case, wants["expansion2"] = export_case(
+            "spmm_expansion2", lambda xx: spmm_expansion2(e2plan, xx), (h,), root, kernel_bar,
+            "|k-p| <= 1e-5 + 1e-4|p|")
+        rows.append({"layout": "spmm_expansion2 (d=128)", **row})
+        cases.append(case)
+        del e2plan, h
+        bert = bert_base(generator=torch.Generator().manual_seed(0))
+        for b in bert.blocks:
+            b.attn.flash = True
+        tokens = torch.randint(0, bert.vocab_size, (BERT_BATCH, BERT_SEQ),
+                               generator=torch.Generator().manual_seed(21)).to(x.device)
+        row, case, wants["bert"] = export_case("bert_base_flash", bert, (tokens,), root,
+                                               rel_bar, f"max-relative {MAIN_PATH_REL_TOL}")
+        rows.append({"layout": f"bert_base flash=True (B {BERT_BATCH}, T {BERT_SEQ})", **row})
+        cases.append(case)
+        del bert
+        spec = os.path.join(root, "cases.json")
+        with open(spec, "w") as f:
+            json.dump(cases, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", FRESH_LOAD_PROBE, spec],
+                              capture_output=True, text=True, timeout=600,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        t_fresh = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"fresh-process load failed (rc {proc.returncode}):\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        for row, c, key in zip(rows, fresh, [*EXPORT_LAYOUTS, "expansion2", "bert"]):
+            got = torch.load(c["out"]).to(x.device)
+            check = rel_bar if key == "bert" else kernel_bar
+            row["fresh_process"] = {"err": check(got, wants[key], f"fresh load {c['name']}"),
+                                    "launches": c["launches"]}
+            if c["launches"] != row["launches"]:
+                raise AssertionError(f"fresh load {c['name']}: launches {c['launches']} != "
+                                     f"eager {row['launches']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(graph="ogbn-arxiv (synthetic, symmetrized, self-loops)", dims=GCN_DIMS,
+                rows=rows, fresh_process_seconds=round(t_fresh, 2),
+                seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def op_overhead_run(root: str) -> dict:
+    """OP_OVERHEAD_PROBE on the package at ``root`` in a fresh python3."""
+    proc = subprocess.run([sys.executable, "-c", OP_OVERHEAD_PROBE, root, str(OP_OVERHEAD_ITERS)],
+                          capture_output=True, text=True, timeout=600, cwd=root,
+                          env={**os.environ, "PYTHONPATH": root})
+    if proc.returncode != 0:
+        raise AssertionError(f"op_overhead probe on {root} failed (rc {proc.returncode}):\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def op_overhead_phase(parent) -> dict:
+    """The tiered arxiv GCN forward (device, wall and issue ms, launches)
+    and a BERT-base masked-LM TrainGraph step, each in a fresh process on
+    this checkout and, given ``parent`` (the root of the parent commit's
+    checkout), on it too, in the order parent, this, this, parent."""
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    order = [("parent", parent), ("this", here), ("this", here), ("parent", parent)]
+    runs = {"this": [], "parent": []}
+    for who, root in (order if parent else order[1:2]):
+        runs[who].append(op_overhead_run(root))
+    for r in runs["this"]:
+        if r["gcn_forward"]["launches"] != {"bucket_spmm": 3, "gather_rows": 6}:
+            raise AssertionError(f"op_overhead: tiered GCN launches {r['gcn_forward']['launches']}")
+    return dict(graph="ogbn-arxiv (synthetic, symmetrized, self-loops)", dims=GCN_DIMS,
+                iters=OP_OVERHEAD_ITERS, order=[w for w, _ in order] if parent else ["this"],
+                this=runs["this"], parent=runs["parent"] or "not given (--parent DIR)",
+                seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def autotest_modules(dev, gen) -> list:
+    """(name, module, inputs, check kwargs) for each converter's class at a
+    width its users run, MultiheadAttention(flash=True) at BERT-base's."""
+    g = torch.Generator().manual_seed(30)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    E = PAR_EMBED
+    return [
+        ("Linear", onn.Linear(E, PAR_FFN, device=dev, generator=g), (rand(512, E),), {}),
+        ("Conv2d", onn.Conv2d(64, 64, 3, padding=1, device=dev, generator=g),
+         (rand(8, 64, 56, 56),), {}),
+        ("Conv1d", onn.Conv1d(64, 128, 5, stride=2, device=dev, generator=g),
+         (rand(8, 64, 512),), {}),
+        ("LayerNorm", onn.LayerNorm(E, device=dev), (rand(8, 128, E),), {}),
+        ("BatchNorm", onn.BatchNorm(E, device=dev), (rand(1024, E),), {"train": True}),
+        ("Embedding", onn.Embedding(MLM_VOCAB, E, device=dev, generator=g),
+         (torch.randint(0, MLM_VOCAB, (8, 128), generator=gen).to(dev),),
+         {"int_inputs": True}),
+        ("LSTM", onn.LSTM(256, 512, device=dev, generator=g), (rand(64, 16, 256),), {}),
+        ("GRU", onn.GRU(256, 512, device=dev, generator=g), (rand(64, 16, 256),), {}),
+        ("RNN", onn.RNN(256, 512, device=dev, generator=g), (rand(64, 16, 256),), {}),
+        ("MultiheadAttention", MultiheadAttention(E, PAR_HEADS, device=dev, generator=g),
+         (rand(BERT_BATCH, BERT_SEQ, E),), {}),
+        ("MultiheadAttention(flash=True)",
+         MultiheadAttention(E, PAR_HEADS, flash=True, device=dev, generator=g),
+         (rand(BERT_BATCH, BERT_SEQ, E),), {}),
+        ("MaxPool2d", onn.MaxPool2d(3, stride=2, padding=1), (rand(8, 64, 112, 112),), {}),
+        ("AvgPool2d", onn.AvgPool2d(2), (rand(8, 64, 56, 56),), {}),
+    ]
+
+
+def autotest_card_phase(gen, dev=torch.device("cuda", 0)) -> dict:
+    """check_module_against_torch on the card for each converter's module
+    (forward, input and parameter grads at rtol 1e-4 / atol 1e-5,
+    normwise: at these widths a gradient is a sum of thousands of float32
+    terms that the port and torch take in different orders), the flash
+    MHA's launches counted; then autoprof's table of the same modules."""
+    t_phase = time.perf_counter()
+    rows, prof = [], []
+    for name, module, inputs, kw in autotest_modules(dev, gen):
+        _, launched = counted(lambda: check_module_against_torch(module, inputs, norm=True,
+                                                                 **kw))
+        if ("flash" in name) != bool(launched.get("flash_attention")):
+            raise AssertionError(f"autotest {name}: launches {launched}")
+        r = profile_module(module, inputs, iters=AUTOTEST_ITERS)
+        r.name = name
+        prof.append(r)
+        rows.append({"module": name, "inputs": [list(t.shape) for t in inputs],
+                     "launches": launched, "ours_ms": round(r.ours_ms, 4),
+                     "torch_ms": None if r.torch_ms is None else round(r.torch_ms, 4)})
+    return dict(tolerance=f"max|k-t| <= {AUTOTEST_ATOL} + {AUTOTEST_RTOL} max|t| (normwise): "
+                          "forward, input and parameter grads under one seeded cotangent",
+                rows=rows, table=table(prof).splitlines(),
+                seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def entry_main_path_phase() -> dict:
+    """entry() on the card with the products-small canary: (2708, 7)
+    finite logits, the fused, bucket and flash kernels launched; then
+    dryrun_multichip(4) on ShardMesh(["cuda:0"] * 4)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fn, args = entry()
+    t_entry = time.perf_counter() - t0
+    with torch.no_grad():
+        out, launched = counted(lambda: fn(*args))
+        fwd = times(lambda: fn(*args), iters=10)
+    if tuple(out.shape) != (2708, 7) or not torch.isfinite(out).all():
+        raise AssertionError(f"entry: output {tuple(out.shape)} not (2708, 7) or not finite")
+    for k in ("fused_spmm", "bucket_spmm", "flash_attention"):
+        if not launched.get(k):
+            raise AssertionError(f"entry: {k} not launched ({launched})")
+    del fn, args
+    t0 = time.perf_counter()
+    res, dry_launched = counted(lambda: dryrun_multichip(DIST_SHARDS))
+    t_dry = time.perf_counter() - t0
+    return dict(canary_graph="products-small (synthetic, symmetrized, self-loops)",
+                output=list(out.shape), finite=True, launches=launched,
+                entry_seconds=round(t_entry, 2), forward=fwd,
+                dryrun_multichip={"shards": DIST_SHARDS,
+                                  "mesh": f"ShardMesh(['cuda:0'] * {DIST_SHARDS})",
+                                  "loss": res["loss"], "pp_loss": res["pp_loss"],
+                                  "loss_1f1b": res["loss_1f1b"], "moe_loss": res["moe_loss"],
+                                  "launches": dry_launched, "seconds": round(t_dry, 2)},
+                seconds=round(time.perf_counter() - t_phase, 2))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Drive the port on one NVIDIA H100.")
+    ap.add_argument("--parent", default=None,
+                    help="root of the parent commit's checkout: op_overhead runs it too")
+    parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 1
@@ -5174,6 +5518,15 @@ def main() -> int:
     emit("one_embedding_main_path", **one_embedding_main_path())
     emit("records_input_pipeline",
          **records_input_pipeline(vision["resnet_main_path"]["train_step_ms"]))
+
+    # -- 33g.-33j. export with the kernels kept in the saved program (in
+    #             this process and a fresh one), the ops' dispatch cost
+    #             beside the parent commit's (--parent DIR), the testing
+    #             harness and autoprof on the card, the entry points
+    emit("export_main_path", **export_main_path(a_hat, cfg, x, model))
+    emit("op_overhead", **op_overhead_phase(parent))
+    emit("autotest_card", **autotest_card_phase(gen))
+    emit("entry_main_path", **entry_main_path_phase())
 
     # -- 34.-40. the microbenchmarks: each tool's entry point at its
     #            default size, then its kernels against their plain

@@ -24,7 +24,11 @@ path: ``models.Embedding``, ``models.ShardedEmbedding`` (the id-shuffle
 lookup over a row-sharded table) and ``embedding`` (the tiered store:
 a file-backed table behind a row cache on the card), with record files
 and image transforms (``data``), the profiler and the summary writer
-(``utils``).
+(``utils``); and the framework's surface: export with the hand-written
+kernels kept in the saved program (``export``: each kernel a
+``torch.library`` op, ``torch.ops.ofs.*``), the torch-twin test harness
+(``testing``), ``autoprof`` and the entry points
+(``python -m of_spmm_tpu_torch.entry``).
 
     from of_spmm_tpu_torch.data import load_graph, random_features
     from of_spmm_tpu_torch.models import GCN, bert_base, normalized_adjacency

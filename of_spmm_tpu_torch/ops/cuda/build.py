@@ -6,7 +6,9 @@ ctypes. Libraries go to ``_build/`` beside the package, keyed by the
 source's hash, the shared headers' (``csrc/*.cuh``) and the flags, so a
 changed source or header builds anew and an unchanged one loads at once.
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
-its path went through the kernels.
+its path went through the kernels; for the eight main-path kernels the
+count is taken in their ``torch.library`` op's CUDA implementation
+(ops/cuda/library.py), so a saved program's launches count too.
 """
 
 from __future__ import annotations

@@ -13,9 +13,11 @@ which this engine and expansion2 (ops/cuda/expansion2.py) share.
 sums, row-scaled, added per output block) in plain PyTorch, for both
 engines.
 
-The wrappers dispatch on the device of ``x``: on the CPU they run the
-plain version (what the CPU tests hold against the JAX package); on the
-card they launch the kernel or raise, and never fall back. Each launch
+The wrappers flatten the plan into ``torch.ops.ofs.expansion_spmm`` /
+``expansion2_spmm`` (``define_op``; ops/cuda/library.py), which dispatch
+on the device of ``x``: on the CPU they run the plain version (what the
+CPU tests hold against the JAX package); on the card they launch the
+kernel or raise, and never fall back. Each launch
 adds one to ``LAUNCHES["expansion_spmm"]`` (ops/cuda/build.py).
 
 Numerics: fp32 throughout. The TPU kernel computes in bf16 hi/lo pairs
@@ -28,11 +30,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from of_spmm_tpu_torch.ops.cuda import build as _build
+from of_spmm_tpu_torch.ops.cuda import library
 from of_spmm_tpu_torch.ops.cuda.build import LAUNCHES, raise_if, require, same_device, stream
 from of_spmm_tpu_torch.sparse import expansion2
 from of_spmm_tpu_torch.sparse.expansion import ExpansionPlan, attach_stage_rows
@@ -73,28 +76,33 @@ def is_placed(plan, device: torch.device) -> bool:
                     for g in plan.groups))
 
 
-def _group_ptrs(plan) -> tuple:
+def _group_rows(groups, v2: bool) -> tuple:
     """Per group: its lane index, row, value (0 without) and block arrays,
     stage_row, stage_scale (0 without) pointers and its staged rows; the
     rows of the kernel's device table (csrc/expansion.cuh Args)."""
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    v2 = isinstance(plan, expansion2.Expansion2Plan)
     return tuple((ptr(g.lidx if v2 else g.win_lidx), ptr(g.lrow), ptr(g.val_hi), ptr(g.val_lo),
                   ptr(g.blk_of if v2 else g.base_blk), ptr(g.stage_row),
                   ptr(getattr(g, "stage_scale", None)), int(g.stage_row.shape[0]))
-                 for g in plan.groups)
+                 for g in groups)
+
+
+def _group_ptrs(plan) -> tuple:
+    """``_group_rows`` of a placed plan of either engine."""
+    return _group_rows(plan.groups, isinstance(plan, expansion2.Expansion2Plan))
 
 
 def _with_table(plan):
     """The placed plan with its work list's device table (LaneWork.table,
-    .ptrs) built from its groups' arrays."""
+    .ptrs) built from its groups' arrays (and remembered for the op's
+    check that they have not moved, ops/cuda/library.py check_work)."""
     rows = _group_ptrs(plan)
     dev = plan.work.lanes.device
-    table = torch.tensor(rows, dtype=torch.int64).reshape(-1, 8).to(dev)
-    return dataclasses.replace(plan, work=dataclasses.replace(plan.work, table=table,
-                                                              ptrs=rows))
+    library.bind_work(plan.work.units, rows)
+    return dataclasses.replace(plan, work=dataclasses.replace(
+        plan.work, table=library.device_table(rows, 8, dev), ptrs=rows))
 
 
 def _attach(plan, max_lanes: Optional[int] = None):
@@ -164,6 +172,10 @@ def expansion_spmm_torch(plan: ExpansionPlan, x: torch.Tensor) -> torch.Tensor:
     concatenated, cut to n rows. Lanes of value 0 (the padding) add
     nothing and are skipped."""
     check_plan(plan, x, ExpansionPlan, "expansion_spmm_torch")
+    return _expansion_plain(plan, x)
+
+
+def _expansion_plain(plan, x: torch.Tensor) -> torch.Tensor:
     n, d = plan.n_rows, x.shape[1]
     nblk = plan.CW // _L
     out = torch.zeros((plan.n_tiles * plan.R, d), dtype=torch.float32, device=x.device)
@@ -243,10 +255,12 @@ def expansion_units_torch(plan, x: torch.Tensor) -> torch.Tensor:
 
 
 def launch(plan, x: torch.Tensor, lib, fn, name: str, tile_lanes: int,
-           nblk: int) -> torch.Tensor:
+           nblk: int, v2: bool) -> torch.Tensor:
     """Y through one call of ``fn`` (a bound ofs_expansion*_spmm of
     ``lib``): the split keys' rows zeroed, then one launch over every work
-    unit of the plan. Y is not zeroed as a whole."""
+    unit of the plan. Y is not zeroed as a whole. The groups' address
+    table is built from the plan's arrays now (ops/cuda/library.py
+    device_table)."""
     n, m = plan.shape
     d = x.shape[1]
     dev = x.device
@@ -254,34 +268,55 @@ def launch(plan, x: torch.Tensor, lib, fn, name: str, tile_lanes: int,
     out = torch.empty((n, d), dtype=torch.float32, device=dev)  # every row has a unit
     if n == 0 or d == 0 or work.units.shape[0] == 0:
         return out
-    if work.table.device != dev or work.ptrs != _group_ptrs(plan):
-        raise ValueError("the work list was built for other arrays: place the plan again "
-                         "(ops.place_plan)")
+    rows = _group_rows(plan.groups, v2)
+    library.check_work(work.units, rows, name)
     rs = getattr(plan, "row_scale", None)
-    rc = fn(work.table.data_ptr(), work.lanes.data_ptr(), work.units.data_ptr(),
-            work.split_keys.data_ptr(), None if rs is None else rs.data_ptr(), x.data_ptr(),
-            out.data_ptr(), m, n, d, int(work.units.shape[0]), int(work.split_keys.shape[0]),
-            plan.R, tile_lanes, nblk, dev.index or 0, stream(dev))
+    rc = fn(library.device_table(rows, 8, dev).data_ptr(), work.lanes.data_ptr(),
+            work.units.data_ptr(), work.split_keys.data_ptr(),
+            None if rs is None else rs.data_ptr(), x.data_ptr(), out.data_ptr(), m, n, d,
+            int(work.units.shape[0]), int(work.split_keys.shape[0]), plan.R, tile_lanes, nblk,
+            dev.index or 0, stream(dev))
     raise_if(lib, rc, name)
     LAUNCHES[name] += 1
     return out
 
 
+def define_op(name: str, v2: bool, arrays: Tuple[str, ...], ints: Tuple[str, ...],
+              group_arrays: Tuple[str, ...], plain: Callable, kernel: Callable[[], tuple],
+              geometry: Callable) -> Callable:
+    """Register ``ofs::<name>`` for one expansion engine
+    (``library.plan_op``; the plan's work list among its arrays):
+    ``plain(plan, x)`` its plain version, ``kernel()`` (library, bound
+    launch function), ``geometry(plan)`` the launch's (tile lanes, window
+    blocks). Returns ``run(plan, x)``."""
+    def run_kernel(plan, x):
+        lib, fn = kernel()
+        return launch(plan, x, lib, fn, name, *geometry(plan), v2)
+
+    return library.plan_op(
+        name, arrays=("work.lanes", "work.units", "work.split_keys") + arrays, ints=ints,
+        items="groups", item_arrays=group_arrays, item_ints=("n_tiles",),
+        derived=lambda plan: {"n_rows": plan.shape[0],
+                              "n_tiles": sum(g.n_tiles for g in plan.groups)},
+        plain=plain, launch=run_kernel)
+
+
+# ofs::expansion_spmm: one launch per SpMM
+_run = define_op("expansion_spmm", False, (), ("R", "TILE", "CW"),
+                 ("win_lidx", "lrow", "val_hi", "val_lo", "base_blk", "tile_of", "stage_row"),
+                 _expansion_plain, lambda: (_lib(), _lib().ofs_expansion_spmm),
+                 lambda plan: (plan.TILE, plan.CW // _L))
+
+
 def expansion_spmm(plan: ExpansionPlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X (float32, (n, d)) for a placed ExpansionPlan of A and
-    float32 ``x`` (m, d). On the card this launches the kernel once; on
-    the CPU it runs ``expansion_spmm_torch``. A staged row that names a
-    row outside x stops the kernel with a device-side assertion that the
-    next synchronization raises."""
+    float32 ``x`` (m, d), through ``torch.ops.ofs.expansion_spmm``. On the
+    card this launches the kernel once; on the CPU it runs
+    ``expansion_spmm_torch``. A staged row that names a row outside x
+    stops the kernel with a device-side assertion that the next
+    synchronization raises."""
     check_plan(plan, x, ExpansionPlan, "expansion_spmm")
-    dev = x.device
-    if dev.type == "cpu":
-        return expansion_spmm_torch(plan, x)
-    if dev.type != "cuda":
-        raise ValueError(f"expansion_spmm runs on cuda or cpu tensors, got {dev}")
-    lib = _lib()
-    return launch(plan, x, lib, lib.ofs_expansion_spmm, "expansion_spmm", plan.TILE,
-                  plan.CW // _L)
+    return _run(plan, x)
 
 
 def spmm_expansion(plan: ExpansionPlan, x: torch.Tensor) -> torch.Tensor:

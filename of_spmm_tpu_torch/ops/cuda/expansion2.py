@@ -12,9 +12,10 @@ csrc/expansion.cuh, shared with the v1 engine (ops/cuda/expansion.py,
 which also holds the launcher and the unit-by-unit plain version,
 ``expansion_units_torch``, both use).
 
-The wrappers dispatch on the device of ``x``: on the CPU they run the
-plain version; on the card they launch the kernel or raise, and never
-fall back. Each launch adds one to ``LAUNCHES["expansion2_spmm"]``
+The wrappers flatten the plan into ``torch.ops.ofs.expansion2_spmm``
+(ops/cuda/expansion.py define_op), which dispatches on the device of
+``x``: on the CPU it runs the plain version; on the card it launches the
+kernel or raises, and never falls back. Each launch adds one to ``LAUNCHES["expansion2_spmm"]``
 (ops/cuda/build.py). fp32 throughout, as for v1.
 """
 
@@ -27,7 +28,7 @@ import torch
 
 from of_spmm_tpu_torch.ops.cuda import build as _build
 from of_spmm_tpu_torch.ops.cuda.expansion import (
-    bf16_tensor_value, bind, check_plan, is_placed, launch, place_plan, scatter_lanes)
+    bf16_tensor_value, bind, check_plan, define_op, is_placed, place_plan, scatter_lanes)
 from of_spmm_tpu_torch.sparse.expansion2 import Expansion2Plan
 
 SOURCE = "expansion2.cu"
@@ -57,6 +58,10 @@ def expansion2_spmm_torch(plan: Expansion2Plan, x: torch.Tensor) -> torch.Tensor
     by row_scale (rank-1 plans). Lanes on the sentinel row R, or of value
     0, add nothing and are skipped."""
     check_plan(plan, x, Expansion2Plan, "expansion2_spmm_torch")
+    return _expansion2_plain(plan, x)
+
+
+def _expansion2_plain(plan, x: torch.Tensor) -> torch.Tensor:
     n, d = plan.n_rows, x.shape[1]
     out = torch.zeros((plan.n_tiles * plan.R, d), dtype=torch.float32, device=x.device)
     tile0 = 0
@@ -79,21 +84,23 @@ def expansion2_spmm_torch(plan: Expansion2Plan, x: torch.Tensor) -> torch.Tensor
     return y * plan.row_scale[:, None] if plan.row_scale is not None else y
 
 
+# ofs::expansion2_spmm: one launch per SpMM
+_run = define_op("expansion2_spmm", True, ("row_scale",), ("R", "G"),
+                 ("lidx", "lrow", "val_hi", "val_lo", "blk_of", "tile_of", "stage_row",
+                  "stage_scale"),
+                 _expansion2_plain, lambda: (_lib(), _lib().ofs_expansion2_spmm),
+                 lambda plan: (plan.G * _L, 0))
+
+
 def expansion2_spmm(plan: Expansion2Plan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X (float32, (n, d)) for a placed Expansion2Plan of A and
-    float32 ``x`` (m, d). On the card this launches the kernel once
-    (row_scale folded into each output row once); on the CPU it runs
-    ``expansion2_spmm_torch``. A staged row that names a row outside x
-    stops the kernel with a device-side assertion that the next
-    synchronization raises."""
+    float32 ``x`` (m, d), through ``torch.ops.ofs.expansion2_spmm``. On the
+    card this launches the kernel once (row_scale folded into each output
+    row once); on the CPU it runs ``expansion2_spmm_torch``. A staged row
+    that names a row outside x stops the kernel with a device-side
+    assertion that the next synchronization raises."""
     check_plan(plan, x, Expansion2Plan, "expansion2_spmm")
-    dev = x.device
-    if dev.type == "cpu":
-        return expansion2_spmm_torch(plan, x)
-    if dev.type != "cuda":
-        raise ValueError(f"expansion2_spmm runs on cuda or cpu tensors, got {dev}")
-    lib = _lib()
-    return launch(plan, x, lib, lib.ofs_expansion2_spmm, "expansion2_spmm", plan.G * _L, 0)
+    return _run(plan, x)
 
 
 def spmm_expansion2(plan: Expansion2Plan, x: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,9 @@ replaces the TPU kernel
 ``_flash_fwd``); the kernel is in ``csrc/flash_attention.cu`` (design
 notes there).
 
-On the CPU the wrapper runs ``flash_attention_torch``; on the card it
-launches the kernel or raises, and never falls back. Each launch adds one
+The wrapper calls ``torch.ops.ofs.flash_attention`` (ops/cuda/library.py):
+on the CPU the op runs ``flash_attention_torch``; on the card it launches
+the kernel or raises, and never falls back. Each launch adds one
 to ``LAUNCHES["flash_attention"]`` (ops/cuda/build.py).
 
 The float32 kernel takes each product on the tensor cores as three TF32
@@ -28,6 +29,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from of_spmm_tpu_torch.ops.cuda import build as _build
+from of_spmm_tpu_torch.ops.cuda import library
 
 SOURCE = "flash_attention.cu"
 MAX_HEAD_DIM = 256
@@ -152,18 +154,12 @@ def flash_attention_tf32x3_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     return flash_attention_torch(q, k, v, causal, block_q, block_k, matmul=tf32x3_matmul)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False) -> torch.Tensor:
-    """Attention forward (BH, Tq, d) in q's dtype (see the module
-    docstring). On the card this launches the kernel, which picks its own
-    tiles (csrc/flash_attention.cu); on the CPU it runs
-    ``flash_attention_torch`` with the TPU kernel's default tiles."""
-    check_inputs(q, k, v)
-    dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_torch(q, k, v, causal)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {dev}")
+def _flash_cpu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> torch.Tensor:
+    return flash_attention_torch(q, k, v, causal)
+
+
+def _flash_cuda(q, k, v, causal) -> torch.Tensor:
+    dev = _build.same_device(q, k, v)
     BH, Tq, d = q.shape
     Tk = k.shape[1]
     out = torch.empty_like(q)
@@ -176,3 +172,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.raise_if(lib, rc, "flash_attention")
     _build.LAUNCHES["flash_attention"] += 1
     return out
+
+
+def _flash_fake(q, k, v, causal) -> torch.Tensor:
+    return torch.empty_like(q)
+
+
+# ofs::flash_attention(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor
+_flash_op = library.define("flash_attention", _flash_cpu, _flash_cuda, _flash_fake)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """Attention forward (BH, Tq, d) in q's dtype (see the module
+    docstring), through ``torch.ops.ofs.flash_attention``. On the card
+    this launches the kernel, which picks its own tiles
+    (csrc/flash_attention.cu); on the CPU it runs
+    ``flash_attention_torch`` with the TPU kernel's default tiles."""
+    check_inputs(q, k, v)
+    dev = q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {dev}")
+    return _flash_op(q, k, v, bool(causal))

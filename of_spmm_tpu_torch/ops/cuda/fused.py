@@ -7,7 +7,9 @@ segment. It replaces the TPU kernel
 wrapper's column scaling, staging tables and row scaling; design notes are
 in csrc/staged_spmm.cuh, which the fused and the ranges kernels share.
 
-The wrapper dispatches on the device of ``x``: on the CPU it runs
+The wrapper flattens the plan into ``torch.ops.ofs.fused_spmm``
+(ops/cuda/staged.py define_op), which dispatches on the device of
+``x``: on the CPU it runs
 ``fused_spmm_torch`` (what the CPU tests hold against the JAX package);
 on the card it launches the kernel or raises, and never falls back.
 Each launch adds one to ``LAUNCHES["fused_spmm"]`` (ops/cuda/build.py).
@@ -21,7 +23,7 @@ from typing import Dict
 import torch
 
 from of_spmm_tpu_torch.ops.cuda import build as _build
-from of_spmm_tpu_torch.ops.cuda.staged import bind, check_plan, launch_segments, staged_spmm_torch
+from of_spmm_tpu_torch.ops.cuda.staged import bind, check_plan, define_op, staged_spmm_torch
 from of_spmm_tpu_torch.sparse.fused import FusedPlan
 
 SOURCE = "fused.cu"
@@ -47,18 +49,17 @@ def fused_spmm_torch(plan: FusedPlan, x: torch.Tensor) -> torch.Tensor:
     return staged_spmm_torch(plan, x)
 
 
+# ofs::fused_spmm: one launch per segment with output tiles
+_run = define_op("fused_spmm", ("T", "R", "multihot", "window"),
+                 lambda: (_lib(), _lib().ofs_fused_spmm))
+
+
 def fused_spmm(plan: FusedPlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X (float32, (n, d)) for a placed FusedPlan of A and float32
-    ``x`` (m, d). On the card this launches the kernel once per segment;
-    on the CPU it runs ``fused_spmm_torch``. A window row that resolves
-    outside x is an error on both: the plain version raises, and the
-    kernel stops with a device-side assertion that the next
-    synchronization raises."""
+    ``x`` (m, d), through ``torch.ops.ofs.fused_spmm``. On the card this
+    launches the kernel once per segment; on the CPU it runs
+    ``fused_spmm_torch``. A window row that resolves outside x is an error
+    on both: the plain version raises, and the kernel stops with a
+    device-side assertion that the next synchronization raises."""
     check_plan(plan, x, FusedPlan, "fused_spmm")
-    dev = x.device
-    if dev.type == "cpu":
-        return staged_spmm_torch(plan, x)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_spmm runs on cuda or cpu tensors, got {dev}")
-    lib = _lib()
-    return launch_segments(plan, x, lib, lib.ofs_fused_spmm, "fused_spmm")
+    return _run(plan, x)

@@ -9,9 +9,11 @@ wrapper's column scaling, take table and row scaling; design notes are in
 the CUDA source. ``panel_spmm_units_torch`` repeats the kernel's split
 into units (partial sums, row-scaled, added per tile) in plain PyTorch.
 
-The wrapper dispatches on the device of ``x``: on the CPU it runs
-``panel_spmm_torch`` (what the CPU tests hold against the JAX package);
-on the card it launches the kernel or raises, and never falls back.
+The wrapper flattens the plan into ``torch.ops.ofs.panel_spmm``
+(ops/cuda/library.py), which dispatches on the device of ``x``: on the
+CPU it runs ``panel_spmm_torch`` (what the CPU tests hold against the JAX
+package); on the card it launches the kernel or raises, and never falls
+back.
 Each launch adds one to ``LAUNCHES["panel_spmm"]`` (ops/cuda/build.py).
 """
 
@@ -23,6 +25,7 @@ from typing import Dict
 import torch
 
 from of_spmm_tpu_torch.ops.cuda import build as _build
+from of_spmm_tpu_torch.ops.cuda import library
 from of_spmm_tpu_torch.ops.cuda.build import LAUNCHES, raise_if, require, same_device, stream
 from of_spmm_tpu_torch.sparse.panels import (
     _L, C_GCNT, C_TILE, PanelPlan, resolve_window_rows, xs_rows)
@@ -144,21 +147,12 @@ def panel_spmm_units_torch(plan: PanelPlan, x: torch.Tensor) -> torch.Tensor:
     return out[:n]
 
 
-def panel_spmm(plan: PanelPlan, x: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X (float32, (n, d)) for a placed PanelPlan of A and float32
-    ``x`` (m, d). On the card this launches the kernel once per segment;
-    on the CPU it runs ``panel_spmm_torch``. A window row that resolves
-    outside x is an error on both: the plain version raises, and the
-    kernel stops with a device-side assertion that the next
-    synchronization raises."""
-    _check_plan(plan, x)
+def _panel_launch(plan, x: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel per segment with tiles (the op's CUDA
+    implementation, on the plan ``library.plan_op`` rebuilt)."""
     n, m = plan.shape
     d = x.shape[1]
     dev = x.device
-    if dev.type == "cpu":
-        return panel_spmm_torch(plan, x)
-    if dev.type != "cuda":
-        raise ValueError(f"panel_spmm runs on cuda or cpu tensors, got {dev}")
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0 or d == 0:
         return out
@@ -184,3 +178,27 @@ def panel_spmm(plan: PanelPlan, x: torch.Tensor) -> torch.Tensor:
         LAUNCHES["panel_spmm"] += 1
         tile0 += seg.n_tiles
     return out
+
+
+# ofs::panel_spmm: what the launcher and the plain version read of a placed
+# PanelPlan and of each of its segments
+_run = library.plan_op(
+    "panel_spmm", arrays=("hot_ids", "col_scale", "row_scale"), ints=("T", "RC", "RQ"),
+    items="segments",
+    item_arrays=("ctrl", "blk", "masks", "stage_take", "stage_scale", "windows.step_win",
+                 "windows.range_rows", "windows.direct_rows", "windows.unit_slots",
+                 "windows.units", "windows.split_tiles"),
+    item_ints=("n_steps", "n_tiles"),
+    derived=lambda plan: {"n_hot": int(plan.hot_ids.shape[0])},
+    plain=panel_spmm_torch, launch=_panel_launch)
+
+
+def panel_spmm(plan: PanelPlan, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X (float32, (n, d)) for a placed PanelPlan of A and float32
+    ``x`` (m, d), through ``torch.ops.ofs.panel_spmm``. On the card this
+    launches the kernel once per segment; on the CPU it runs
+    ``panel_spmm_torch``. A window row that resolves outside x is an error
+    on both: the plain version raises, and the kernel stops with a
+    device-side assertion that the next synchronization raises."""
+    _check_plan(plan, x)
+    return _run(plan, x)

@@ -7,7 +7,9 @@ segment. It replaces the TPU kernel
 wrapper's column scaling, staging tables and row scaling; design notes are
 in csrc/staged_spmm.cuh, which the fused and the ranges kernels share.
 
-The wrapper dispatches on the device of ``x``: on the CPU it runs
+The wrapper flattens the plan into ``torch.ops.ofs.ranges_spmm``
+(ops/cuda/staged.py define_op), which dispatches on the device of
+``x``: on the CPU it runs
 ``ranges_spmm_torch`` (what the CPU tests hold against the JAX package);
 on the card it launches the kernel or raises, and never falls back.
 Each launch adds one to ``LAUNCHES["ranges_spmm"]`` (ops/cuda/build.py).
@@ -21,7 +23,7 @@ from typing import Dict
 import torch
 
 from of_spmm_tpu_torch.ops.cuda import build as _build
-from of_spmm_tpu_torch.ops.cuda.staged import bind, check_plan, launch_segments, staged_spmm_torch
+from of_spmm_tpu_torch.ops.cuda.staged import bind, check_plan, define_op, staged_spmm_torch
 from of_spmm_tpu_torch.sparse.ranges import RangesPlan
 
 SOURCE = "ranges.cu"
@@ -47,18 +49,17 @@ def ranges_spmm_torch(plan: RangesPlan, x: torch.Tensor) -> torch.Tensor:
     return staged_spmm_torch(plan, x)
 
 
+# ofs::ranges_spmm: one launch per segment with output tiles
+_run = define_op("ranges_spmm", ("T", "R", "multihot", "RC", "RQ"),
+                 lambda: (_lib(), _lib().ofs_ranges_spmm))
+
+
 def ranges_spmm(plan: RangesPlan, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X (float32, (n, d)) for a placed RangesPlan of A and float32
-    ``x`` (m, d). On the card this launches the kernel once per segment;
-    on the CPU it runs ``ranges_spmm_torch``. A window row that resolves
-    outside x is an error on both: the plain version raises, and the
-    kernel stops with a device-side assertion that the next
-    synchronization raises."""
+    ``x`` (m, d), through ``torch.ops.ofs.ranges_spmm``. On the card this
+    launches the kernel once per segment; on the CPU it runs
+    ``ranges_spmm_torch``. A window row that resolves outside x is an error
+    on both: the plain version raises, and the kernel stops with a
+    device-side assertion that the next synchronization raises."""
     check_plan(plan, x, RangesPlan, "ranges_spmm")
-    dev = x.device
-    if dev.type == "cpu":
-        return staged_spmm_torch(plan, x)
-    if dev.type != "cuda":
-        raise ValueError(f"ranges_spmm runs on cuda or cpu tensors, got {dev}")
-    lib = _lib()
-    return launch_segments(plan, x, lib, lib.ofs_ranges_spmm, "ranges_spmm")
+    return _run(plan, x)

@@ -20,19 +20,22 @@ into units of whole ELL rows (``bucket_units``), tier by tier, heaviest
 first within a tier.
 ``bucket_spmm_units_torch`` repeats that split in plain PyTorch.
 
-Each wrapper dispatches on the device of the tensors it is given: on the
-CPU it runs the plain PyTorch version beside it (what the CPU tests
-check against the JAX package); on the card it launches the kernel or
-raises. It never falls back. ``LAUNCHES`` (ops/cuda/build.py) counts
-kernel launches per wrapper, so a run can show that its path went
-through the kernels.
+Each wrapper calls its op, ``torch.ops.ofs.bucket_spmm`` or
+``torch.ops.ofs.gather_rows`` (ops/cuda/library.py), which dispatches on
+the device of the tensors it is given: on the CPU it runs the plain
+PyTorch version beside it (what the CPU tests check against the JAX
+package); on the card it launches the kernel or raises. It never falls
+back. The bucket op takes the buckets' arrays themselves and builds the
+kernel's address table from them at each call (cached by content).
+``LAUNCHES`` (ops/cuda/build.py) counts kernel launches per wrapper, so
+a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +43,7 @@ import torch
 from of_spmm_tpu_torch.ops.cuda.build import (  # noqa: F401  (LAUNCHES, reset: re-exported)
     LAUNCHES, raise_if, require, reset_launch_counts, same_device, stream)
 from of_spmm_tpu_torch.ops.cuda import build as _build
+from of_spmm_tpu_torch.ops.cuda import library
 from of_spmm_tpu_torch.utils.config import FLAGS
 
 SOURCE = "spmm.cu"
@@ -93,7 +97,10 @@ class BucketWork:
     pointers, K, ELL rows, row_offset and first row in the concatenation;
     ``units`` int32 (n_units, 3) [bucket, first ELL row, rows]
     (``bucket_units``); ``ptrs`` the cols and vals pointers the table
-    holds, so a launch can refuse a table whose arrays have moved."""
+    holds. The op builds its own table from the buckets it is given (the
+    placement's is the same one, from ``library.device_table``'s cache)
+    and refuses these units once the arrays they were cut for have moved
+    (``library.check_work``)."""
 
     table: torch.Tensor
     units: torch.Tensor
@@ -146,17 +153,26 @@ def plan_tiers(plan) -> Tuple[int, ...]:
     return (0,) * len(plan.buckets)
 
 
+def _table_rows(cols, vals, row_offsets) -> Tuple[Tuple[int, ...], ...]:
+    """The kernel's device table of these buckets, one row each: cols
+    and vals pointers, K, ELL rows, row_offset and first row in the
+    concatenation."""
+    rows, first = [], 0
+    for c, v, o in zip(cols, vals, row_offsets):
+        rows.append((c.data_ptr(), v.data_ptr(), int(c.shape[1]), int(c.shape[0]), int(o), first))
+        first += int(c.shape[0])
+    return tuple(rows)
+
+
 def _work_for(buckets, device, cap: Optional[int] = None, tiers=None) -> BucketWork:
     rows = [int(c.shape[0]) for c, _, _ in buckets]
     widths = [int(c.shape[1]) for c, _, _ in buckets]
-    first = np.r_[0, np.cumsum(rows)].astype(np.int64)
-    ptrs = tuple(p for c, v, _ in buckets for p in (c.data_ptr(), v.data_ptr()))
-    table = [[c.data_ptr(), v.data_ptr(), K, R, int(o), int(f)]
-             for (c, v, o), K, R, f in zip(buckets, widths, rows, first)]
+    table = _table_rows(*zip(*buckets)) if buckets else ()
+    units = torch.from_numpy(bucket_units(widths, rows, cap, tiers)).to(device)
+    library.bind_work(units, table)
     return BucketWork(
-        table=torch.tensor(table, dtype=torch.int64).reshape(-1, 6).to(device),
-        units=torch.from_numpy(bucket_units(widths, rows, cap, tiers)).to(device),
-        ptrs=ptrs, n_ell_rows=int(first[-1]))
+        table=library.device_table(table, 6, device), units=units,
+        ptrs=tuple(p for r in table for p in r[:2]), n_ell_rows=sum(rows))
 
 
 def bucket_work(plan, cap: Optional[int] = None) -> BucketWork:
@@ -189,13 +205,52 @@ def _out_buffer(out: Optional[torch.Tensor], rows: int, x: torch.Tensor) -> torc
     return out
 
 
-def _launch(lib: ctypes.CDLL, work: BucketWork, x: torch.Tensor, out: torch.Tensor) -> None:
+def _bucket_cpu(cols: List[torch.Tensor], vals: List[torch.Tensor], row_offsets: List[int],
+                units: torch.Tensor, x: torch.Tensor, out: torch.Tensor) -> None:
+    r0 = 0
+    for c, v, o in zip(cols, vals, row_offsets):
+        bucket_spmm_torch(c, v, x, o, out[r0:r0 + c.shape[0]])
+        r0 += c.shape[0]
+
+
+def _bucket_cuda(cols, vals, row_offsets, units, x, out) -> None:
     dev = x.device
-    rc = lib.ofs_bucket_spmm(work.table.data_ptr(), work.units.data_ptr(), x.data_ptr(),
-                             out.data_ptr(), int(work.units.shape[0]), x.shape[0], x.shape[1],
-                             dev.index or 0, stream(dev))
+    require(units, "units", torch.int32, 2)
+    same_device(x, out, units, *cols, *vals)
+    if out.shape[0] == 0 or x.shape[1] == 0:
+        return
+    rows = _table_rows(cols, vals, row_offsets)
+    library.check_work(units, rows, "bucket_spmm")
+    lib = _lib()
+    rc = lib.ofs_bucket_spmm(library.device_table(rows, 6, dev).data_ptr(), units.data_ptr(),
+                             x.data_ptr(), out.data_ptr(), int(units.shape[0]), x.shape[0],
+                             x.shape[1], dev.index or 0, stream(dev))
     raise_if(lib, rc, "bucket_spmm")
     LAUNCHES["bucket_spmm"] += 1
+
+
+def _bucket_fake(cols, vals, row_offsets, units, x, out) -> None:
+    return None
+
+
+# ofs::bucket_spmm(Tensor[] cols, Tensor[] vals, int[] row_offsets, Tensor units,
+#                  Tensor x, Tensor(a!) out) -> ()
+_bucket_op = library.define("bucket_spmm", _bucket_cpu, _bucket_cuda, _bucket_fake,
+                            mutates_args=("out",))
+
+
+def _run_buckets(buckets, x: torch.Tensor, units: Optional[torch.Tensor],
+                 out: torch.Tensor, tiers=None) -> torch.Tensor:
+    dev = x.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"bucket_spmm runs on cuda or cpu tensors, got {dev}")
+    if units is None:
+        units = torch.from_numpy(bucket_units([int(c.shape[1]) for c, _, _ in buckets],
+                                              [int(c.shape[0]) for c, _, _ in buckets],
+                                              tiers=tiers)).to(dev)
+    cols, vals, offs = (list(t) for t in zip(*buckets)) if buckets else ([], [], [])
+    _bucket_op(cols, vals, [int(o) for o in offs], units, x, out)
+    return out
 
 
 def bucket_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
@@ -207,58 +262,37 @@ def bucket_spmm(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     float32 (R, K); ``x`` float32 (n, d). ``out``, if given, is a
     contiguous float32 (R, d) view to write into (a slice of a
     preallocated concatenation buffer). On the card this launches the
-    kernel on a one-bucket plan; on the CPU it runs ``bucket_spmm_torch``.
+    kernel on a one-bucket plan; on the CPU it runs ``bucket_spmm_torch``
+    (both through ``torch.ops.ofs.bucket_spmm``).
     A column that points outside ``x`` is an error on both:
     ``index_select`` raises on the CPU, and the kernel stops with a
     device-side assertion that the next synchronization raises.
     """
     require(x, "x", torch.float32, 2)
     _check_bucket(cols, vals, x)
-    R = cols.shape[0]
-    dev = x.device
-    out = _out_buffer(out, R, x)
-    if dev.type == "cpu":
-        return bucket_spmm_torch(cols, vals, x, row_offset, out)
-    if dev.type != "cuda":
-        raise ValueError(f"bucket_spmm runs on cuda or cpu tensors, got {dev}")
-    if R == 0 or x.shape[1] == 0:
-        return out
-    _launch(_lib(), _work_for(((cols, vals, int(row_offset)),), dev), x, out)
-    return out
+    out = _out_buffer(out, cols.shape[0], x)
+    return _run_buckets(((cols, vals, int(row_offset)),), x, None, out)
 
 
 def bucket_spmm_plan(plan, x: torch.Tensor, work: Optional[BucketWork] = None,
                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The concatenation (total ELL rows, d) float32 of every bucket's
     partial rows of a placed TieredEll or BinnedEll plan against float32
-    ``x``, in ``plan_buckets`` order. On the card this is one launch of
-    the kernel over ``work`` (the plan's work list from placement, or
-    built here for this call); on the CPU it runs ``bucket_spmm_torch``
-    bucket by bucket. ``out``, if given, is the buffer to write."""
+    ``x``, in ``plan_buckets`` order, through ``torch.ops.ofs.bucket_spmm``.
+    On the card this is one launch of the kernel over ``work`` (the plan's
+    work list from placement, or built here for this call); on the CPU it
+    runs ``bucket_spmm_torch`` bucket by bucket. ``out``, if given, is the
+    buffer to write."""
     require(x, "x", torch.float32, 2)
     buckets = plan_buckets(plan)
     for c, v, _ in buckets:
         _check_bucket(c, v, x)
-    dev = x.device
     out = _out_buffer(out, sum(int(c.shape[0]) for c, _, _ in buckets), x)
-    if dev.type == "cpu":
-        r0 = 0
-        for c, v, o in buckets:
-            bucket_spmm_torch(c, v, x, o, out[r0:r0 + c.shape[0]])
-            r0 += c.shape[0]
-        return out
-    if dev.type != "cuda":
-        raise ValueError(f"bucket_spmm runs on cuda or cpu tensors, got {dev}")
-    if out.shape[0] == 0 or x.shape[1] == 0:
-        return out
-    if work is None:
-        work = _work_for(buckets, dev, tiers=plan_tiers(plan))
-    elif work.ptrs != tuple(p for c, v, _ in buckets for p in (c.data_ptr(), v.data_ptr())) \
-            or work.table.device != dev:
+    if work is not None and work.units.device != x.device:
         raise ValueError("the work list was built for other arrays: place the operator "
                          "again (ops.place_operator)")
-    _launch(_lib(), work, x, out)
-    return out
+    return _run_buckets(buckets, x, None if work is None else work.units, out,
+                        tiers=plan_tiers(plan))
 
 
 def bucket_spmm_units_torch(plan, x: torch.Tensor, work: BucketWork) -> torch.Tensor:
@@ -302,11 +336,37 @@ def gather_rows_torch(table: torch.Tensor, idx: torch.Tensor,
     return out.copy_(res)
 
 
+def _gather_cpu(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> None:
+    gather_rows_torch(table, idx, out)
+
+
+def _gather_cuda(table, idx, out) -> None:
+    dev = same_device(table, idx, out)
+    M, d = idx.shape[0], table.shape[1]
+    if M == 0 or d == 0:
+        return
+    lib = _lib()
+    rc = lib.ofs_gather_rows(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
+                             M, table.shape[0], d, dev.index or 0, stream(dev))
+    raise_if(lib, rc, "gather_rows")
+    LAUNCHES["gather_rows"] += 1
+
+
+def _gather_fake(table, idx, out) -> None:
+    return None
+
+
+# ofs::gather_rows(Tensor table, Tensor idx, Tensor(a!) out) -> ()
+_gather_op = library.define("gather_rows", _gather_cpu, _gather_cuda, _gather_fake,
+                            mutates_args=("out",))
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[i] = table[idx[i]]`` for float32 ``table`` (rows, d) and int32
-    ``idx`` (M,); an index outside [0, rows) gives a zero row. On the card
-    this launches the kernel; on the CPU it runs ``gather_rows_torch``."""
+    ``idx`` (M,); an index outside [0, rows) gives a zero row. Through
+    ``torch.ops.ofs.gather_rows``: on the card this launches the kernel;
+    on the CPU it runs ``gather_rows_torch``."""
     require(table, "table", torch.float32, 2)
     require(idx, "idx", torch.int32, 1)
     dev = same_device(table, idx)
@@ -318,15 +378,7 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor,
         same_device(table, out)
         if tuple(out.shape) != (M, d):
             raise ValueError(f"out must be {(M, d)}, got {tuple(out.shape)}")
-    if dev.type == "cpu":
-        return gather_rows_torch(table, idx, out)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"gather_rows runs on cuda or cpu tensors, got {dev}")
-    if M == 0 or d == 0:
-        return out
-    lib = _lib()
-    rc = lib.ofs_gather_rows(idx.data_ptr(), table.data_ptr(), out.data_ptr(),
-                             M, table.shape[0], d, dev.index or 0, stream(dev))
-    raise_if(lib, rc, "gather_rows")
-    LAUNCHES["gather_rows"] += 1
+    _gather_op(table, idx, out)
     return out

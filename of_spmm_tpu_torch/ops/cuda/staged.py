@@ -5,17 +5,21 @@ Both kernels (csrc/fused.cu, csrc/ranges.cu, built on
 csrc/staged_spmm.cuh) take a placed FusedPlan or RangesPlan: its arrays
 as tensors on the card and, per segment, the window provenance and the
 work list (sparse/staged_windows.py StagedWindows) that placement
-derives. ``staged_spmm_units_torch`` repeats the kernel's split into work
-units (partial sums, row-scaled, added per output block) in plain
-PyTorch.
+derives. ``define_op`` registers each engine's ``ofs::`` op
+(ops/cuda/library.py), through which its wrapper runs the plain version
+on the CPU and this launcher on the card. ``staged_spmm_units_torch``
+repeats the kernel's split into work units (partial sums, row-scaled,
+added per output block) in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, Tuple
 
 import torch
 
+from of_spmm_tpu_torch.ops.cuda import library
 from of_spmm_tpu_torch.ops.cuda.build import LAUNCHES, raise_if, require, same_device, stream
 from of_spmm_tpu_torch.sparse.staged_windows import (
     _L, geometry, resolve_window_rows, unit_geometry)
@@ -172,3 +176,24 @@ def launch_segments(plan, x: torch.Tensor, lib, fn, name: str) -> torch.Tensor:
             LAUNCHES[name] += 1
         row0 += seg.n_tiles * plan.R
     return out
+
+
+
+def define_op(name: str, int_names: Tuple[str, ...],
+              kernel: Callable[[], tuple]) -> Callable:
+    """Register ``ofs::<name>`` for one staged engine
+    (``library.plan_op``): ``int_names`` are the plan's ints the engine
+    reads (ranges: RC, RQ; fused: window), ``kernel()`` gives (library,
+    bound launch function). Returns ``run(plan, x)``."""
+    def launch(plan, x):
+        lib, fn = kernel()
+        return launch_segments(plan, x, lib, fn, name)
+
+    return library.plan_op(
+        name, arrays=("hot_ids", "col_scale", "row_scale"), ints=int_names, items="segments",
+        item_arrays=("ctrl", "blk", "lidx", "lrow", "val_hi", "val_lo", "windows.step_win",
+                     "windows.range_rows", "windows.staged_rows", "windows.unit_slots",
+                     "windows.units", "windows.split_tiles"),
+        item_ints=("n_steps", "n_tiles"),
+        derived=lambda plan: {"n_hot": int(plan.hot_ids.shape[0])},
+        plain=staged_spmm_torch, launch=launch)

@@ -103,7 +103,8 @@ class LaneWork:
     heaviest first by their lanes (hub tiles start at once), a key's
     units heaviest first.
     ``table`` and ``ptrs`` are set on the card (ops/cuda/expansion.py
-    place_plan): each group's array pointers."""
+    place_plan): each group's array pointers. The kernel's op builds the
+    same table from the groups it is given at each call."""
 
     lanes: np.ndarray       # (n_real,) int32
     units: np.ndarray       # (n_units, 4) int32 [key or ~key, first, end, group]
