@@ -139,8 +139,9 @@ loop (microbench_blockfma, microbench_mxu, microbench_cond, proto_fused)
 and the gathers (microbench_gather, microbench_gather2 with window and
 twosided, microbench_dyngather): each tool's entry point at its default
 size, the TPU tool's full width, then its kernels against their plain
-versions on two small seeded cases and the default inputs, beside the
-plain versions' and, for the gathers, one PyTorch call's times.
+versions on two small seeded cases (onehot and twosided also at their
+edges) and the default inputs, beside the plain versions' and, for the
+gathers, one PyTorch call's times.
 
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary and the card's name and power limit as
@@ -442,17 +443,24 @@ LIBRARY_NONE = {
 # kernel moves values (row gathers, one-hot products: 1 x v plus zeros, the
 # hi + lo add in float32), elementwise 1e-5 + 1e-4|p| where it sums
 # positive terms in another order (the ELL forms, block_slice), normwise
-# 1e-4 max|p| for twosided (lanes added with atomics in no fixed order)
+# 1e-4 max|p| for twosided (lanes and blocks' partials added with atomics
+# in no fixed order)
 GATHER_EXACT = ("gather_vmem_take", "gather_onehot", "gather2_onehot_pair",
                 "gather2_window_pair", "dyngather_take_along", "dyngather_smem_cap")
 # two small seeded cases per kernel (seeds 1 and 2), beside every row of
 # its tool's run at the default size (seed 0): odd widths, partial waves,
-# windows that are not a multiple of the staged chunk
+# windows that are not a multiple of the staged chunk; onehot and twosided
+# also at their redesign's edges (seeds 3 and 4, outside=True: indices
+# below 0 and past the window, tools/microbench_gather.with_outside; for
+# twosided R = 1000 and 1024, whose (R, 128) partials exceed a block's
+# shared memory and are sliced unevenly, last blocks partial)
 GATHER_SMALL = {
     "gather_vmem_loop": (dict(C=64, T=2048, K=16), dict(C=1000, T=1 << 16, K=128)),
     "gather_vmem_take": (dict(C=64, T=2048), dict(C=5000, T=1 << 16)),
     "gather_onehot": (dict(C=64, T=2048, dtype="float32"),
-                      dict(C=300, T=1 << 14, dtype="bfloat16")),
+                      dict(C=300, T=1 << 14, dtype="bfloat16"),
+                      dict(C=300, T=1 << 14, dtype="float32", outside=True),
+                      dict(C=64, T=2048, dtype="bfloat16", outside=True)),
     "gather_block_slice": (dict(C=64, T=2048, K=8), dict(C=3000, T=1 << 17, K=64)),
     "gather_row_dma": (dict(table_rows=300, T=2048, W=16),
                        dict(table_rows=100_000, T=1 << 15, W=7)),
@@ -463,7 +471,9 @@ GATHER_SMALL = {
     "gather2_window_pair": (dict(TILE=1024, CW=128, T=2048, U=300),
                             dict(TILE=256, CW=100, T=1 << 14, U=2000)),
     "gather2_twosided": (dict(TILE=512, CW=128, R=64, T=4096),
-                         dict(TILE=256, CW=200, R=300, T=1 << 14)),
+                         dict(TILE=256, CW=200, R=300, T=1 << 14),
+                         dict(TILE=256, CW=200, R=1000, T=256 * 501, outside=True),
+                         dict(TILE=1024, CW=256, R=1024, T=1024 * 75, outside=True)),
     "dyngather_take_along": (dict(C=64, T=32, shape="ne", steps=2),
                              dict(C=5000, T=300, shape="bcast", steps=3)),
     "dyngather_smem_cap": (dict(nbytes=4096), dict(nbytes=49168)),
@@ -4453,7 +4463,10 @@ def gather_case(kernel: str, dev, seed: int, **p) -> tuple:
                 bag(cols.long(), tier, vals))
     if kernel in ("gather_vmem_take", "gather_onehot"):
         dtype = getattr(torch, p.get("dtype", "float32"))
-        cols, tier = on(tgather.inputs_take(p["C"], p["T"], seed, dtype))
+        cols, tier = tgather.inputs_take(p["C"], p["T"], seed, dtype)
+        if p.get("outside"):
+            cols = tgather.with_outside(cols, p["C"])
+        cols, tier = on((cols, tier))
         k, plain = ((kgather.vmem_take, kgather.vmem_take_torch) if kernel == "gather_vmem_take"
                     else (kgather.onehot, kgather.onehot_torch))
         return (lambda: k(cols, tier), lambda: plain(cols, tier),
@@ -4482,8 +4495,10 @@ def gather_case(kernel: str, dev, seed: int, **p) -> tuple:
     if kernel in ("gather2_window_pair", "gather2_twosided"):
         TILE, CW, T = p["TILE"], p["CW"], p["T"]
         if kernel == "gather2_twosided":
-            bases, lidx, rows, vals, hi, lo = on(tgather2.inputs_twosided(TILE, CW, p["R"], T,
-                                                                         seed=seed))
+            made = list(tgather2.inputs_twosided(TILE, CW, p["R"], T, seed=seed))
+            if p.get("outside"):
+                made[1] = tgather.with_outside(made[1], CW)
+            bases, lidx, rows, vals, hi, lo = on(made)
             args = (bases, lidx, rows, vals, hi, lo, CW, p["R"])
             li = lidx.view(-1).long()
             inside = (li >= 0) & (li < CW)

@@ -11,12 +11,20 @@
 //                which also serves take_fused (csrc/microbench_gather2.cu's
 //                tool, K = 8).
 //   vmem_take    bench_vmem_take (:175): out[t] = tier[cols[t]].
-//                row_gather_kernel: one thread per float4 of the output.
 //   onehot       bench_onehot_mxu (:219): out[t] = sum_c [cols[t] == c] tier[c],
-//                an index >= C giving a zero row. bfloat16 tier: the product
-//                on the tensor cores (onehot_mma_kernel, csrc/gather.cuh);
-//                float32 tier: its C x 128 multiply-adds per row on the CUDA
-//                cores (onehot_f32_kernel below).
+//                that is f32(tier[cols[t]]), an index outside [0, C) giving a
+//                zero row. The TPU forms it as a (TILE, C) x (C, 128) one-hot
+//                product on its matrix unit; its cost grows with C while the
+//                function is a row gather, so here it is one.
+//                Both: row_gather_kernel<Tier, kZeroFill>, one thread per
+//                float4 of the output, neighbouring threads on neighbouring
+//                addresses; the row's index loaded once for its 32 threads
+//                (one broadcast load); the tier (at most 16 MB) read through
+//                L1 / L2 with __ldg, a bfloat16 tier 8 bytes (4 values) a
+//                thread and widened, so that each warp's store is 512
+//                contiguous bytes; the output (512 MB at the tools' T, ten
+//                times L2) written with streaming stores (st.global.cs).
+//                vmem_take asserts its index, onehot stores a zero row.
 //   block_slice  bench_block_slice (:263): out[8i + j] = sum_{r < 8, k < K}
 //                tier[starts[8i + r, k] + j], unaligned 8-row blocks.
 //                block_slice_kernel below: one block per 8-row output step.
@@ -33,9 +41,9 @@
 // inputs): bytes. vmem_take writes 512 MB at the tool's defaults; vmem_loop
 // moves ~16 MB of indices, values, tier and output, though its warps read
 // 512 MB of tier rows from L2; row_dma reads 128 MB of random table rows;
-// onehot writes its 512 MB output, and the C x 128 one-hot multiply-adds
-// per row that the TPU kernel prescribes are reported beside the bound,
-// not in it (the function is a row gather).
+// onehot writes its 512 MB output. The C x 128 one-hot multiply-adds per
+// row that the TPU kernel prescribes are reported beside the bound as the
+// TPU's count; this kernel performs none.
 //
 // An index outside the table stops vmem_loop, vmem_take, block_slice and
 // row_dma with a device-side assertion; onehot's zero row is its result.
@@ -70,14 +78,30 @@ cudaError_t smem_optin(int device, int* bytes) {
 
 // ---- row gather --------------------------------------------------------------
 
+// Piece p (4 values) of tier row c as float32.
+__device__ __forceinline__ float4 tier_piece(const float* __restrict__ tier, int64_t c, int p) {
+  return __ldg(reinterpret_cast<const float4*>(tier) + c * kD4 + p);
+}
+
+__device__ __forceinline__ float4 tier_piece(const __nv_bfloat16* __restrict__ tier, int64_t c,
+                                             int p) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(tier) + c * kD4 + p));
+}
+
+// out[t] = f32(tier[cols[t]]): thread e writes float4 e % 32 of row e / 32.
+// An index outside [0, C) stops the kernel (kZeroFill false) or gives a
+// zero row (kZeroFill true).
+template <class Tier, bool kZeroFill>
 __global__ void __launch_bounds__(256)
-row_gather_kernel(const int32_t* __restrict__ cols, const float4* __restrict__ table,
+row_gather_kernel(const int32_t* __restrict__ cols, const Tier* __restrict__ tier,
                   float4* __restrict__ out, int64_t T, int64_t C) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= T * kD4) return;
   const int32_t c = cols[e / kD4];
-  assert(c >= 0 && c < C);
-  out[e] = table[static_cast<int64_t>(c) * kD4 + e % kD4];
+  const bool inside = c >= 0 && c < C;
+  if (!kZeroFill) assert(inside);
+  __stcs(out + e, kZeroFill && !inside ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                       : tier_piece(tier, c, static_cast<int>(e % kD4)));
 }
 
 // ---- ELL gather-reduce from L2 -------------------------------------------------
@@ -159,45 +183,6 @@ row_sum_async_kernel(const int32_t* __restrict__ cols, const float4* __restrict_
   out[o * kD4 + lane] = acc;
 }
 
-constexpr int kOhRows = 128;        // index rows per block
-constexpr int kOhThreads = 256;     // 32 column float4s x 8 row groups
-constexpr int kOhPerThread = kOhRows / (kOhThreads / 32);  // 16 rows a thread
-constexpr int kOhChunk = 64;        // tier rows staged per pass (32 KB)
-
-// The float32 one-hot product: thread (row group, column float4) keeps 16
-// rows x 4 columns; for every tier row c it multiplies [idx == c] by the
-// staged row and adds, C x 128 multiply-adds per index row as the TPU's
-// (TILE, C) x (C, 128) product. 0 x row adds +0 and 1 x row adds the row,
-// so the result is the row bit for bit.
-__global__ void __launch_bounds__(kOhThreads)
-onehot_f32_kernel(const int32_t* __restrict__ idx, const float4* __restrict__ tier,
-                  float4* __restrict__ out, int64_t C) {
-  __shared__ float4 s_tier[kOhChunk * kD4];
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kOhRows;
-  const int col = threadIdx.x % 32, rg = threadIdx.x / 32;
-  int my[kOhPerThread];
-  float4 acc[kOhPerThread];
-#pragma unroll
-  for (int r = 0; r < kOhPerThread; ++r) {
-    my[r] = idx[t0 + rg * kOhPerThread + r];
-    acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  for (int64_t c0 = 0; c0 < C; c0 += kOhChunk) {
-    const int n = static_cast<int>(min(static_cast<int64_t>(kOhChunk), C - c0));
-    __syncthreads();
-    for (int e = threadIdx.x; e < n * kD4; e += kOhThreads) s_tier[e] = __ldg(tier + c0 * kD4 + e);
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float4 x = s_tier[k * kD4 + col];
-      const int64_t c = c0 + k;
-#pragma unroll
-      for (int r = 0; r < kOhPerThread; ++r) fma4(acc[r], my[r] == c ? 1.f : 0.f, x);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kOhPerThread; ++r) out[(t0 + rg * kOhPerThread + r) * kD4 + col] = acc[r];
-}
-
 // Block i sums the 8 K blocks of step i into output rows 8i .. 8i + 7:
 // warp j adds tier[s + j] for every start s, in the TPU's order (k, then r).
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -250,31 +235,29 @@ int ofs_gather_vmem_take(const void* cols, const void* tier, void* out, int64_t 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return 0;
   if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  row_gather_kernel<<<blocks_for(T * kD4, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cols), static_cast<const float4*>(tier),
-      static_cast<float4*>(out), T, C);
+  row_gather_kernel<float, false>
+      <<<blocks_for(T * kD4, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int32_t*>(cols), static_cast<const float*>(tier),
+          static_cast<float4*>(out), T, C);
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16: tier bfloat16 (else float32) (C, 128); cols int32 (T,), T a
-// multiple of 128; out float32 (T, 128).
+// bf16: tier bfloat16 (else float32) (C, 128); cols int32 (T,); out
+// float32 (T, 128).
 int ofs_gather_onehot(int bf16, const void* cols, const void* tier, void* out, int64_t T,
                       int64_t C, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return 0;
-  if (T % kMmaRows != 0 || C <= 0 || C > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* idx = static_cast<const int32_t*>(cols);
   if (bf16) {
-    onehot_mma_kernel<false><<<blocks_for(T, kMmaRows), kMmaWarps * 32, 0, st>>>(
-        idx, nullptr, static_cast<const __nv_bfloat16*>(tier), nullptr, T,
-        static_cast<int>(C), C, StoreRows{static_cast<float*>(out)});
+    row_gather_kernel<__nv_bfloat16, true><<<blocks_for(T * kD4, 256), 256, 0, st>>>(
+        idx, static_cast<const __nv_bfloat16*>(tier), static_cast<float4*>(out), T, C);
   } else {
-    onehot_f32_kernel<<<blocks_for(T, kOhRows), kOhThreads, 0, st>>>(
-        idx, static_cast<const float4*>(tier), static_cast<float4*>(out), C);
+    row_gather_kernel<float, true><<<blocks_for(T * kD4, 256), 256, 0, st>>>(
+        idx, static_cast<const float*>(tier), static_cast<float4*>(out), T, C);
   }
   return static_cast<int>(cudaGetLastError());
 }

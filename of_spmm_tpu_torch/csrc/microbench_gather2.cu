@@ -4,9 +4,9 @@
 //
 //   onehot_pair  bench_onehot_pair (:57): out[t] = f32(hi[c]) + f32(lo[c]),
 //                c = cols[t], with one one-hot feeding two products; an
-//                index >= C gives a zero row. onehot_mma_kernel
-//                (csrc/gather.cuh) on the tensor cores, hi and lo summed
-//                apart and added in float32.
+//                index >= C gives a zero row. onehot_mma_kernel below,
+//                on the tensor cores, hi and lo summed apart and added in
+//                float32.
 //   take_fused   bench_take_fused (:95): out[n] = sum_{k < 8} vals[n, k]
 //                tier[cols[n, k]]; and
 //   dma_deep     bench_dma_deep (:150): out[o] = sum_{m < 128}
@@ -23,16 +23,34 @@
 //                window pair gather of lane t times vals[t], c_hi = bf16(c)
 //                and c_lo = bf16(c - f32(c_hi)), rounded to nearest even.
 //                The TPU carries an (R, 128) accumulator across its
-//                sequential grid and scatters with a second one-hot product;
-//                here the window gather runs on the tensor cores and each
-//                lane's row is added into the zeroed output with float4
-//                atomics (TwosidedScatter below), in no fixed order.
+//                sequential grid, and gathers and scatters with one-hot
+//                products. Hopper has no sequential grid, and both products
+//                are row moves. twosided_kernel below: about one block of
+//                1,024 threads per SM, each over a contiguous range of
+//                lanes; each lane's window row of hi and lo loaded directly
+//                (the lanes come sorted by source row, so L1 serves the
+//                repeats); a warp adds one lane's 128 columns at a time,
+//                with four lanes' loads in flight, into the block's own
+//                float32 (S, 128) partial in shared memory, 4 columns a
+//                thread with one 16-byte compare-and-swap (S rows as many
+//                as the opt-in limit holds, row slices on gridDim.z);
+//                then each block adds its partial into the zeroed output
+//                once, with float4 atomics (red.global.add.v4.f32): about
+//                132-way contention per address where one atomic per lane
+//                and float4 had about 4,096-way at R = 256. Atomics rather
+//                than partials and a second reduction kernel: one launch,
+//                and the partials stay in L2. The order of the adds varies
+//                from run to run (the tolerance is normwise). What holds it
+//                above its bound is the instruction rate, not bytes: some
+//                40 instructions a thread per lane, most of them the bf16
+//                split and the compare-and-swap.
 //
 // What bounds them on the H100 (utils/roofline.py): bytes, the rows the
 // lanes select and the float32 output (twosided: its (R, 128) output and
 // the lanes' rows and values). The one-hot multiply-adds the TPU kernels
 // prescribe (C or CW x 128 per lane and table) are reported beside the
-// bound, not in it: the functions are row gathers.
+// bound, not in it: the functions are row gathers, and twosided performs
+// none.
 //
 // A row outside [0, R) stops twosided with a device-side assertion, as
 // does a window base with b + CW past the table; an index outside a
@@ -44,41 +62,244 @@ namespace {
 
 using namespace ofs_gather;
 
-// The twosided epilogue: the lane's gathered row g = hi + lo, scaled by its
-// value, split into bf16 hi and lo halves and added into its output row.
-// Lanes q and q ^ 1 of a quad swap halves so that each adds one float4:
-// even q row ra, columns col .. col + 3; odd q row rb, columns col - 2 .. col + 1.
-struct TwosidedScatter {
-  const int32_t* rows;
-  const float* vals;
-  float* out;
-  int R;
+// The one-hot product gather of onehot_pair and window_pair, on rows of 128
+// bfloat16 values: out[t] = sum_c onehot(idx[t])[c] (f32(hi[base + c]) +
+// f32(lo[base + c])) over a window of CW rows at a base per step, on the
+// tensor cores with mma.sync m16n8k16 bf16 -> f32. An index outside
+// [0, CW) selects no row: a zero row by definition. A window past the
+// table's end stops the kernel with a device-side assertion.
 
-  __device__ __forceinline__ static float split(const float c) {
-    const __nv_bfloat16 h = __float2bfloat16_rn(c);
-    const float hf = __bfloat162float(h);
-    return hf + __bfloat162float(__float2bfloat16_rn(c - hf));
-  }
+constexpr int kMmaWarps = 16;           // 8 m-tiles of 16 rows x 2 column halves
+constexpr int kMmaRows = 128;           // index rows (lanes) per block
+constexpr int kChunk = 64;              // window rows staged per pass
+constexpr int kPairStride = kD + 8;     // words per staged row pair: banks 8 apart
 
-  __device__ __forceinline__ void operator()(int64_t ra, int64_t rb, int col, const float (&h)[4],
-                                             const float (&l)[4]) const {
-    const float va = vals[ra], vb = vals[rb];
-    float v[4];
-    v[0] = split((h[0] + l[0]) * va);
-    v[1] = split((h[1] + l[1]) * va);
-    v[2] = split((h[2] + l[2]) * vb);
-    v[3] = split((h[3] + l[3]) * vb);
-    const bool even = (threadIdx.x & 1) == 0;
-    const float s0 = __shfl_xor_sync(kFull, even ? v[2] : v[0], 1);
-    const float s1 = __shfl_xor_sync(kFull, even ? v[3] : v[1], 1);
-    const int64_t t = even ? ra : rb;
-    const int32_t row = rows[t];
-    assert(row >= 0 && row < R);
-    const float4 add = even ? make_float4(v[0], v[1], s0, s1) : make_float4(s0, s1, v[2], v[3]);
-    const int64_t at = static_cast<int64_t>(row) * kD + (even ? col : col - 2);
-    atomicAdd(reinterpret_cast<float4*>(out + at), add);
+// bf16 1.0 in the low half of the word where idx == c, in the high half
+// where idx == c + 1: two elements of a one-hot A fragment
+__device__ __forceinline__ uint32_t onehot2(const int idx, const int c) {
+  return (idx == c ? 0x3F80u : 0u) | (idx == c + 1 ? 0x3F800000u : 0u);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t a0, const uint32_t a1,
+                                         const uint32_t a2, const uint32_t a3,
+                                         const uint32_t b0, const uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Window rows [r0, r0 + kChunk) of the table at `base` as the B operand:
+// word (p, n) packs rows r0 + 2p (low half) and r0 + 2p + 1 of column n.
+// Rows at or past n_valid are zeros, so that no index outside the window
+// selects anything.
+__device__ __forceinline__ void stage_pairs(uint32_t* s, const __nv_bfloat16* __restrict__ tab,
+                                            const int64_t base, const int r0, const int n_valid) {
+  for (int e = threadIdx.x; e < (kChunk / 2) * (kD / 2); e += kMmaWarps * 32) {
+    const int p = e / (kD / 2), n2 = e % (kD / 2);
+    const int ra = r0 + 2 * p;
+    uint32_t va = 0, vb = 0;
+    if (ra < n_valid) va = __ldg(reinterpret_cast<const uint32_t*>(tab + (base + ra) * kD) + n2);
+    if (ra + 1 < n_valid) {
+      vb = __ldg(reinterpret_cast<const uint32_t*>(tab + (base + ra + 1) * kD) + n2);
+    }
+    s[p * kPairStride + 2 * n2] = __byte_perm(va, vb, 0x5410);
+    s[p * kPairStride + 2 * n2 + 1] = __byte_perm(va, vb, 0x7632);
   }
-};
+}
+
+// Block b gathers index rows [128 b, 128 b + 128): warp w an m-tile of 16
+// rows (w / 2) and 64 columns (w % 2). Per pass, kChunk window rows of hi
+// and lo are staged in shared memory; each 16-row k-step builds the
+// one-hot A fragment from the thread's two rows' indices in registers and
+// runs 8 mma per table, hi and lo into separate accumulators (each sum is
+// exact: one product of 1 by a bf16 value, the rest zeros), added in
+// float32 into out. bases: one window base per step of `tile` rows (null:
+// base 0); the window is cw rows; n_rows the table's rows. T must be a
+// multiple of 128.
+__global__ void __launch_bounds__(kMmaWarps * 32)
+onehot_mma_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ bases,
+                  const __nv_bfloat16* __restrict__ hi, const __nv_bfloat16* __restrict__ lo,
+                  float* __restrict__ out, int64_t tile, int cw, int64_t n_rows) {
+  __shared__ uint32_t s_hi[(kChunk / 2) * kPairStride];
+  __shared__ uint32_t s_lo[(kChunk / 2) * kPairStride];
+  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kMmaRows;
+  const int64_t base = bases == nullptr ? 0 : bases[t0 / tile];
+  assert(base >= 0 && base + cw <= n_rows);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  const int64_t ra = t0 + (warp / 2) * 16 + g, rb = ra + 8;
+  const int n0 = (warp % 2) * (kD / 2);
+  const int ia = idx[ra], ib = idx[rb];
+
+  float acc_hi[8][4], acc_lo[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_hi[nt][i] = acc_lo[nt][i] = 0.f;
+  }
+  for (int c0 = 0; c0 < cw; c0 += kChunk) {
+    __syncthreads();  // the previous pass has read the staged rows
+    stage_pairs(s_hi, hi, base, c0, cw);
+    stage_pairs(s_lo, lo, base, c0, cw);
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kChunk; ks += 16) {
+      const int c = c0 + ks + 2 * q;
+      const uint32_t a0 = onehot2(ia, c), a1 = onehot2(ib, c);
+      const uint32_t a2 = onehot2(ia, c + 8), a3 = onehot2(ib, c + 8);
+      const uint32_t* ph = s_hi + (ks / 2 + q) * kPairStride + n0 + g;
+      const uint32_t* pl = s_lo + (ks / 2 + q) * kPairStride + n0 + g;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        mma_bf16(acc_hi[nt], a0, a1, a2, a3, ph[nt * 8], ph[4 * kPairStride + nt * 8]);
+        mma_bf16(acc_lo[nt], a0, a1, a2, a3, pl[nt * 8], pl[4 * kPairStride + nt * 8]);
+      }
+    }
+  }
+  // the thread's fragment of n-tile nt: rows ra (values 0, 1) and rb (2, 3),
+  // columns col, col + 1
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float* h = acc_hi[nt];
+    const float* l = acc_lo[nt];
+    const int col = n0 + nt * 8 + 2 * q;
+    *reinterpret_cast<float2*>(out + ra * kD + col) = make_float2(h[0] + l[0], h[1] + l[1]);
+    *reinterpret_cast<float2*>(out + rb * kD + col) = make_float2(h[2] + l[2], h[3] + l[3]);
+  }
+}
+
+// c split into bf16 halves, each rounded to nearest even, and added back,
+// two values at a time.
+__device__ __forceinline__ float2 split2(const float a, const float b) {
+  const float2 h = __bfloat1622float2(__floats2bfloat162_rn(a, b));
+  const float2 l = __bfloat1622float2(__floats2bfloat162_rn(a - h.x, b - h.y));
+  return make_float2(h.x + l.x, h.y + l.y);
+}
+
+// acc[0 .. 3] += c in shared memory as one 16-byte compare-and-swap loop
+// (atom.shared.cas.b128): a float32 atomic add to shared memory is itself
+// a compare-and-swap loop on this card, one per value.
+__device__ __forceinline__ void add4_shared(float* acc, const float4 c) {
+  const unsigned at = static_cast<unsigned>(__cvta_generic_to_shared(acc));
+  float4 old = *reinterpret_cast<const float4*>(acc);
+  for (;;) {
+    const unsigned long long o0 = (static_cast<unsigned long long>(__float_as_uint(old.y)) << 32) |
+                                  __float_as_uint(old.x);
+    const unsigned long long o1 = (static_cast<unsigned long long>(__float_as_uint(old.w)) << 32) |
+                                  __float_as_uint(old.z);
+    const unsigned long long n0 =
+        (static_cast<unsigned long long>(__float_as_uint(old.y + c.y)) << 32) |
+        __float_as_uint(old.x + c.x);
+    const unsigned long long n1 =
+        (static_cast<unsigned long long>(__float_as_uint(old.w + c.w)) << 32) |
+        __float_as_uint(old.z + c.z);
+    unsigned long long r0, r1;
+    asm volatile(
+        "{\n\t.reg .b128 cmp, val, res;\n\t"
+        "mov.b128 cmp, {%2, %3};\n\t"
+        "mov.b128 val, {%4, %5};\n\t"
+        "atom.shared.cas.b128 res, [%6], cmp, val;\n\t"
+        "mov.b128 {%0, %1}, res;\n\t}"
+        : "=l"(r0), "=l"(r1)
+        : "l"(o0), "l"(o1), "l"(n0), "l"(n1), "r"(at)
+        : "memory");
+    if (r0 == o0 && r1 == o1) return;
+    old = make_float4(__uint_as_float(static_cast<unsigned>(r0)),
+                      __uint_as_float(static_cast<unsigned>(r0 >> 32)),
+                      __uint_as_float(static_cast<unsigned>(r1)),
+                      __uint_as_float(static_cast<unsigned>(r1 >> 32)));
+  }
+}
+
+constexpr int kTsThreads = 1024;
+constexpr int kTsBatch = 4;  // lanes a warp has in flight
+
+// Block (x, 0, z) adds lanes [x L, x L + L) into output rows [z S, z S + S).
+// A warp takes 32 lanes at a time, one per thread (its row, window row and
+// value), keeps those whose row is the block's and whose window index is
+// in [0, cw) (ballot), and adds them kTsBatch at a time, their loads in
+// flight together: one lane's 128 columns per warp instruction, 4 a
+// thread, into the block's partial acc (S, 128) in shared memory with one
+// 16-byte compare-and-swap per thread. (A warp that adds to several rows in one
+// instruction serialises on this card's shared atomics, so a warp adds one
+// row at a time.) The lanes come sorted by window row: a warp loads and
+// widens a window row once for its run of lanes (about 5). A lane outside
+// its window adds c = 0 x vals[t], which (for a finite value) changes
+// nothing: it is skipped. Then the block adds its partial into out, one
+// float4 atomic per nonzero piece.
+__global__ void __launch_bounds__(kTsThreads, 1)
+twosided_kernel(const int32_t* __restrict__ bases, const int32_t* __restrict__ lidx,
+                const int32_t* __restrict__ rows, const float* __restrict__ vals,
+                const __nv_bfloat16* __restrict__ hi, const __nv_bfloat16* __restrict__ lo,
+                float* __restrict__ out, int64_t T, int64_t tile, int cw, int64_t n_rows, int R,
+                int S, int64_t L) {
+  extern __shared__ float4 acc4[];
+  float* acc = reinterpret_cast<float*>(acc4);
+  const int r0 = blockIdx.z * S, nr = min(S, R - r0);
+  for (int e = threadIdx.x; e < nr * 32; e += kTsThreads) acc4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const int64_t t_end = min(T, static_cast<int64_t>(blockIdx.x + 1) * L);
+  int last = -1;  // the window row in g (warp-uniform)
+  float4 g;
+  for (int64_t t0 = blockIdx.x * L + (threadIdx.x / 32) * 32; t0 < t_end; t0 += kTsThreads) {
+    int m_row = 0, m_src = 0;
+    float m_val = 0.f;
+    bool mine = false;
+    if (t0 + lane < t_end) {
+      const int64_t t = t0 + lane;
+      const int32_t row = rows[t], l = lidx[t];
+      const int64_t b = bases[t / tile];
+      assert(row >= 0 && row < R);
+      assert(b >= 0 && b + cw <= n_rows);
+      mine = row >= r0 && row - r0 < nr && l >= 0 && l < cw;
+      if (mine) {
+        m_row = row - r0;
+        m_src = static_cast<int>(b + l);
+        m_val = vals[t];
+      }
+    }
+    for (unsigned mask = __ballot_sync(kFull, mine); mask != 0;) {
+      int row[kTsBatch], src[kTsBatch];
+      float v[kTsBatch];
+      uint2 wh[kTsBatch], wl[kTsBatch];
+#pragma unroll
+      for (int u = 0; u < kTsBatch; ++u) {  // mask is the warp's: every branch is uniform
+        const int j = mask == 0 ? 0 : __ffs(mask) - 1;
+        row[u] = mask == 0 ? -1 : __shfl_sync(kFull, m_row, j);
+        src[u] = __shfl_sync(kFull, m_src, j);
+        v[u] = __shfl_sync(kFull, m_val, j);
+        mask &= mask - 1;
+        if (row[u] >= 0 && src[u] != (u == 0 ? last : src[u - 1])) {
+          const int64_t at = static_cast<int64_t>(src[u]) * kD;
+          wh[u] = __ldg(reinterpret_cast<const uint2*>(hi + at) + lane);
+          wl[u] = __ldg(reinterpret_cast<const uint2*>(lo + at) + lane);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kTsBatch; ++u) {
+        if (row[u] < 0) continue;
+        if (src[u] != last) {
+          const float4 h = widen4(wh[u]), l = widen4(wl[u]);
+          g = make_float4(h.x + l.x, h.y + l.y, h.z + l.z, h.w + l.w);
+          last = src[u];
+        }
+        const float2 c01 = split2(g.x * v[u], g.y * v[u]);
+        const float2 c23 = split2(g.z * v[u], g.w * v[u]);
+        add4_shared(acc + row[u] * kD + 4 * lane, make_float4(c01.x, c01.y, c23.x, c23.y));
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nr * 32; e += kTsThreads) {
+    const float4 add = acc4[e];
+    if (add.x != 0.f || add.y != 0.f || add.z != 0.f || add.w != 0.f) {
+      atomicAdd(reinterpret_cast<float4*>(out + static_cast<int64_t>(r0) * kD) + e, add);
+    }
+  }
+}
 
 int check_window(int64_t T, int64_t tile, int cw, int64_t n_rows) {
   if (T % kMmaRows != 0 || tile <= 0 || tile % kMmaRows != 0 || T % tile != 0 || cw <= 0 ||
@@ -103,10 +324,10 @@ int ofs_gather2_onehot_pair(const void* cols, const void* hi, const void* lo, vo
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return 0;
   if (const int rc = check_window(T, T, C, C)) return rc;
-  onehot_mma_kernel<true><<<blocks_for(T, kMmaRows), kMmaWarps * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  onehot_mma_kernel<<<blocks_for(T, kMmaRows), kMmaWarps * 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(cols), nullptr, static_cast<const __nv_bfloat16*>(hi),
-      static_cast<const __nv_bfloat16*>(lo), T, C, C, StoreRows{static_cast<float*>(out)});
+      static_cast<const __nv_bfloat16*>(lo), static_cast<float*>(out), T, C, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -119,31 +340,45 @@ int ofs_gather2_window_pair(const void* bases, const void* lidx, const void* hi,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return 0;
   if (const int rc = check_window(T, tile, cw, n_rows)) return rc;
-  onehot_mma_kernel<true><<<blocks_for(T, kMmaRows), kMmaWarps * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  onehot_mma_kernel<<<blocks_for(T, kMmaRows), kMmaWarps * 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(lidx), static_cast<const int32_t*>(bases),
-      static_cast<const __nv_bfloat16*>(hi), static_cast<const __nv_bfloat16*>(lo), tile, cw,
-      n_rows, StoreRows{static_cast<float*>(out)});
+      static_cast<const __nv_bfloat16*>(hi), static_cast<const __nv_bfloat16*>(lo),
+      static_cast<float*>(out), tile, cw, n_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 // As window_pair, plus rows int32 (T,) in [0, R) and vals float32 (T,); out
-// float32 (R, 128), zeroed by the caller and added into.
+// float32 (R, 128), zeroed by the caller and added into. The table has at
+// most 2^31 - 1 rows.
 int ofs_gather2_twosided(const void* bases, const void* lidx, const void* rows, const void* vals,
                          const void* hi, const void* lo, void* out, int64_t T, int64_t tile,
                          int cw, int64_t n_rows, int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return 0;
-  if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (R <= 0 || n_rows > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   if (const int rc = check_window(T, tile, cw, n_rows)) return rc;
-  onehot_mma_kernel<true><<<blocks_for(T, kMmaRows), kMmaWarps * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(lidx), static_cast<const int32_t*>(bases),
-      static_cast<const __nv_bfloat16*>(hi), static_cast<const __nv_bfloat16*>(lo), tile, cw,
-      n_rows,
-      TwosidedScatter{static_cast<const int32_t*>(rows), static_cast<const float*>(vals),
-                      static_cast<float*>(out), R});
+  int optin = 0, sms = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return fail(err);
+  // S rows a block, as many as the opt-in limit holds (512 bytes a row),
+  // balanced over gz row slices; about one block per SM
+  const int row_bytes = kD * static_cast<int>(sizeof(float));
+  const int gz = (R + optin / row_bytes - 1) / (optin / row_bytes);
+  const int S = (R + gz - 1) / gz;
+  const size_t smem = static_cast<size_t>(S) * row_bytes;
+  err = cudaFuncSetAttribute(twosided_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return fail(err);
+  const int gx = max(1, sms / gz);
+  const int64_t L = (T + 32LL * gx - 1) / (32LL * gx) * 32;
+  twosided_kernel<<<dim3(gx, 1, gz), kTsThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(bases), static_cast<const int32_t*>(lidx),
+      static_cast<const int32_t*>(rows), static_cast<const float*>(vals),
+      static_cast<const __nv_bfloat16*>(hi), static_cast<const __nv_bfloat16*>(lo),
+      static_cast<float*>(out), T, tile, cw, n_rows, R, S, L);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -69,8 +69,11 @@ def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor, beta: float = 1.0,
 
 
 def bce_with_logits(logits: torch.Tensor, target: torch.Tensor, reduction: str = "mean"):
-    """max(x, 0) - x t + log(1 + exp(-|x|)), stable for large |x|."""
-    loss = torch.clamp(logits, min=0.0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
+    """max(x, 0) - x t + log(1 + exp(-|x|)), stable for large |x|, in the
+    JAX function's order. max(x, 0) is written (x + |x|) / 2, equal to it
+    bit for bit, so that at x = 0 the kinks of max and |x| give the true
+    derivative sigmoid(0) - t = 0.5 - t (torch's abs has grad 0 there)."""
+    loss = 0.5 * (logits + logits.abs()) - logits * target + torch.log1p(torch.exp(-logits.abs()))
     return _reduce(loss, reduction)
 
 

@@ -8,7 +8,11 @@ ops/cuda/fused.py, ops/cuda/ranges.py and ops/cuda/expansion.py for the
 panel, fused, ranges and expansion engines), ``"torch"`` the plain
 versions (ops/reference.py, ``panel_spmm_torch``, ``fused_spmm_torch``,
 ``ranges_spmm_torch``, ``expansion_spmm_torch``), ``"auto"`` the kernels
-for tensors on the card and the plain versions for tensors on the CPU.
+for tensors on the card. On the CPU ``"auto"`` runs the engine layouts
+through their ``ofs::`` ops (ops/cuda/library.py), whose CPU
+implementation is the same plain version and which ``torch.export``
+keeps as one node each (it cannot trace the plain versions'
+data-dependent masks), and the binned and tiered layouts inline.
 
 Autograd follows the JAX package's pairing:
 
@@ -303,6 +307,8 @@ def _build_panels(csr: CSR) -> PanelPlan:
 # layouts whose plan is the engine: the builder of each
 _ENGINES = {"panels": _build_panels, "fused": build_fused_plan, "ranges": build_ranges_plan,
             "expansion": build_expansion_plan}
+# the plan types of those layouts
+_ENGINE_PLANS = (PanelPlan, FusedPlan, RangesPlan, ExpansionPlan)
 # layouts that take make_operator(reorder=...)
 _REORDER_LAYOUTS = ("panels", "fused", "ranges")
 
@@ -321,7 +327,7 @@ def place_operator(op: SpmmOperator, device) -> SpmmOperator:
     work list once their arrays are on ``device`` (ops/cuda/spmm.py
     bucket_work)."""
     device = torch.device(device)
-    if isinstance(op.binned, (PanelPlan, FusedPlan, RangesPlan, ExpansionPlan)):
+    if isinstance(op.binned, _ENGINE_PLANS):
         ready = {}
         for p in (op.binned, op.binned_t):
             if id(p) in ready:
@@ -342,9 +348,12 @@ def place_operator(op: SpmmOperator, device) -> SpmmOperator:
     return op
 
 
-def _select_impl(impl: str, x: torch.Tensor) -> str:
+def _select_impl(impl: str, x: torch.Tensor, plan) -> str:
+    """The engine to run, "torch" or "cuda". "auto" is "cuda" on a CUDA
+    tensor; on a CPU tensor it is "cuda" for an engine plan (its op's CPU
+    implementation) and "torch" for a binned or tiered one."""
     if impl == "auto":
-        impl = "cuda" if x.is_cuda else "torch"
+        impl = "cuda" if x.is_cuda or isinstance(plan, _ENGINE_PLANS) else "torch"
     if impl not in ("torch", "cuda"):
         raise ValueError(f"unknown spmm impl {impl!r} (want auto|torch|cuda)")
     return impl
@@ -408,7 +417,7 @@ def spmm_internal(op: SpmmOperator, x: torch.Tensor, impl: str = "auto") -> torc
     forward instead of once per SpMM. Differentiable in x: the backward
     is A^T @ dY on ``op.binned_t``.
     """
-    return _SpmmFunction.apply(x, op, _select_impl(impl, x))
+    return _SpmmFunction.apply(x, op, _select_impl(impl, x, op.binned))
 
 
 def spmm(op: SpmmOperator, x: torch.Tensor, impl: str = "auto") -> torch.Tensor:

@@ -2,14 +2,16 @@
 launchers (tools/microbench_gather.py).
 
 One wrapper per TPU kernel of tools/microbench_gather.py, each computing
-its function with the kernels in ``csrc/microbench_gather.cu`` (device
-templates in ``csrc/gather.cuh``; design notes there):
+its function with the kernels in ``csrc/microbench_gather.cu`` (helpers
+shared with microbench_gather2 in ``csrc/gather.cuh``; design notes
+there):
 
 - ``vmem_loop(cols, vals, tier)``: out[o] = sum_k vals[o, k] tier[cols[o, k]];
 - ``vmem_take(cols, tier)``: out[t] = tier[cols.flat[t]];
-- ``onehot(cols, tier)``: out[t] = float32(tier[cols.flat[t]]) by a one-hot
-  product over the tier's C rows (float32 or bfloat16), an index outside
-  [0, C) giving a zero row;
+- ``onehot(cols, tier)``: out[t] = float32(tier[cols.flat[t]]), the
+  function of the TPU's one-hot product over the tier's C rows (float32
+  or bfloat16), an index outside [0, C) giving a zero row; on the card
+  the row gather of vmem_take with that zero fill;
 - ``block_slice(starts, tier)``: out[8i + j] = sum over the 8 K starts s of
   step i of tier[s + j];
 - ``row_dma(cols, table, W)``: out[o] = sum_{m < 16} table[cols.flat[16 o + m]],
@@ -18,8 +20,8 @@ templates in ``csrc/gather.cuh``; design notes there):
 On the CPU they run the plain versions; on the card they launch the kernel
 or raise, and never fall back. Each launch adds one to its
 ``LAUNCHES["gather_<name>"]`` (ops/cuda/build.py). An index outside the
-table stops every kernel but the one-hot product with a device-side
-assertion; the plain versions raise IndexError.
+table stops every kernel but onehot with a device-side assertion; the
+plain versions raise IndexError.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from of_spmm_tpu_torch.ops.cuda.build import LAUNCHES, raise_if, require, same_d
 SOURCE = "microbench_gather.cu"
 D = 128           # row width
 GROUP = 16        # rows summed per output row of row_dma
-ROW_BLOCK = 128   # the one-hot kernels take whole blocks of 128 indices
+ROW_BLOCK = 128   # lanes come as (T / 128, 128) arrays, as the TPU tools make them
 CHUNK_ROWS = 2048  # output rows per chunk of the plain ELL version (134 MB at K = 128)
 CHUNK_STEPS = 16   # steps per chunk of the plain block_slice (67 MB at K = 128)
 
@@ -225,8 +227,8 @@ def vmem_take(cols: torch.Tensor, tier: torch.Tensor) -> torch.Tensor:
 
 def onehot(cols: torch.Tensor, tier: torch.Tensor) -> torch.Tensor:
     """bench_onehot_mxu's function (float32 (T, 128)): the kernel on the
-    card (tensor cores for a bfloat16 tier, CUDA cores for float32), the
-    plain version on the CPU."""
+    card (a row gather, zero rows outside [0, C)), the plain version on the
+    CPU."""
     if cols.device.type == "cpu":
         return onehot_torch(cols, tier)
     T = check_lanes(cols, "cols")

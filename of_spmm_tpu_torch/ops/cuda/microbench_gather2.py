@@ -2,10 +2,10 @@
 versions and their launchers (tools/microbench_gather2.py).
 
 One wrapper per TPU kernel of tools/microbench_gather2.py, each computing
-its function with the kernels in ``csrc/microbench_gather2.cu`` (the
-one-hot product in ``csrc/gather.cuh``; design notes there), except
-take_fused and dma_deep, which launch microbench_gather's ELL kernels
-(``csrc/microbench_gather.cu``) under their own counters:
+its function with the kernels in ``csrc/microbench_gather2.cu`` (design
+notes there), except take_fused and dma_deep, which launch
+microbench_gather's ELL kernels (``csrc/microbench_gather.cu``) under their
+own counters:
 
 - ``onehot_pair(cols, hi, lo)``: out[t] = f32(hi[c]) + f32(lo[c]), c =
   cols.flat[t], by one-hot products over the C rows (c outside [0, C): a
@@ -200,8 +200,9 @@ def window_pair(bases: torch.Tensor, lidx: torch.Tensor, hi: torch.Tensor, lo: t
 def twosided(bases: torch.Tensor, lidx: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
              hi: torch.Tensor, lo: torch.Tensor, CW: int, R: int) -> torch.Tensor:
     """bench_twosided's function (float32 (R, 128)): the kernel on the card
-    (lanes added with atomics, in no fixed order), the plain version on the
-    CPU."""
+    (each block's lanes added into its shared-memory partial, the partials
+    into the output, with atomics in no fixed order), the plain version on
+    the CPU."""
     if lidx.device.type == "cpu":
         return twosided_torch(bases, lidx, rows, vals, hi, lo, CW, R)
     tile = _check_window(bases, lidx, hi, lo, CW)

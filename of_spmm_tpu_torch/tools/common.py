@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,14 +59,16 @@ def bound_fields(work: KernelWork, ms: float, device: torch.device) -> Dict[str,
             "bound_ms": bound, "bound_by": by, "fraction_of_bound": bound / ms}
 
 
-def onehot_mac_fields(macs: int, tensor_cores: bool, ms: float,
+def onehot_mac_fields(macs: int, tensor_cores: Optional[bool], ms: float,
                       device: torch.device) -> Dict[str, object]:
     """A TPU one-hot product's multiply-adds (utils/roofline.onehot_macs),
     reported beside the bound: their count and, on the card, the least
     time they take at the peak of the units that run them (the bf16 tensor
-    cores, else float32 on the CUDA cores) as a fraction of ``ms``."""
+    cores, else float32 on the CUDA cores) as a fraction of ``ms``;
+    ``tensor_cores`` None: the kernel here runs none of them (the TPU's
+    count only)."""
     row = {"onehot_macs": macs}
-    if device.type == "cuda":
+    if device.type == "cuda" and tensor_cores is not None:
         name = torch.cuda.get_device_name(device)
         peak = detect_peak_tensor16(name) if tensor_cores else detect_peak_fp32(name)
         row["onehot_mac_ms"] = 2 * macs / peak * 1e3

@@ -9,7 +9,8 @@ seeded inputs (numpy default_rng(0), the same calls in the same order):
           tool's jnp.take, sorted and not); PyTorch calls
   vmem    ELL K = 128 weighted gather-reduce from a table in L2 (vmem_loop)
   take    row gather (vmem_take)
-  onehot  one-hot product gather, float32 and bfloat16 tiers (onehot)
+  onehot  the one-hot product gather's function, float32 and bfloat16
+          tiers (onehot: a row gather, zero rows outside [0, C))
   block   unaligned 8-row block sums (block_slice)
   dma     row gather from a 1 GiB table in device memory, groups of 16
           summed, W rows in flight per warp (row_dma)
@@ -79,6 +80,18 @@ def inputs_take(C: int, T: int, seed: int = 0, dtype=torch.float32):
     return cols, tier.to(dtype)
 
 
+def with_outside(idx: torch.Tensor, window: int) -> torch.Tensor:
+    """A copy of ``idx`` with every 97th index at window, window + 1 or
+    window + 2 and every 101st at -1 or -2: the edges of a gather that
+    gives a zero row outside [0, window) (onehot, twosided's window)."""
+    out = idx.clone()
+    flat = out.view(-1)
+    past, below = torch.arange(0, flat.numel(), 97), torch.arange(50, flat.numel(), 101)
+    flat[past] = (window + past % 3).to(flat.dtype)
+    flat[below] = (-1 - below % 2).to(flat.dtype)
+    return out
+
+
 def inputs_block_slice(C: int, T: int, K: int = BLOCK_K, seed: int = 0):
     """(starts (8R, K) int32, tier (C, 128) float32), R = T / (64 K), as
     bench_block_slice makes them."""
@@ -99,11 +112,12 @@ def inputs_row_dma(table_rows: int, T: int, seed: int = 0):
 
 
 def measure(tool: str, kernel: Optional[str], variant: str, fn, work: KernelWork, rows: int,
-            device: torch.device, macs: Optional[Tuple[int, bool]] = None,
+            device: torch.device, macs: Optional[Tuple[int, Optional[bool]]] = None,
             **fields) -> Dict[str, object]:
     """Time ``fn`` (ITERS calls) and make its row: the bound of ``work``,
-    the rate of ``rows`` 512-byte rows and, for a one-hot product, ``macs``
-    = (its one-hot multiply-adds, on the tensor cores?) beside them."""
+    the rate of ``rows`` 512-byte rows and, for a TPU one-hot product,
+    ``macs`` = (its one-hot multiply-adds, on the tensor cores? None where
+    the kernel here runs none) beside them."""
     ms = time_ms(fn, device, ITERS)
     row = {"tool": tool, "kernel": kernel, "variant": variant, "T": rows, **fields,
            **bound_fields(work, ms, device)}
@@ -167,13 +181,14 @@ def bench_vmem_take(device: torch.device, C: int, T: int) -> Dict[str, object]:
 
 def bench_onehot_mxu(device: torch.device, C: int, T: int,
                      dtype: torch.dtype = torch.float32) -> Dict[str, object]:
-    """The one-hot product gather: C x 128 multiply-adds per row, their
-    share of the peak reported beside the bound (a row gather's)."""
+    """The one-hot product gather's function: the TPU kernel's C x 128
+    multiply-adds per row counted beside the bound (a row gather's); the
+    kernel here runs none."""
     cols, tier = (a.to(device) for a in inputs_take(C, T, dtype=dtype))
     name = str(dtype).replace("torch.", "")
     row = measure("microbench_gather", "gather_onehot", f"C={C} {name}",
                   lambda: kernels.onehot(cols, tier), onehot_work(cols, (tier,), C), T, device,
-                  macs=(onehot_macs(cols, 1, C), dtype == torch.bfloat16), C=C, dtype=name)
+                  macs=(onehot_macs(cols, 1, C), None), C=C, dtype=name)
     show(row, f"onehot {name}", f"C={C}", " (virtual)")
     return row
 

@@ -7,9 +7,12 @@ export (of_spmm_tpu/export.py), on the CPU.
 - ``export_model`` -> ``load_model`` of ``nn.Linear(8, 4)`` against the
   JAX package's round trip of the same weights;
 - the GCN (6 -> 8 -> 3) on a 24-node graph through each operator layout,
-  and ``spmm_expansion2``, exported (the ops' CPU implementations:
-  ``impl="cuda"``), saved, reloaded and held against the JAX package's
-  exported and reloaded forward (``impl="xla"``) with the same weights;
+  under the default ``impl="auto"`` and under ``impl="cuda"`` (on the CPU
+  both run the engine layouts through the ops' CPU implementations), and
+  ``spmm_expansion2``, exported, saved, reloaded and held against the JAX
+  package's exported and reloaded forward (``impl="xla"``) with the same
+  weights; the eager forward under ``"auto"`` and under ``"torch"`` (the
+  plain versions inline) at the same bar;
 - ``ir_stats`` shows one ``ofs.*`` node per op call of the eager forward;
 - ``load_params`` round trip.
 
@@ -152,21 +155,28 @@ def jax_gcn(tmp_path_factory):
 
 
 class _Forward(torch.nn.Module):
-    def __init__(self, model, op):
+    def __init__(self, model, op, impl="cuda"):
         super().__init__()
-        self.model, self.op = model, op
+        self.model, self.op, self.impl = model, op, impl
 
     def forward(self, x):
-        return self.model(self.op, x, impl="cuda")
+        return self.model(self.op, x, impl=self.impl)
 
 
+@pytest.mark.parametrize("impl", ["auto", "cuda"])
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_gcn_round_trip_matches_jax(layout, jax_gcn, tmp_path):
+def test_gcn_round_trip_matches_jax(layout, impl, jax_gcn, tmp_path):
     params, x, want = jax_gcn
     model = GCN((6, 8, 3), device="cpu")
     model.load_state_dict(gcn_params_from_numpy(jax.tree.map(np.asarray, params)))
-    fn = _Forward(model, _operator(layout, _dense(0)))
-    path = export_model(fn, (torch.from_numpy(x),), str(tmp_path / layout))
+    op = _operator(layout, _dense(0))
+    if impl == "auto":  # eager: the default route and the plain versions inline
+        with torch.no_grad():
+            for eager in ("auto", "torch"):
+                np.testing.assert_allclose(model(op, torch.from_numpy(x), impl=eager).numpy(),
+                                           want, rtol=RTOL, atol=ATOL, err_msg=eager)
+    path = export_model(_Forward(model, op, impl), (torch.from_numpy(x),),
+                        str(tmp_path / layout))
     got = load_model(path)(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL, atol=ATOL)
 

@@ -8,7 +8,10 @@ without JAX, so that the file also runs on the card:
 (--noconftest: tests/conftest.py imports JAX, which the card's machine
 lacks). On the CPU the wrappers' checks, their dispatch to the plain
 versions, the one-hot forms' zero rows, the tools' command lines and the
-counts run; the ``cuda``-marked test skips.
+counts run; the ``cuda``-marked test skips. The card test holds every
+kernel against its plain version on two seeds of the small cases and of
+the redesigned kernels' edges (onehot's indices outside the tier,
+twosided at R = 1000 and 1024 with lanes outside their window).
 """
 
 import numpy as np
@@ -60,6 +63,23 @@ def _cases(seed: int = 0, C: int = C, T: int = T):
         "smem_cap": (kdyn.smem_cap, kdyn.smem_cap_torch,
                      (torch.ones((8, 128)), tdyn.H100_OPTIN)),
     }
+
+
+def _edges(seed: int = 0):
+    """The redesigned kernels' edges: onehot with indices below 0 and at or
+    past C in both types; twosided with window indices outside [0, CW), at
+    R = 1000 and 1024, whose (R, 128) partials exceed a block's shared
+    memory (rows sliced unevenly: 334 and 342 a block on an H100), at lane
+    counts that leave the last block partial."""
+    cols, tier = tgather.inputs_take(C, T, seed)
+    cols = tgather.with_outside(cols, C)
+    cases = {f"onehot_{n}_outside": (kgather.onehot, kgather.onehot_torch, (cols, tier.to(d)))
+             for n, d in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    for tile, cw, r, t in ((256, 200, 1000, 256 * 501), (1024, 256, 1024, 1024 * 75)):
+        bases, lidx, rows, vals, hi, lo = tgather2.inputs_twosided(tile, cw, r, t, seed=seed)
+        args = (bases, tgather.with_outside(lidx, cw), rows, vals, hi, lo, cw, r)
+        cases[f"twosided_R{r}"] = (kgather2.twosided, kgather2.twosided_torch, args)
+    return cases
 
 
 BAD = [
@@ -129,6 +149,18 @@ def test_onehot_forms_give_a_zero_row_outside_their_window():
     assert torch.equal(got[1], hi[b + l1].float() + lo[b + l1].float())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_gives_zero_rows_below_zero_and_past_the_tier(dtype):
+    cols, tier = tgather.inputs_take(C, T, dtype=dtype)
+    cols = tgather.with_outside(cols, C)
+    flat = cols.reshape(-1).long()
+    out = kgather.onehot(cols, tier)
+    outside = (flat < 0) | (flat >= C)
+    assert int((flat < 0).sum()) > 0 and int((flat >= C).sum()) > 0
+    assert not out[outside].any()
+    assert torch.equal(out[~outside], tier[flat[~outside]].float())
+
+
 def test_hilo_pair_rounds_to_nearest_even_and_keeps_the_residual():
     x = np.array([[1.0 + 2.0**-8, 1.0 + 3 * 2.0**-8, 1.0 + 2.0**-12]], np.float32)
     hi, lo = tgather2.hilo_pair(x)
@@ -142,6 +174,21 @@ def test_twosided_adds_each_lanes_hi_and_lo_into_its_row():
     want = torch.zeros((64, 128), dtype=torch.float64).index_add_(
         0, rows.reshape(-1).long(), g * vals.reshape(-1, 1).double())
     got = kgather2.twosided(bases, lidx, rows, vals, hi, lo, 128, 64)
+    assert float((got.double() - want).abs().max() / want.abs().max()) < 2.0**-16
+
+
+def test_twosided_drops_lanes_outside_their_window_at_r_1000():
+    args = _edges()["twosided_R1000"][2]
+    bases, lidx, rows, vals, hi, lo, cw, r = args
+    li = lidx.reshape(-1).long()
+    inside = (li >= 0) & (li < cw)
+    assert int((~inside).sum()) > 0
+    src = bases.reshape(-1).long().repeat_interleave(256) + li.clamp(0, cw - 1)
+    g = (hi[src].double() + lo[src].double()) * inside[:, None]
+    want = torch.zeros((r, 128), dtype=torch.float64).index_add_(
+        0, rows.reshape(-1).long(), g * vals.reshape(-1, 1).double())
+    got = kgather2.twosided(*args)
+    assert got.shape == (1000, 128)
     assert float((got.double() - want).abs().max() / want.abs().max()) < 2.0**-16
 
 
@@ -266,11 +313,11 @@ def test_gather_kernels_match_plain_versions_on_the_card():
     dev = _card()
     n0 = dict(cuda_build.LAUNCHES)
     for seed in (1, 2):
-        for name, (wrapper, plain, args) in _cases(seed).items():
+        for name, (wrapper, plain, args) in {**_cases(seed), **_edges(seed)}.items():
             args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
             got, want = wrapper(*args), plain(*args)
             torch.cuda.synchronize()
-            if name == "twosided":
+            if name.startswith("twosided"):
                 err = float((got - want).abs().max() / want.abs().max())
                 assert err <= NORMWISE, name
             elif name in ("vmem_loop", "block_slice", "row_dma", "take_fused", "dma_deep"):
@@ -281,9 +328,10 @@ def test_gather_kernels_match_plain_versions_on_the_card():
         kdyn.smem_cap(torch.ones((8, 128), device=dev), kdyn.smem_optin(dev) + 16)
     torch.cuda.synchronize()
     launched = {k: cuda_build.LAUNCHES[k] - n0[k] for k in n0}
-    assert launched["gather_onehot"] == 4 and launched["dyngather_smem_cap"] == 2
+    assert launched["gather_onehot"] == 8 and launched["gather2_twosided"] == 6
+    assert launched["dyngather_smem_cap"] == 2
     assert all(launched[k] == 2 for k in ("gather_vmem_loop", "gather_vmem_take",
                                           "gather_block_slice", "gather_row_dma",
                                           "gather2_onehot_pair", "gather2_take_fused",
                                           "gather2_dma_deep", "gather2_window_pair",
-                                          "gather2_twosided", "dyngather_take_along"))
+                                          "dyngather_take_along"))
