@@ -415,7 +415,14 @@ MICROBENCH_NORM_TOL = 1e-4
 BLOCKFMA_SMALL = ((64, 256, 32, 1), (1000, 8192, 64, 2))  # C, T, K, seed
 MXU_SMALL = ((3, 1), (50, 2))                            # S, seed
 COND_SMALL = ((3, 1), (40, 2))                           # steps, seed
-PROTO_SMALL = ((4096, 128, 256, 1600, 2, 1), (50_000, 512, 1024, 3200, 5, 2))  # N R T S TILES seed
+# N R T S TILES seed; then the redesign's edges: an R that no power-of-two
+# slice divides, with a few empty rows (3,200 lanes a tile), mostly empty
+# rows, and the sort's fallbacks (a tile's 102,400 lanes past a block's
+# shared memory; S = 64,000 scols past what is left of it); every kernel
+# output lands on NaN-poisoned memory
+PROTO_SMALL = ((4096, 128, 256, 1600, 2, 1), (50_000, 512, 1024, 3200, 5, 2),
+               (4096, 1000, 128, 1600, 3, 3), (4096, 8192, 128, 1600, 2, 4),
+               (4096, 1000, 4096, 1600, 1, 5), (4096, 512, 1024, 64000, 1, 6))
 # the variant whose time stands in the kernels line: the TPU function's
 # default size where its tool's main() runs it, else main()'s first run
 MICROBENCH_MAIN = {"microbench_blockfma_a": "A", "microbench_blockfma_b": "B",
@@ -449,11 +456,12 @@ GATHER_EXACT = ("gather_vmem_take", "gather_onehot", "gather2_onehot_pair",
                 "gather2_window_pair", "dyngather_take_along", "dyngather_smem_cap")
 # two small seeded cases per kernel (seeds 1 and 2), beside every row of
 # its tool's run at the default size (seed 0): odd widths, partial waves,
-# windows that are not a multiple of the staged chunk; onehot and twosided
-# also at their redesign's edges (seeds 3 and 4, outside=True: indices
-# below 0 and past the window, tools/microbench_gather.with_outside; for
-# twosided R = 1000 and 1024, whose (R, 128) partials exceed a block's
-# shared memory and are sliced unevenly, last blocks partial)
+# windows that are not a multiple of 128; onehot, onehot_pair, window_pair
+# and twosided also at their redesign's edges (seeds 3 and 4,
+# outside=True: indices below 0 and at or past the window,
+# tools/microbench_gather.with_outside; for twosided R = 1000 and 1024,
+# whose (R, 128) partials exceed a block's shared memory and are sliced
+# unevenly, last blocks partial)
 GATHER_SMALL = {
     "gather_vmem_loop": (dict(C=64, T=2048, K=16), dict(C=1000, T=1 << 16, K=128)),
     "gather_vmem_take": (dict(C=64, T=2048), dict(C=5000, T=1 << 16)),
@@ -464,12 +472,14 @@ GATHER_SMALL = {
     "gather_block_slice": (dict(C=64, T=2048, K=8), dict(C=3000, T=1 << 17, K=64)),
     "gather_row_dma": (dict(table_rows=300, T=2048, W=16),
                        dict(table_rows=100_000, T=1 << 15, W=7)),
-    "gather2_onehot_pair": (dict(C=64, T=2048), dict(C=200, T=1 << 14)),
+    "gather2_onehot_pair": (dict(C=64, T=2048), dict(C=200, T=1 << 14),
+                            dict(C=200, T=1 << 14, outside=True)),
     "gather2_take_fused": (dict(C=64, T=2048, K=8), dict(C=5000, T=1 << 16, K=8)),
     "gather2_dma_deep": (dict(table_rows=300, T=2048, W=128),
                          dict(table_rows=100_000, T=1 << 15, W=48)),
     "gather2_window_pair": (dict(TILE=1024, CW=128, T=2048, U=300),
-                            dict(TILE=256, CW=100, T=1 << 14, U=2000)),
+                            dict(TILE=256, CW=100, T=1 << 14, U=2000),
+                            dict(TILE=256, CW=100, T=1 << 14, U=2000, outside=True)),
     "gather2_twosided": (dict(TILE=512, CW=128, R=64, T=4096),
                          dict(TILE=256, CW=200, R=300, T=1 << 14),
                          dict(TILE=256, CW=200, R=1000, T=256 * 501, outside=True),
@@ -517,6 +527,20 @@ from of_spmm_tpu_torch.ops.cuda import microbench_gather as kgather
 cols = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
 cols[0, 77] = 64
 kgather.vmem_take(cols, torch.zeros((64, 128), device="cuda"))
+torch.cuda.synchronize()
+print("no error")
+"""
+
+# A window_pair step whose CW-row window runs past the table's end: the
+# row gather must stop with a device-side assertion (child process, as
+# above).
+BAD_PAIR_WINDOW_PROBE = """
+import torch
+from of_spmm_tpu_torch.ops.cuda import microbench_gather2 as kgather2
+bases = torch.tensor([[0], [200]], dtype=torch.int32, device="cuda")
+lidx = torch.zeros((4, 128), dtype=torch.int32, device="cuda")
+hi = torch.zeros((256, 128), dtype=torch.bfloat16, device="cuda")
+kgather2.window_pair(bases, lidx, hi, hi.clone(), 128)
 torch.cuda.synchronize()
 print("no error")
 """
@@ -4374,14 +4398,24 @@ def cond_phase(dev) -> tuple:
     return rows, launches
 
 
+def poison_block(n_rows: int, dev) -> int:
+    """Leave a freed block of (n_rows, 128) float32 holding NaN and return
+    its address: the caching allocator hands it to the next allocation of
+    that size, so a row a kernel leaves unwritten shows."""
+    return torch.full((n_rows, 128), float("nan"), device=dev).data_ptr()
+
+
 def proto_phase(dev) -> tuple:
     """tools/proto_fused at its default size through its entry point, then
     every mode against the plain version (dma's staging buffer bit-exact,
-    compute on that buffer, fused against the plain oracle) on two small
-    seeded cases and the default inputs, and the plain version's times."""
+    compute on that buffer, fused against the plain oracle) on
+    PROTO_SMALL's seeded cases and the default inputs, compute's and
+    fused's output on NaN-poisoned memory with every row no lane selects
+    exactly 0, and the plain version's times."""
     rows, launches = run_tool(tproto, {"proto_fused": 1 + len(tproto.MODES)
                                        * (WARMUP_CALLS + tproto.ITERS)})
     err = {mode: 0.0 for mode in tproto.MODES}
+    empty_rows = 0
     default = (tproto.N, tproto.R, tproto.T, tproto.S, tproto.TILES, 0)
     with torch.inference_mode():
         for N, R, T, S, TILES, seed in PROTO_SMALL + (default,):
@@ -4395,15 +4429,29 @@ def proto_phase(dev) -> tuple:
             torch.cuda.synchronize()
             if not torch.equal(staged_k, staged_p) or zeros.any():
                 raise AssertionError(f"{what} dma: staging not bit-exact or output not zero")
+            # the rows no lane selects
+            G = args[3].shape[-1]
+            t, _ = kproto.lane_sources(args[0], args[1], args[3], S, tproto.SPT, TILES, 0,
+                                       TILES * tproto.SPT, False)
+            lrow = args[2][tproto.SPT * G:(TILES + 1) * tproto.SPT * G].reshape(-1).long()
+            empty = torch.bincount(t * R + lrow, minlength=TILES * R) == 0
+            empty_rows += int(empty.sum())
+            del t, lrow
             for mode in ("compute", "fused"):
+                at = poison_block(TILES * R, dev)
                 got = kproto.proto_fused(mode, *args, **size, staged=staged_k)
                 want = kproto.proto_fused_torch(mode, *args, **size, staged=staged_p)
                 torch.cuda.synchronize()
+                if got.data_ptr() != at:
+                    raise AssertionError(f"{what} {mode}: the output is not the poisoned block")
                 err[mode] = max(err[mode], check_close(got, want, f"{what} {mode}"))
-            del got, want, zeros
+                if got[empty].any():
+                    raise AssertionError(f"{what} {mode}: a row no lane selects is not 0")
+            del got, want, zeros, empty
         for row in rows:
             mode = row["variant"]
             row["max_abs_err"] = err[mode]
+            row["empty_rows_zero_on_poison"] = None if mode == "dma" else empty_rows
             row["plain_ms"] = time_cuda(lambda: kproto.proto_fused_torch(
                 mode, *args, **size, staged=staged_p), iters=3)
         # fused mode's function in one PyTorch call: torch.sparse.mm on the
@@ -4488,7 +4536,10 @@ def gather_case(kernel: str, dev, seed: int, **p) -> tuple:
         return (lambda: k(cols, table, W), lambda: plain(cols, table, W),
                 bag(cols.view(-1, group).long(), table))
     if kernel == "gather2_onehot_pair":
-        cols, hi, lo = on(tgather2.inputs_onehot_pair(p["C"], p["T"], seed))
+        cols, hi, lo = tgather2.inputs_onehot_pair(p["C"], p["T"], seed)
+        if p.get("outside"):
+            cols = tgather.with_outside(cols, p["C"])
+        cols, hi, lo = on((cols, hi, lo))
         return (lambda: kgather2.onehot_pair(cols, hi, lo),
                 lambda: kgather2.onehot_pair_torch(cols, hi, lo),
                 select(hi.float() + lo.float(), cols.reshape(-1).long()))
@@ -4510,6 +4561,8 @@ def gather_case(kernel: str, dev, seed: int, **p) -> tuple:
             return (lambda: kgather2.twosided(*args), lambda: kgather2.twosided_torch(*args),
                     ("torch.sparse.mm", lambda: torch.sparse.mm(sp, table)))
         *made, _ = tgather2.inputs_window_pair(TILE, CW, T, U=p["U"], seed=seed)
+        if p.get("outside"):
+            made[1] = tgather.with_outside(made[1], CW)
         bases, lidx, hi, lo = on(made)
         src = bases.view(-1).long().repeat_interleave(TILE) + lidx.view(-1).long()
         return (lambda: kgather2.window_pair(bases, lidx, hi, lo, CW),
@@ -4589,7 +4642,8 @@ def gather_phase(dev) -> tuple:
 
 def gather2_phase(dev) -> tuple:
     """tools/microbench_gather2 with its default list plus window and
-    twosided, then as gather_phase."""
+    twosided, then as gather_phase (the probe: window_pair with a window
+    past the table's end)."""
     calls = WARMUP_CALLS + tgather.ITERS
     g = tgather2
     rows, launches = run_tool(g, {"gather_vmem_take": len(g.VTAKE_C) * calls,
@@ -4601,6 +4655,7 @@ def gather2_phase(dev) -> tuple:
                                   "gather2_twosided": len(g.TWOSIDED) * calls},
                               argv=(*g.DEFAULT, "window", "twosided"))
     gather_rows_check(dev, rows)
+    expect_device_assert(BAD_PAIR_WINDOW_PROBE, "window_pair with a window past the table")
     return rows, launches
 
 
@@ -4621,8 +4676,8 @@ def dyngather_phase(dev) -> tuple:
 
 def microbench_entry(name: str, rows: list, launches: dict) -> dict:
     """The kernels-line entry of one microbenchmark kernel: its main
-    variant's times and bound, and for a one-hot product the share of the
-    peak its prescribed multiply-adds reach. The SpMM inner-loop kernels
+    variant's times and bound, and for a TPU one-hot product the count of
+    its prescribed multiply-adds (the kernels here run none). The SpMM inner-loop kernels
     list every variant's beside them; the gathers' variants (45 rows) are
     in their tools' phase lines only, which keeps this line under 16 KB."""
     main_row = next(r for r in rows if r["variant"] == MICROBENCH_MAIN[name])
@@ -4634,7 +4689,7 @@ def microbench_entry(name: str, rows: list, launches: dict) -> dict:
              **{k: main_row[k] for k in keys}, "library_ms": main_row.get("library_ms"),
              **({"library": main_row["library"]} if main_row.get("library")
                 else {"library": LIBRARY_NONE[name]} if name in LIBRARY_NONE else {}),
-             **{k: main_row[k] for k in ("onehot_macs", "onehot_mac_fraction") if k in main_row},
+             **({"onehot_macs": main_row["onehot_macs"]} if "onehot_macs" in main_row else {}),
              "times_scope": f"variant {MICROBENCH_MAIN[name]} at the tool's default size"}
     if "gather" not in tool_of(name):
         entry["variants"] = [{"variant": r["variant"], **{k: r[k] for k in keys},

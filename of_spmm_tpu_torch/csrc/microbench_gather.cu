@@ -16,14 +16,12 @@
 //                zero row. The TPU forms it as a (TILE, C) x (C, 128) one-hot
 //                product on its matrix unit; its cost grows with C while the
 //                function is a row gather, so here it is one.
-//                Both: row_gather_kernel<Tier, kZeroFill>, one thread per
-//                float4 of the output, neighbouring threads on neighbouring
-//                addresses; the row's index loaded once for its 32 threads
-//                (one broadcast load); the tier (at most 16 MB) read through
-//                L1 / L2 with __ldg, a bfloat16 tier 8 bytes (4 values) a
-//                thread and widened, so that each warp's store is 512
-//                contiguous bytes; the output (512 MB at the tools' T, ten
-//                times L2) written with streaming stores (st.global.cs).
+//                Both: csrc/gather.cuh's row_gather_kernel<Tier, kZeroFill>
+//                (one thread per float4 of the output, the tier read through
+//                L1 / L2, a bfloat16 tier 8 bytes a thread and widened, the
+//                512 MB output written with streaming stores), with one
+//                table and no base: the template that onehot_pair and
+//                window_pair (csrc/microbench_gather2.cu) instantiate too.
 //                vmem_take asserts its index, onehot stores a zero row.
 //   block_slice  bench_block_slice (:263): out[8i + j] = sum_{r < 8, k < K}
 //                tier[starts[8i + r, k] + j], unaligned 8-row blocks.
@@ -54,7 +52,6 @@ namespace {
 
 using namespace ofs_gather;
 
-constexpr int kD4 = kD / 4;  // row width in float4: one per lane
 constexpr int kWarpsPerBlock = 8;
 
 __device__ __forceinline__ void add4(float4& a, const float4 b) {
@@ -74,34 +71,6 @@ __device__ __forceinline__ void fma4(float4& a, const float w, const float4 b) {
 // The card's opt-in dynamic shared memory per block, in bytes.
 cudaError_t smem_optin(int device, int* bytes) {
   return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-}
-
-// ---- row gather --------------------------------------------------------------
-
-// Piece p (4 values) of tier row c as float32.
-__device__ __forceinline__ float4 tier_piece(const float* __restrict__ tier, int64_t c, int p) {
-  return __ldg(reinterpret_cast<const float4*>(tier) + c * kD4 + p);
-}
-
-__device__ __forceinline__ float4 tier_piece(const __nv_bfloat16* __restrict__ tier, int64_t c,
-                                             int p) {
-  return widen4(__ldg(reinterpret_cast<const uint2*>(tier) + c * kD4 + p));
-}
-
-// out[t] = f32(tier[cols[t]]): thread e writes float4 e % 32 of row e / 32.
-// An index outside [0, C) stops the kernel (kZeroFill false) or gives a
-// zero row (kZeroFill true).
-template <class Tier, bool kZeroFill>
-__global__ void __launch_bounds__(256)
-row_gather_kernel(const int32_t* __restrict__ cols, const Tier* __restrict__ tier,
-                  float4* __restrict__ out, int64_t T, int64_t C) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= T * kD4) return;
-  const int32_t c = cols[e / kD4];
-  const bool inside = c >= 0 && c < C;
-  if (!kZeroFill) assert(inside);
-  __stcs(out + e, kZeroFill && !inside ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                       : tier_piece(tier, c, static_cast<int>(e % kD4)));
 }
 
 // ---- ELL gather-reduce from L2 -------------------------------------------------
@@ -235,11 +204,8 @@ int ofs_gather_vmem_take(const void* cols, const void* tier, void* out, int64_t 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return 0;
   if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  row_gather_kernel<float, false>
-      <<<blocks_for(T * kD4, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int32_t*>(cols), static_cast<const float*>(tier),
-          static_cast<float4*>(out), T, C);
-  return static_cast<int>(cudaGetLastError());
+  return launch_row_gather<float, false>(cols, nullptr, T, tier, nullptr, out, T, C, C,
+                                         static_cast<cudaStream_t>(stream));
 }
 
 // bf16: tier bfloat16 (else float32) (C, 128); cols int32 (T,); out
@@ -251,15 +217,9 @@ int ofs_gather_onehot(int bf16, const void* cols, const void* tier, void* out, i
   if (T == 0) return 0;
   if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* idx = static_cast<const int32_t*>(cols);
-  if (bf16) {
-    row_gather_kernel<__nv_bfloat16, true><<<blocks_for(T * kD4, 256), 256, 0, st>>>(
-        idx, static_cast<const __nv_bfloat16*>(tier), static_cast<float4*>(out), T, C);
-  } else {
-    row_gather_kernel<float, true><<<blocks_for(T * kD4, 256), 256, 0, st>>>(
-        idx, static_cast<const float*>(tier), static_cast<float4*>(out), T, C);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? launch_row_gather<__nv_bfloat16, true>(cols, nullptr, T, tier, nullptr, out, T,
+                                                       C, C, st)
+              : launch_row_gather<float, true>(cols, nullptr, T, tier, nullptr, out, T, C, C, st);
 }
 
 // starts int32 (8 R, K), tier float32 (C, 128), out float32 (8 R, 128).

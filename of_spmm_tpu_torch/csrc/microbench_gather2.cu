@@ -3,10 +3,24 @@
 // TPU kernels of tools/microbench_gather2.py (pallas_call line):
 //
 //   onehot_pair  bench_onehot_pair (:57): out[t] = f32(hi[c]) + f32(lo[c]),
-//                c = cols[t], with one one-hot feeding two products; an
-//                index >= C gives a zero row. onehot_mma_kernel below,
-//                on the tensor cores, hi and lo summed apart and added in
-//                float32.
+//                c = cols[t], an index outside [0, C) giving a zero row.
+//   window_pair  bench_window_pair (:210): out[t] = f32(hi[b + l]) + f32(lo[b + l]),
+//                l = lidx[t], b the base of step t / TILE, an l outside
+//                [0, CW) giving a zero row.
+//                The TPU forms both as one-hot products over the C- or
+//                CW-row window on its matrix unit, one one-hot feeding the
+//                hi and the lo product; its cost grows with the window
+//                while the function is a row gather. So here both are
+//                csrc/gather.cuh's row_gather_kernel<__nv_bfloat16, true>,
+//                the kernel of vmem_take and onehot, with a second table
+//                and (window_pair) a base per step: one thread per float4
+//                of the output, the row's index and base loaded once for
+//                its 32 threads, 8 bytes of hi and 8 of lo a thread read
+//                through L1 / L2 (the tables are 32-64 KB for onehot_pair,
+//                4.3 MB each for window_pair) and widened, hi + lo added in
+//                float32, the 512 MB output written with streaming stores.
+//                Each one-hot sum held one product of 1 by a bf16 value, so
+//                the result is the same bit for bit.
 //   take_fused   bench_take_fused (:95): out[n] = sum_{k < 8} vals[n, k]
 //                tier[cols[n, k]]; and
 //   dma_deep     bench_dma_deep (:150): out[o] = sum_{m < 128}
@@ -15,9 +29,6 @@
 //                vmem_loop and row_dma at other widths, so they launch
 //                csrc/microbench_gather.cu's ofs_gather_ell_reduce and
 //                ofs_gather_row_sum (ops/cuda/microbench_gather2.py).
-//   window_pair  bench_window_pair (:210): out[t] = f32(hi[b + l]) + f32(lo[b + l]),
-//                l = lidx[t], b the base of step t / TILE, the one-hot over
-//                the CW-row window at b (l >= CW: a zero row).
 //   twosided     bench_twosided (:294): out (R, 128) = sum over every lane t of
 //                f32(c_hi) + f32(c_lo) into row rows[t], where c is the
 //                window pair gather of lane t times vals[t], c_hi = bf16(c)
@@ -49,126 +60,17 @@
 // lanes select and the float32 output (twosided: its (R, 128) output and
 // the lanes' rows and values). The one-hot multiply-adds the TPU kernels
 // prescribe (C or CW x 128 per lane and table) are reported beside the
-// bound, not in it: the functions are row gathers, and twosided performs
-// none.
+// bound as the TPU's count; these kernels perform none.
 //
 // A row outside [0, R) stops twosided with a device-side assertion, as
-// does a window base with b + CW past the table; an index outside a
-// one-hot window gives a zero row.
+// does a window base with b + CW past the table (window_pair, twosided);
+// an index outside a one-hot window gives a zero row.
 
 #include "gather.cuh"
 
 namespace {
 
 using namespace ofs_gather;
-
-// The one-hot product gather of onehot_pair and window_pair, on rows of 128
-// bfloat16 values: out[t] = sum_c onehot(idx[t])[c] (f32(hi[base + c]) +
-// f32(lo[base + c])) over a window of CW rows at a base per step, on the
-// tensor cores with mma.sync m16n8k16 bf16 -> f32. An index outside
-// [0, CW) selects no row: a zero row by definition. A window past the
-// table's end stops the kernel with a device-side assertion.
-
-constexpr int kMmaWarps = 16;           // 8 m-tiles of 16 rows x 2 column halves
-constexpr int kMmaRows = 128;           // index rows (lanes) per block
-constexpr int kChunk = 64;              // window rows staged per pass
-constexpr int kPairStride = kD + 8;     // words per staged row pair: banks 8 apart
-
-// bf16 1.0 in the low half of the word where idx == c, in the high half
-// where idx == c + 1: two elements of a one-hot A fragment
-__device__ __forceinline__ uint32_t onehot2(const int idx, const int c) {
-  return (idx == c ? 0x3F80u : 0u) | (idx == c + 1 ? 0x3F800000u : 0u);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t a0, const uint32_t a1,
-                                         const uint32_t a2, const uint32_t a3,
-                                         const uint32_t b0, const uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Window rows [r0, r0 + kChunk) of the table at `base` as the B operand:
-// word (p, n) packs rows r0 + 2p (low half) and r0 + 2p + 1 of column n.
-// Rows at or past n_valid are zeros, so that no index outside the window
-// selects anything.
-__device__ __forceinline__ void stage_pairs(uint32_t* s, const __nv_bfloat16* __restrict__ tab,
-                                            const int64_t base, const int r0, const int n_valid) {
-  for (int e = threadIdx.x; e < (kChunk / 2) * (kD / 2); e += kMmaWarps * 32) {
-    const int p = e / (kD / 2), n2 = e % (kD / 2);
-    const int ra = r0 + 2 * p;
-    uint32_t va = 0, vb = 0;
-    if (ra < n_valid) va = __ldg(reinterpret_cast<const uint32_t*>(tab + (base + ra) * kD) + n2);
-    if (ra + 1 < n_valid) {
-      vb = __ldg(reinterpret_cast<const uint32_t*>(tab + (base + ra + 1) * kD) + n2);
-    }
-    s[p * kPairStride + 2 * n2] = __byte_perm(va, vb, 0x5410);
-    s[p * kPairStride + 2 * n2 + 1] = __byte_perm(va, vb, 0x7632);
-  }
-}
-
-// Block b gathers index rows [128 b, 128 b + 128): warp w an m-tile of 16
-// rows (w / 2) and 64 columns (w % 2). Per pass, kChunk window rows of hi
-// and lo are staged in shared memory; each 16-row k-step builds the
-// one-hot A fragment from the thread's two rows' indices in registers and
-// runs 8 mma per table, hi and lo into separate accumulators (each sum is
-// exact: one product of 1 by a bf16 value, the rest zeros), added in
-// float32 into out. bases: one window base per step of `tile` rows (null:
-// base 0); the window is cw rows; n_rows the table's rows. T must be a
-// multiple of 128.
-__global__ void __launch_bounds__(kMmaWarps * 32)
-onehot_mma_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ bases,
-                  const __nv_bfloat16* __restrict__ hi, const __nv_bfloat16* __restrict__ lo,
-                  float* __restrict__ out, int64_t tile, int cw, int64_t n_rows) {
-  __shared__ uint32_t s_hi[(kChunk / 2) * kPairStride];
-  __shared__ uint32_t s_lo[(kChunk / 2) * kPairStride];
-  const int64_t t0 = static_cast<int64_t>(blockIdx.x) * kMmaRows;
-  const int64_t base = bases == nullptr ? 0 : bases[t0 / tile];
-  assert(base >= 0 && base + cw <= n_rows);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4;
-  const int64_t ra = t0 + (warp / 2) * 16 + g, rb = ra + 8;
-  const int n0 = (warp % 2) * (kD / 2);
-  const int ia = idx[ra], ib = idx[rb];
-
-  float acc_hi[8][4], acc_lo[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_hi[nt][i] = acc_lo[nt][i] = 0.f;
-  }
-  for (int c0 = 0; c0 < cw; c0 += kChunk) {
-    __syncthreads();  // the previous pass has read the staged rows
-    stage_pairs(s_hi, hi, base, c0, cw);
-    stage_pairs(s_lo, lo, base, c0, cw);
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kChunk; ks += 16) {
-      const int c = c0 + ks + 2 * q;
-      const uint32_t a0 = onehot2(ia, c), a1 = onehot2(ib, c);
-      const uint32_t a2 = onehot2(ia, c + 8), a3 = onehot2(ib, c + 8);
-      const uint32_t* ph = s_hi + (ks / 2 + q) * kPairStride + n0 + g;
-      const uint32_t* pl = s_lo + (ks / 2 + q) * kPairStride + n0 + g;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        mma_bf16(acc_hi[nt], a0, a1, a2, a3, ph[nt * 8], ph[4 * kPairStride + nt * 8]);
-        mma_bf16(acc_lo[nt], a0, a1, a2, a3, pl[nt * 8], pl[4 * kPairStride + nt * 8]);
-      }
-    }
-  }
-  // the thread's fragment of n-tile nt: rows ra (values 0, 1) and rb (2, 3),
-  // columns col, col + 1
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const float* h = acc_hi[nt];
-    const float* l = acc_lo[nt];
-    const int col = n0 + nt * 8 + 2 * q;
-    *reinterpret_cast<float2*>(out + ra * kD + col) = make_float2(h[0] + l[0], h[1] + l[1]);
-    *reinterpret_cast<float2*>(out + rb * kD + col) = make_float2(h[2] + l[2], h[3] + l[3]);
-  }
-}
 
 // c split into bf16 halves, each rounded to nearest even, and added back,
 // two values at a time.
@@ -302,8 +204,7 @@ twosided_kernel(const int32_t* __restrict__ bases, const int32_t* __restrict__ l
 }
 
 int check_window(int64_t T, int64_t tile, int cw, int64_t n_rows) {
-  if (T % kMmaRows != 0 || tile <= 0 || tile % kMmaRows != 0 || T % tile != 0 || cw <= 0 ||
-      cw > n_rows) {
+  if (tile <= 0 || T % tile != 0 || cw <= 0 || cw > n_rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return 0;
@@ -316,23 +217,19 @@ extern "C" {
 // Every array is a contiguous device array, float4-aligned where it holds
 // rows; each function returns a cudaError_t.
 
-// cols int32 (T,), T a multiple of 128; hi, lo bfloat16 (C, 128); out
-// float32 (T, 128).
+// cols int32 (T,); hi, lo bfloat16 (C, 128); out float32 (T, 128).
 int ofs_gather2_onehot_pair(const void* cols, const void* hi, const void* lo, void* out, int64_t T,
                             int C, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return 0;
   if (const int rc = check_window(T, T, C, C)) return rc;
-  onehot_mma_kernel<<<blocks_for(T, kMmaRows), kMmaWarps * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cols), nullptr, static_cast<const __nv_bfloat16*>(hi),
-      static_cast<const __nv_bfloat16*>(lo), static_cast<float*>(out), T, C, C);
-  return static_cast<int>(cudaGetLastError());
+  return launch_row_gather<__nv_bfloat16, true>(cols, nullptr, T, hi, lo, out, T, C, C,
+                                                static_cast<cudaStream_t>(stream));
 }
 
 // bases int32 (T / tile,), lidx int32 (T,), hi, lo bfloat16 (n_rows, 128),
-// out float32 (T, 128); tile a multiple of 128 dividing T; cw <= n_rows.
+// out float32 (T, 128); tile dividing T; 0 < cw <= n_rows.
 int ofs_gather2_window_pair(const void* bases, const void* lidx, const void* hi, const void* lo,
                             void* out, int64_t T, int64_t tile, int cw, int64_t n_rows,
                             int device, void* stream) {
@@ -340,12 +237,8 @@ int ofs_gather2_window_pair(const void* bases, const void* lidx, const void* hi,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T == 0) return 0;
   if (const int rc = check_window(T, tile, cw, n_rows)) return rc;
-  onehot_mma_kernel<<<blocks_for(T, kMmaRows), kMmaWarps * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(lidx), static_cast<const int32_t*>(bases),
-      static_cast<const __nv_bfloat16*>(hi), static_cast<const __nv_bfloat16*>(lo),
-      static_cast<float*>(out), tile, cw, n_rows);
-  return static_cast<int>(cudaGetLastError());
+  return launch_row_gather<__nv_bfloat16, true>(lidx, bases, tile, hi, lo, out, T, cw, n_rows,
+                                                static_cast<cudaStream_t>(stream));
 }
 
 // As window_pair, plus rows int32 (T,) in [0, R) and vals float32 (T,); out

@@ -5,17 +5,18 @@ One wrapper per TPU kernel of tools/microbench_gather2.py, each computing
 its function with the kernels in ``csrc/microbench_gather2.cu`` (design
 notes there), except take_fused and dma_deep, which launch
 microbench_gather's ELL kernels (``csrc/microbench_gather.cu``) under their
-own counters:
+own counters. onehot_pair and window_pair compute the function of the
+TPU's one-hot products as a row gather, ``csrc/gather.cuh``'s template
+that vmem_take and onehot instantiate too:
 
 - ``onehot_pair(cols, hi, lo)``: out[t] = f32(hi[c]) + f32(lo[c]), c =
-  cols.flat[t], by one-hot products over the C rows (c outside [0, C): a
-  zero row);
+  cols.flat[t] (c outside [0, C): a zero row);
 - ``take_fused(cols, vals, tier)``: out[n] = sum_k vals[n, k] tier[cols[n, k]];
 - ``dma_deep(cols, table, W)``: out[o] = sum_{m < 128} table[cols.flat[128 o + m]],
   W rows in flight per warp;
 - ``window_pair(bases, lidx, hi, lo, CW)``: out[t] = f32(hi[b + l]) + f32(lo[b + l]),
-  l = lidx.flat[t], b the base of step t // TILE (TILE = T / len(bases)), by
-  one-hot products over the CW-row window at b (l outside [0, CW): zero);
+  l = lidx.flat[t], b the base of step t // TILE (TILE = T / len(bases)), the
+  CW-row window at b (l outside [0, CW): a zero row);
 - ``twosided(bases, lidx, rows, vals, hi, lo, CW, R)``: out (R, 128) = the
   sum over every lane t of f32(c_hi) + f32(c_lo) into row rows.flat[t], c =
   window_pair's row t times vals.flat[t], c_hi = bf16(c), c_lo =
@@ -146,8 +147,8 @@ def _check_twosided(rows: torch.Tensor, vals: torch.Tensor, lidx: torch.Tensor, 
 
 
 def onehot_pair(cols: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
-    """bench_onehot_pair's function: the kernel on the card, the plain
-    version on the CPU."""
+    """bench_onehot_pair's function: the kernel on the card (a row gather,
+    zero rows outside [0, C)), the plain version on the CPU."""
     if cols.device.type == "cpu":
         return onehot_pair_torch(cols, hi, lo)
     T = check_lanes(cols, "cols")
@@ -181,8 +182,9 @@ def dma_deep(cols: torch.Tensor, table: torch.Tensor, W: int = 32) -> torch.Tens
 
 def window_pair(bases: torch.Tensor, lidx: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor,
                 CW: int) -> torch.Tensor:
-    """bench_window_pair's function: the kernel on the card, the plain
-    version on the CPU."""
+    """bench_window_pair's function: the kernel on the card (a row gather
+    from each step's window, zero rows outside [0, CW)), the plain version
+    on the CPU."""
     if lidx.device.type == "cpu":
         return window_pair_torch(bases, lidx, hi, lo, CW)
     tile = _check_window(bases, lidx, hi, lo, CW)

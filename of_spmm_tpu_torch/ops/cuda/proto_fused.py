@@ -4,15 +4,18 @@ their launcher (tools/proto_fused.py).
 ``proto_fused(mode, scols, lidx, lrow, blk, xp, R=, S=, SPT=, TILES=)``
 computes the function of the numpy oracle of tools/proto_fused.py
 (``reference``) with the kernels in ``csrc/proto_fused.cu``, in one of
-three modes: ``fused`` (one launch, no staged window), ``dma`` (stage every
-tile's window into ``staged`` and return zeros) and ``compute`` (the lane
-work on a window ``dma`` staged). On the CPU it runs the plain version;
-on the card it launches the kernel or raises, and never falls back. Each
-launch adds one to ``LAUNCHES["proto_fused"]`` (ops/cuda/build.py).
+three modes: ``fused`` (no staged window), ``dma`` (stage every tile's
+window into ``staged`` and return zeros) and ``compute`` (the lane work on
+a window ``dma`` staged). On the CPU it runs the plain version; on the
+card it launches the kernels or raises, and never falls back: ``dma`` one
+staging kernel, ``fused`` and ``compute`` a sort of each tile's lanes by
+output row, then a kernel that sums each row where it is computed. Each
+call adds one to ``LAUNCHES["proto_fused"]`` (ops/cuda/build.py).
 
 Each staged value v counts as bf16(v) + bf16(v - bf16(v)), rounded to
 nearest even, as the oracle's hi/lo pair; the sums are float32, in another
-order than the oracle's.
+order than the oracle's (on the card, one that varies from run to run: the
+kernel sorts each tile's lanes by output row with shared-memory atomics).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ def build() -> Dict[str, object]:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.ofs_proto_fused.argtypes = [i32, p, p, p, p, p, p, p, i64] + [i32] * 6 + [p]
+    lib.ofs_proto_fused.argtypes = [i32] + [p] * 9 + [i64] + [i32] * 6 + [p]
     lib.ofs_proto_fused.restype = i32
 
 
@@ -145,10 +148,19 @@ def proto_fused(mode: str, scols: torch.Tensor, lidx: torch.Tensor, lrow: torch.
     if dev.type != "cuda":
         raise ValueError(f"proto_fused runs on cuda or cpu tensors, got {dev}")
     lib = _lib()
-    out = torch.zeros((TILES * R, _L), dtype=torch.float32, device=dev)
+    order = offsets = None
+    if mode == "dma":
+        out = torch.zeros((TILES * R, _L), dtype=torch.float32, device=dev)
+    else:  # the kernel writes every row (zeros where no lane selects it)
+        out = torch.empty((TILES * R, _L), dtype=torch.float32, device=dev)
+        # scratch: each tile's lane sources sorted by row, and the rows' offsets
+        order = torch.empty((TILES, SPT * G * _L), dtype=torch.int32, device=dev)
+        offsets = torch.empty((TILES, R + 1), dtype=torch.int32, device=dev)
     rc = lib.ofs_proto_fused(MODES.index(mode), scols.data_ptr(), lidx.data_ptr(),
                              lrow.data_ptr(), blk.data_ptr(), xp.data_ptr(),
                              None if staged is None else staged.data_ptr(), out.data_ptr(),
+                             None if order is None else order.data_ptr(),
+                             None if offsets is None else offsets.data_ptr(),
                              xp.shape[0], R, S, SPT, TILES, G, dev.index or 0, stream(dev))
     raise_if(lib, rc, "proto_fused")
     LAUNCHES["proto_fused"] += 1

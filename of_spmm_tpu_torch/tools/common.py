@@ -3,15 +3,16 @@ and the bound of a measured call."""
 
 from __future__ import annotations
 
+import re
 import statistics
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
 from of_spmm_tpu_torch.utils.device import resolve_device
 from of_spmm_tpu_torch.utils.roofline import (
-    KernelWork, detect_peak_bw, detect_peak_fp32, detect_peak_tensor16, time_cuda)
+    WARMUP_CALLS, KernelWork, detect_peak_bw, detect_peak_fp32, detect_peak_tensor16, time_cuda)
 
 
 def split_device(argv: Sequence[str]) -> Tuple[torch.device, List[str]]:
@@ -45,6 +46,29 @@ def time_ms(fn: Callable[[], object], device: torch.device, iters: int = 20) -> 
     return statistics.median(times)
 
 
+def kernel_ms(fn: Callable[[], object], iters: int = 20) -> Dict[str, float]:
+    """Each CUDA kernel's mean device milliseconds per call of ``fn()`` on
+    the card (torch.profiler's CUDA activity over ``iters`` calls, after
+    WARMUP_CALLS), by the kernel's name without its namespace and
+    arguments: where the time of a call of several launches goes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(WARMUP_CALLS):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: Dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            head = re.split(r"[<(]", e.key.replace("(anonymous namespace)::", ""), 1)[0]
+            name = re.split(r"\s|::", head.strip())[-1] or e.key
+            out[name] = out.get(name, 0.0) + e.device_time_total / iters / 1e3
+    return out
+
+
 def bound_fields(work: KernelWork, ms: float, device: torch.device) -> Dict[str, object]:
     """The call's bound on this card and the fraction of it reached; on the
     CPU no device bound exists and the time is the host's."""
@@ -59,29 +83,10 @@ def bound_fields(work: KernelWork, ms: float, device: torch.device) -> Dict[str,
             "bound_ms": bound, "bound_by": by, "fraction_of_bound": bound / ms}
 
 
-def onehot_mac_fields(macs: int, tensor_cores: Optional[bool], ms: float,
-                      device: torch.device) -> Dict[str, object]:
-    """A TPU one-hot product's multiply-adds (utils/roofline.onehot_macs),
-    reported beside the bound: their count and, on the card, the least
-    time they take at the peak of the units that run them (the bf16 tensor
-    cores, else float32 on the CUDA cores) as a fraction of ``ms``;
-    ``tensor_cores`` None: the kernel here runs none of them (the TPU's
-    count only)."""
-    row = {"onehot_macs": macs}
-    if device.type == "cuda" and tensor_cores is not None:
-        name = torch.cuda.get_device_name(device)
-        peak = detect_peak_tensor16(name) if tensor_cores else detect_peak_fp32(name)
-        row["onehot_mac_ms"] = 2 * macs / peak * 1e3
-        row["onehot_mac_fraction"] = row["onehot_mac_ms"] / ms
-    return row
-
-
 def describe(row: Dict[str, object], units: str) -> str:
     """One printed line for a measured row."""
     if row["device"] == "cpu":
         return f"{units}  host {row['ms']:.4f} ms (cpu: no device bound)"
-    macs = (f"  one-hot MACs {row['onehot_mac_fraction']:.3f} of peak"
-            if "onehot_mac_fraction" in row else "")
     return (f"{units}  {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
-            f"  fraction {row['fraction_of_bound']:.3f}{macs}  [{row['device']}]")
+            f"  fraction {row['fraction_of_bound']:.3f}  [{row['device']}]")
 

@@ -35,7 +35,7 @@ import torch
 
 from of_spmm_tpu_torch.ops.cuda import microbench_gather as kernels
 from of_spmm_tpu_torch.tools.common import (
-    bound_fields, describe, onehot_mac_fields, split_device, time_ms)
+    bound_fields, describe, split_device, time_ms)
 from of_spmm_tpu_torch.utils.roofline import (
     KernelWork, block_slice_work, ell_work, onehot_macs, onehot_work, row_gather_work)
 
@@ -112,17 +112,16 @@ def inputs_row_dma(table_rows: int, T: int, seed: int = 0):
 
 
 def measure(tool: str, kernel: Optional[str], variant: str, fn, work: KernelWork, rows: int,
-            device: torch.device, macs: Optional[Tuple[int, Optional[bool]]] = None,
-            **fields) -> Dict[str, object]:
+            device: torch.device, macs: Optional[int] = None, **fields) -> Dict[str, object]:
     """Time ``fn`` (ITERS calls) and make its row: the bound of ``work``,
     the rate of ``rows`` 512-byte rows and, for a TPU one-hot product,
-    ``macs`` = (its one-hot multiply-adds, on the tensor cores? None where
-    the kernel here runs none) beside them."""
+    ``macs``, its one-hot multiply-adds (utils/roofline.onehot_macs), the
+    TPU's count beside the bound: the kernels here run none."""
     ms = time_ms(fn, device, ITERS)
     row = {"tool": tool, "kernel": kernel, "variant": variant, "T": rows, **fields,
            **bound_fields(work, ms, device)}
     if macs is not None:
-        row.update(onehot_mac_fields(*macs, ms, device))
+        row["onehot_macs"] = macs
     row["mrows_per_s"] = rows / ms / 1e3
     row["gb_per_s"] = row["mrows_per_s"] * ROW_BYTES / 1e3
     return row
@@ -188,7 +187,7 @@ def bench_onehot_mxu(device: torch.device, C: int, T: int,
     name = str(dtype).replace("torch.", "")
     row = measure("microbench_gather", "gather_onehot", f"C={C} {name}",
                   lambda: kernels.onehot(cols, tier), onehot_work(cols, (tier,), C), T, device,
-                  macs=(onehot_macs(cols, 1, C), None), C=C, dtype=name)
+                  macs=onehot_macs(cols, 1, C), C=C, dtype=name)
     show(row, f"onehot {name}", f"C={C}", " (virtual)")
     return row
 

@@ -7,13 +7,15 @@ rates are Mrows/s of 512-byte (d = 128 float32) rows:
   vtake        row gather from tables of 2k..32k rows (microbench_gather's)
   onehot_small the one-hot product gather's function at C = 128 / 256,
                bfloat16 (microbench_gather's onehot, a row gather)
-  onehot_pair  hi/lo bfloat16 pair: one one-hot, two products (float32 parity)
+  onehot_pair  hi/lo bfloat16 pair: the TPU's one one-hot and two products
+               (float32 parity), a row gather of both tables here
   take_fused   gather + value multiply + width-8 reduce (the ELL inner loop)
   dma_deep     row gather from a 1 GiB table, W = 16 / 32 / 64 / 128 rows in
                flight per warp, rows of 128 summed
   xla_fused    index_select + multiply + sum as PyTorch calls (the TPU tool's
                XLA form)
-  window       windowed pair gather with a base per step (named only)
+  window       windowed pair gather with a base per step (named only; a
+               row gather here, as onehot_pair)
   twosided     window pair gather, value scale and hi/lo scatter into an
                (R, 128) sum (named only)
 
@@ -130,11 +132,13 @@ def inputs_twosided(TILE: int, CW: int, R: int, T: int = T, dedup: int = DEDUP, 
 
 
 def bench_onehot_pair(device: torch.device, C: int, T: int = T) -> Dict[str, object]:
-    """float32-parity gather: one one-hot feeds the hi and lo products."""
+    """float32-parity gather: on the TPU one one-hot feeds the hi and lo
+    products, whose multiply-adds are counted beside the bound; the kernel
+    here runs none."""
     cols, hi, lo = (a.to(device) for a in inputs_onehot_pair(C, T))
     row = measure("microbench_gather2", "gather2_onehot_pair", f"C={C}",
                   lambda: kernels.onehot_pair(cols, hi, lo), onehot_work(cols, (hi, lo), C), T,
-                  device, macs=(onehot_macs(cols, 2, C), True), C=C)
+                  device, macs=onehot_macs(cols, 2, C), C=C)
     show(row, "onehot pair", f"C={C}", " (fp32-parity)")
     return row
 
@@ -166,13 +170,14 @@ def bench_dma_deep(device: torch.device, table_rows: int, T: int, W: int,
 def bench_window_pair(device: torch.device, TILE: int, CW: int, T: int = T,
                       U: int = WINDOW_U) -> Dict[str, object]:
     """The staged-expansion inner loop: the pair gather over a CW-row window
-    at a base per step of TILE lanes."""
+    at a base per step of TILE lanes (the TPU's one-hot multiply-adds
+    counted beside the bound; the kernel here runs none)."""
     *args, spill = inputs_window_pair(TILE, CW, T, U)
     bases, lidx, hi, lo = (a.to(device) for a in args)
     row = measure("microbench_gather2", "gather2_window_pair", f"TILE={TILE} CW={CW}",
                   lambda: kernels.window_pair(bases, lidx, hi, lo, CW),
                   onehot_work(lidx, (hi, lo), CW, bases), T, device,
-                  macs=(onehot_macs(lidx, 2, CW), True), TILE=TILE, CW=CW, U=U, spill=spill)
+                  macs=onehot_macs(lidx, 2, CW), TILE=TILE, CW=CW, U=U, spill=spill)
     note = f" (fp32-parity, dyn base; {spill:.1%} spill clamped)"
     show(row, "window pair", f"TILE={TILE} CW={CW}", note)
     return row
@@ -187,7 +192,7 @@ def bench_twosided(device: torch.device, TILE: int, CW: int, R: int,
     row = measure("microbench_gather2", "gather2_twosided", f"TILE={TILE} CW={CW} R={R}",
                   lambda: kernels.twosided(bases, lidx, rows, vals, hi, lo, CW, R),
                   twosided_work(bases, lidx, rows, vals, hi, lo, CW, R), T, device,
-                  macs=(onehot_macs(lidx, 2, CW), None), TILE=TILE, CW=CW, R=R)
+                  macs=onehot_macs(lidx, 2, CW), TILE=TILE, CW=CW, R=R)
     show(row, "twosided", f"TILE={TILE} CW={CW} R={R}", " (gather+scale+scatter)")
     return row
 

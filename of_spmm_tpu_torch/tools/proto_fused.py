@@ -6,20 +6,23 @@ scols), each value split into a bf16 hi/lo pair; then each of the tile's
 SPT compute steps of T lanes adds staged row 128 blk + lidx into tile row
 lrow (the TPU tool's numpy oracle ``reference``). Modes:
 
-  fused    one launch; each lane reaches its X row through both index
-           levels, so nothing is staged
+  fused    each lane reaches its X row through both index levels, so
+           nothing is staged
   dma      staging alone: every tile's window written to a buffer
   compute  the lane work alone, on the window dma staged before it
 
 The modes run as the hand-written kernels of ops/cuda/proto_fused.py on
 the same seeded inputs as the TPU tool, and report ms, us/step, lanes M/s
 and staged rows M/s beside the card's bound for the same work
-(utils/roofline.proto_fused_work). fused against max(compute, dma) says
-whether staging and compute overlap. --check holds fused against the
-plain version.
+(utils/roofline.proto_fused_work) and the distinct rows it reads
+(``distinct_rows``, utils/roofline.proto_fused_rows). fused against
+max(compute, dma) says whether staging and compute overlap. --check holds
+fused against the plain version; --kernels adds each CUDA kernel's device
+ms per call on the card (``kernel_ms``, torch.profiler: fused and compute
+launch a sort and a rows kernel).
 
-    python -m of_spmm_tpu_torch.tools.proto_fused [R T S TILES] [--check] [--modes=...] \
-        [--device cpu]
+    python -m of_spmm_tpu_torch.tools.proto_fused [R T S TILES] [--check] [--kernels] \
+        [--modes=...] [--device cpu]
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ import numpy as np
 import torch
 
 from of_spmm_tpu_torch.ops.cuda import proto_fused as kernels
-from of_spmm_tpu_torch.tools.common import bound_fields, describe, split_device, time_ms
-from of_spmm_tpu_torch.utils.roofline import proto_fused_work
+from of_spmm_tpu_torch.tools.common import (
+    bound_fields, describe, kernel_ms, split_device, time_ms)
+from of_spmm_tpu_torch.utils.roofline import proto_fused_rows, proto_fused_work
 
 _L = 128
 N = 2449024  # rows of X (the TPU tool's: ogbn-products)
@@ -70,6 +74,7 @@ def bench(mode: str, args, device: torch.device, R: int, S: int, TILES: int, SPT
                                              staged=staged), device, iters)
     steps = TILES * SPT
     row = {"tool": "proto_fused", "variant": mode, "R": R, "T": G * _L, "S": S, "TILES": TILES,
+           "distinct_rows": proto_fused_rows(mode, scols, lidx, blk, S, SPT, TILES),
            **bound_fields(proto_fused_work(mode, scols, lidx, lrow, blk, R, S, SPT, TILES), ms,
                           device)}
     row["us_per_step"] = ms / steps * 1e3
@@ -96,7 +101,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     t = int(pos[1]) if len(pos) > 1 else T
     s = int(pos[2]) if len(pos) > 2 else S
     tiles = int(pos[3]) if len(pos) > 3 else TILES
-    check = "--check" in rest
+    check, per_kernel = "--check" in rest, "--kernels" in rest
     s = (s // (SPT * 64)) * SPT * 64  # as the TPU tool rounds it
     picked = [a.split("=", 1)[1] for a in rest if a.startswith("--modes=")]
     modes = picked[0].split(",") if picked else list(MODES)
@@ -111,12 +116,18 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     rows = []
     for mode in modes:
         row = bench(mode, args, device, r, s, tiles, SPT, staged)
+        if per_kernel and device.type == "cuda":
+            row["kernel_ms"] = kernel_ms(lambda: kernels.proto_fused(
+                mode, *args, R=r, S=s, SPT=SPT, TILES=tiles, staged=staged), ITERS)
+            print("  kernels: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row["kernel_ms"].items()),
+                  flush=True)
         if check and mode == "fused":
             row["rel_err_vs_plain"] = check_fused(args, r, s, tiles, SPT)
             print(f"  fused rel err: {row['rel_err_vs_plain']:.2e}", flush=True)
         print(describe(row, f"[{mode}] R={r} T={t} S={s}: {row['us_per_step']:7.2f} us/step, "
                             f"lanes {row['lanes_m_per_s']:7.0f} M/s, staged rows "
-                            f"{row['staged_rows_m_per_s']:6.0f} M/s"), flush=True)
+                            f"{row['staged_rows_m_per_s']:6.0f} M/s, "
+                            f"{row['distinct_rows']:,} distinct rows read"), flush=True)
         rows.append(row)
     return rows
 

@@ -469,6 +469,20 @@ def cond_work(groups_run: int, steps: int) -> KernelWork:
     return KernelWork(nbytes, groups_run * 2 * L * L * 2 * L, tensor_cores=True)
 
 
+def proto_fused_rows(mode: str, scols: torch.Tensor, lidx: torch.Tensor, blk: torch.Tensor,
+                     S: int, SPT: int, TILES: int) -> int:
+    """tools/proto_fused.py: the distinct rows a mode reads, once each: the
+    X rows the lanes reference through both index levels (fused), the
+    staged rows they reference (compute), the X rows the staging steps'
+    scols name (dma)."""
+    from of_spmm_tpu_torch.ops.cuda.proto_fused import lane_sources
+
+    if mode == "dma":
+        return _distinct(scols.reshape(-1, S // SPT)[:TILES * SPT])
+    _, src = lane_sources(scols, lidx, blk, S, SPT, TILES, 0, TILES * SPT, mode == "compute")
+    return _distinct(src)
+
+
 def proto_fused_work(mode: str, scols: torch.Tensor, lidx: torch.Tensor, lrow: torch.Tensor,
                      blk: torch.Tensor, R: int, S: int, SPT: int, TILES: int) -> KernelWork:
     """tools/proto_fused.py: fused reads the X rows its lanes reference
@@ -476,20 +490,18 @@ def proto_fused_work(mode: str, scols: torch.Tensor, lidx: torch.Tensor, lrow: t
     steps' lidx, lrow and blk, and writes the output; compute reads the
     staged rows its lanes reference instead of X rows and scols; dma reads
     the staging steps' scols and the X rows they name, and writes the
-    staging buffer (TILES, S, 128) and the zero output. 2 flops per (lane,
-    column): the hi + lo add and the accumulation."""
-    from of_spmm_tpu_torch.ops.cuda.proto_fused import lane_sources
-
+    staging buffer (TILES, S, 128) and the zero output
+    (proto_fused_rows counts the rows). 2 flops per (lane, column): the
+    hi + lo add and the accumulation."""
     L = 128
     G, DELTA = blk.shape[-1], S // SPT
     out_bytes = TILES * R * L * 4
     stage_idx = TILES * SPT * DELTA * 4
+    rows = proto_fused_rows(mode, scols, lidx, blk, S, SPT, TILES)
     if mode == "dma":
-        rows = _distinct(scols.reshape(-1, DELTA)[:TILES * SPT])
         return KernelWork(stage_idx + rows * L * 4 + TILES * S * L * 4 + out_bytes, 0)
     lanes = TILES * SPT * G * L
-    _, src = lane_sources(scols, lidx, blk, S, SPT, TILES, 0, TILES * SPT, mode == "compute")
-    nbytes = _distinct(src) * L * 4 + 2 * lanes * 4 + TILES * SPT * G * 4 + out_bytes
+    nbytes = rows * L * 4 + 2 * lanes * 4 + TILES * SPT * G * 4 + out_bytes
     nbytes += stage_idx if mode == "fused" else 0
     return KernelWork(nbytes, 2 * lanes * L)
 

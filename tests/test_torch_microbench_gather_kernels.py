@@ -10,8 +10,9 @@ lacks). On the CPU the wrappers' checks, their dispatch to the plain
 versions, the one-hot forms' zero rows, the tools' command lines and the
 counts run; the ``cuda``-marked test skips. The card test holds every
 kernel against its plain version on two seeds of the small cases and of
-the redesigned kernels' edges (onehot's indices outside the tier,
-twosided at R = 1000 and 1024 with lanes outside their window).
+the redesigned kernels' edges (onehot's, onehot_pair's and window_pair's
+indices outside their window, twosided at R = 1000 and 1024 with lanes
+outside their window).
 """
 
 import numpy as np
@@ -65,16 +66,30 @@ def _cases(seed: int = 0, C: int = C, T: int = T):
     }
 
 
+def _pair_outside(name: str, seed: int = 0):
+    """onehot_pair's or window_pair's (wrapper, plain, args) with indices
+    below 0 and at or past the window (with_outside)."""
+    if name == "onehot_pair":
+        cols, hi, lo = tgather2.inputs_onehot_pair(C, T, seed)
+        return (kgather2.onehot_pair, kgather2.onehot_pair_torch,
+                (tgather.with_outside(cols, C), hi, lo))
+    bases, lidx, hi, lo, _ = tgather2.inputs_window_pair(256, 100, T, U=300, seed=seed)
+    return (kgather2.window_pair, kgather2.window_pair_torch,
+            (bases, tgather.with_outside(lidx, 100), hi, lo, 100))
+
+
 def _edges(seed: int = 0):
     """The redesigned kernels' edges: onehot with indices below 0 and at or
-    past C in both types; twosided with window indices outside [0, CW), at
-    R = 1000 and 1024, whose (R, 128) partials exceed a block's shared
-    memory (rows sliced unevenly: 334 and 342 a block on an H100), at lane
-    counts that leave the last block partial."""
+    past C in both types, and onehot_pair and window_pair alike; twosided
+    with window indices outside [0, CW), at R = 1000 and 1024, whose
+    (R, 128) partials exceed a block's shared memory (rows sliced
+    unevenly: 334 and 342 a block on an H100), at lane counts that leave
+    the last block partial."""
     cols, tier = tgather.inputs_take(C, T, seed)
     cols = tgather.with_outside(cols, C)
     cases = {f"onehot_{n}_outside": (kgather.onehot, kgather.onehot_torch, (cols, tier.to(d)))
              for n, d in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    cases.update({f"{n}_outside": _pair_outside(n, seed) for n in ("onehot_pair", "window_pair")})
     for tile, cw, r, t in ((256, 200, 1000, 256 * 501), (1024, 256, 1024, 1024 * 75)):
         bases, lidx, rows, vals, hi, lo = tgather2.inputs_twosided(tile, cw, r, t, seed=seed)
         args = (bases, tgather.with_outside(lidx, cw), rows, vals, hi, lo, cw, r)
@@ -159,6 +174,25 @@ def test_onehot_gives_zero_rows_below_zero_and_past_the_tier(dtype):
     assert int((flat < 0).sum()) > 0 and int((flat >= C).sum()) > 0
     assert not out[outside].any()
     assert torch.equal(out[~outside], tier[flat[~outside]].float())
+
+
+@pytest.mark.parametrize("name", ["onehot_pair", "window_pair"])
+def test_pair_gathers_give_zero_rows_outside_their_window(name):
+    """Every row whose index lies below 0 or at or past the window is zero;
+    every other row is f32(hi) + f32(lo) of its table row, bit for bit."""
+    wrapper, _, args = _pair_outside(name)
+    if name == "window_pair":
+        bases, idx, hi, lo, window = args
+        base = bases.reshape(-1).long().repeat_interleave(T // bases.numel())
+    else:
+        (idx, hi, lo), window, base = args, C, 0
+    flat = idx.reshape(-1).long()
+    outside = (flat < 0) | (flat >= window)
+    assert int((flat < 0).sum()) > 0 and int((flat >= window).sum()) > 0
+    out = wrapper(*args)
+    assert not out[outside].any()
+    src = (flat + base)[~outside]
+    assert torch.equal(out[~outside], hi[src].float() + lo[src].float())
 
 
 def test_hilo_pair_rounds_to_nearest_even_and_keeps_the_residual():
@@ -329,9 +363,9 @@ def test_gather_kernels_match_plain_versions_on_the_card():
     torch.cuda.synchronize()
     launched = {k: cuda_build.LAUNCHES[k] - n0[k] for k in n0}
     assert launched["gather_onehot"] == 8 and launched["gather2_twosided"] == 6
+    assert launched["gather2_onehot_pair"] == 4 and launched["gather2_window_pair"] == 4
     assert launched["dyngather_smem_cap"] == 2
     assert all(launched[k] == 2 for k in ("gather_vmem_loop", "gather_vmem_take",
                                           "gather_block_slice", "gather_row_dma",
-                                          "gather2_onehot_pair", "gather2_take_fused",
-                                          "gather2_dma_deep", "gather2_window_pair",
+                                          "gather2_take_fused", "gather2_dma_deep",
                                           "dyngather_take_along"))

@@ -7,8 +7,10 @@ command lines (of_spmm_tpu_torch/tools/) and their work counts
 
 (--noconftest: tests/conftest.py imports JAX, which the card's machine
 lacks). On the CPU the wrappers' checks, their dispatch to the plain
-versions, the proto_fused modes, the tools' command lines and the counts
-run; the ``cuda``-marked tests skip.
+versions, the proto_fused modes (against a float64 sum of the lanes at
+the redesign's edges: R = 1000 and mostly empty rows), the tools'
+command lines and the counts run; the ``cuda``-marked tests skip. On the
+card the same edges run on NaN-poisoned output memory.
 """
 
 import numpy as np
@@ -28,6 +30,13 @@ from of_spmm_tpu_torch.utils.roofline import (
     blockfma_work, cond_work, mxu_work, proto_fused_work)
 
 PROTO_SMALL = dict(N=4096, R=128, T=256, S=1600, TILES=2, SPT=25)
+# the redesign's edges: an R that no power-of-two slice divides, with a
+# few empty rows (3,200 lanes a tile), and mostly empty rows
+PROTO_EDGES = {"R1000": dict(R=1000, T=128, TILES=3), "R8192": dict(R=8192, T=128, TILES=2)}
+# on the card also the sort's fallbacks: a tile's lanes past a block's
+# shared memory (102,400 at T = 4096), and a tile's scols past what is left
+# of it (64,000 at S = 64,000)
+PROTO_CARD_EDGES = {"T4096": dict(R=1000, T=4096, TILES=1), "S64000": dict(S=64000, TILES=1)}
 # the kernels against their plain versions: elementwise where every term
 # is positive (blockfma, proto_fused); normwise where long sums of both
 # signs are taken in another order (mxu, cond)
@@ -148,6 +157,33 @@ def test_proto_fused_modes():
     torch.testing.assert_close(compute, fused, rtol=0, atol=0)
 
 
+def _proto_lanes_float64(args, R, S, SPT, TILES):
+    """fused's output as a float64 sum of its lanes' hi/lo rows, and each
+    output row's lane count."""
+    scols, lidx, lrow, blk, xp = args
+    G = blk.shape[-1]
+    t, src = kproto.lane_sources(scols, lidx, blk, S, SPT, TILES, 0, TILES * SPT, False)
+    dst = t * R + lrow[SPT * G:(TILES + 1) * SPT * G].reshape(-1).long()
+    want = torch.zeros((TILES * R, 128), dtype=torch.float64)
+    want.index_add_(0, dst, kproto.hilo(xp[src]).double())
+    return want, torch.bincount(dst, minlength=TILES * R)
+
+
+@pytest.mark.parametrize("mode", ["fused", "compute"])
+@pytest.mark.parametrize("edge", sorted(PROTO_EDGES))
+def test_proto_fused_sums_each_rows_lanes_and_zeros_empty_rows(mode, edge):
+    args, size = _proto_args(**PROTO_EDGES[edge])
+    staged = None
+    if mode == "compute":
+        staged = torch.empty(kproto.staged_shape(size["S"], size["TILES"]))
+        kproto.proto_fused("dma", *args, **size, staged=staged)
+    got = kproto.proto_fused(mode, *args, **size, staged=staged)
+    want, count = _proto_lanes_float64(args, **size)
+    assert int((count == 0).sum()) > 0
+    torch.testing.assert_close(got.double(), want, rtol=ELEMENTWISE[0], atol=ELEMENTWISE[1])
+    assert torch.equal(got[count == 0], torch.zeros_like(got[count == 0]))
+
+
 def test_hilo_rounds_to_nearest_even_and_keeps_17_bits():
     # two ties (to the even neighbour), one above half an ulp, one tie at 3
     x = torch.tensor([1.0 + 2.0**-8, 1.0 + 3 * 2.0**-8, 1.0 + 3 * 2.0**-9, 3.0 + 2.0**-7])
@@ -175,7 +211,8 @@ def test_tool_inputs_follow_the_tpu_tools_generator():
     ("microbench_blockfma", ["A", "B"]),
     ("microbench_mxu", ["3", "noop,rawdyn,chain2"]),
     ("microbench_cond", []),
-    ("proto_fused", ["128", "256", "1600", "2", "--check", "--modes=compute,dma,fused"]),
+    ("proto_fused", ["128", "256", "1600", "2", "--check", "--kernels",
+                     "--modes=compute,dma,fused"]),
 ])
 def test_tools_run_on_the_cpu_when_asked(tool, argv, monkeypatch, capsys):
     mod = {"microbench_blockfma": tblockfma, "microbench_mxu": tmxu,
@@ -247,6 +284,13 @@ def _card():
     return torch.device("cuda", 0)
 
 
+def _poison(n_rows: int, dev) -> int:
+    """Leave a freed block of (n_rows, 128) float32 holding NaN, and return
+    its address: the caching allocator hands it to the next output of that
+    size, so a row a kernel leaves unwritten shows."""
+    return torch.full((n_rows, 128), float("nan"), device=dev).data_ptr()
+
+
 def _normwise(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
@@ -267,15 +311,22 @@ def test_microbench_kernels_match_plain_versions_on_the_card():
     for mode, frac in tcond.RUNS:
         c = [t.to(dev) for t in tcond.inputs(frac, 40)]
         assert _normwise(kcond.cond_steps(mode, *c), kcond.cond_steps_torch(mode, *c)) <= NORMWISE
-    args, size = _proto_args()
-    args = [t.to(dev) for t in args]
-    staged = torch.empty(kproto.staged_shape(size["S"], size["TILES"]), device=dev)
-    for mode in ("dma", "compute", "fused"):
-        got = kproto.proto_fused(mode, *args, **size, staged=staged)
-        want = kproto.proto_fused_torch(mode, *args, **size, staged=staged)
-        torch.testing.assert_close(got, want, rtol=ELEMENTWISE[0], atol=ELEMENTWISE[1])
+    edges = {**PROTO_EDGES, **PROTO_CARD_EDGES}
+    for edge in (None, *sorted(edges)):
+        args, size = _proto_args(**edges.get(edge, {}))
+        count = _proto_lanes_float64(args, **size)[1].to(dev)
+        args = [t.to(dev) for t in args]
+        staged = torch.empty(kproto.staged_shape(size["S"], size["TILES"]), device=dev)
+        for mode in ("dma", "compute", "fused"):
+            at = _poison(size["TILES"] * size["R"], dev)
+            got = kproto.proto_fused(mode, *args, **size, staged=staged)
+            assert got.data_ptr() == at
+            want = kproto.proto_fused_torch(mode, *args, **size, staged=staged)
+            torch.testing.assert_close(got, want, rtol=ELEMENTWISE[0], atol=ELEMENTWISE[1])
+            if mode != "dma":
+                assert not got[count == 0].any(), (edge, mode)
     torch.cuda.synchronize()
     launched = {k: cuda_build.LAUNCHES[k] - n0[k] for k in n0}
     assert launched["microbench_blockfma_a"] == 2 and launched["microbench_blockfma_b"] == 2
     assert launched["microbench_mxu"] == 6 and launched["microbench_cond"] == 5
-    assert launched["proto_fused"] == 3
+    assert launched["proto_fused"] == 15
