@@ -409,12 +409,17 @@ GRAD_TOL = 2e-4  # tests/test_flash_attention.py's bar for the flash gradients
 # 1e-5 + 1e-4|p| where every term is positive (blockfma, proto_fused);
 # normwise max |k - p| <= 1e-4 max |p| where long float32 sums of both
 # signs are taken in another order (mxu: up to 16,000 terms a row; cond:
-# 4,096 terms a tile, and the window's halves added first)
+# the plain version's 4,096 terms a tile against the kernel's 256 count
+# times window terms)
 MICROBENCH_NORM_TOL = 1e-4
-# two small seeded cases per tool, beside its default size (seed 0)
+# two small seeded cases per tool, beside its default size (seed 0); then
+# blockfma_b's and cond_steps' edges (tools' B_EDGES and EDGES: one row a
+# step, rows no slot names, K 8 and 512, an odd R; full-range masks with
+# counts at G, mixed gcnt, G 4 and 36) on NaN-poisoned output memory
 BLOCKFMA_SMALL = ((64, 256, 32, 1), (1000, 8192, 64, 2))  # C, T, K, seed
 MXU_SMALL = ((3, 1), (50, 2))                            # S, seed
 COND_SMALL = ((3, 1), (40, 2))                           # steps, seed
+EDGE_SEEDS = (3, 4)
 # N R T S TILES seed; then the redesign's edges: an R that no power-of-two
 # slice divides, with a few empty rows (3,200 lanes a tile), mostly empty
 # rows, and the sort's fallbacks (a tile's 102,400 lanes past a block's
@@ -440,9 +445,10 @@ MICROBENCH_MAIN = {"microbench_blockfma_a": "A", "microbench_blockfma_b": "B",
 LIBRARY_NONE = {
     "microbench_mxu": "none: each variant folds a window read, a one-hot gather and a "
                       "per-variant reduction of the lanes into one tile; no one call",
-    "microbench_cond": "none: per step a 0/1 bit-matrix product with the window for each "
-                       "group, weighted by the step's run mask, then the halves added; "
-                       "a bmm, an einsum and an add, not one call",
+    "microbench_cond": "none: per step the count matrix of the groups run (each mask "
+                       "word's bits unpacked and summed over the groups) times the window, "
+                       "then the halves added; an unpack, a sum, a bmm and an add, not one "
+                       "call",
     "dyngather_smem_cap": "none: it probes the opt-in shared-memory limit of a launch; "
                           "its result is a copy of its input",
 }
@@ -4307,7 +4313,8 @@ def run_tool(tool, expected: dict, argv: tuple = ()) -> tuple:
 def blockfma_phase(dev) -> tuple:
     """tools/microbench_blockfma at its default size through its entry
     point, then both kernels against their plain versions on two small
-    seeded cases and the default inputs, and the plain versions' times."""
+    seeded cases and the default inputs, B also at its edges
+    (blockfma_b_edges), and the plain versions' times."""
     calls = WARMUP_CALLS + tblockfma.ITERS
     rows, launches = run_tool(tblockfma, {"microbench_blockfma_a": calls,
                                           "microbench_blockfma_b": calls})
@@ -4321,12 +4328,38 @@ def blockfma_phase(dev) -> tuple:
                 got, want = tblockfma.run(v, *a), plain(*a)
                 torch.cuda.synchronize()
                 err = max(err, check_close(got, want, f"blockfma {v} C={C} T={T} K={K}"))
+            if v == "B":
+                err = max(err, blockfma_b_edges(dev, row))
             row["max_abs_err"] = err
             row["plain_ms"] = time_cuda(lambda: plain(*a), iters=3)
             lib_name, lib = blockfma_library(v, *a)
             check_close(lib(), plain(*a), f"{lib_name} for blockfma {v}")
             row["library"], row["library_ms"] = lib_name, time_cuda(lib, iters=10)
     return rows, launches
+
+
+def blockfma_b_edges(dev, row: dict) -> float:
+    """blockfma_b at its edges (tools' B_EDGES, EDGE_SEEDS), each output on
+    NaN-poisoned memory, against the plain version, every row no slot
+    names exactly 0; the largest error. Counts the zero rows into ``row``."""
+    err, empty = 0.0, 0
+    for seed in EDGE_SEEDS:
+        for case in tblockfma.B_EDGES:
+            a = [torch.from_numpy(x).to(dev) for x in tblockfma.b_edge_inputs(case, seed=seed)]
+            at = poison_block(a[0].shape[0], dev)
+            got, want = kblockfma.blockfma_b(*a), kblockfma.blockfma_b_torch(*a)
+            torch.cuda.synchronize()
+            what = f"blockfma B edge {case} seed={seed}"
+            if got.data_ptr() != at:
+                raise AssertionError(f"{what}: the output is not the poisoned block")
+            err = max(err, check_close(got, want, what))
+            unnamed = ~tblockfma.named_rows(a[0])
+            if got[unnamed].any():
+                raise AssertionError(f"{what}: a row no slot names is not 0")
+            empty += int(unnamed.sum())
+    row["edges"] = sorted(tblockfma.B_EDGES)
+    row["empty_rows_zero_on_poison"] = empty
+    return err
 
 
 def blockfma_library(variant: str, starts: torch.Tensor, w: torch.Tensor, tier: torch.Tensor):
@@ -4374,8 +4407,9 @@ def mxu_phase(dev) -> tuple:
 def cond_phase(dev) -> tuple:
     """tools/microbench_cond at its default size through its entry point,
     then every mode (every step's tile) against the plain version on two
-    small seeded cases and the default inputs, and the plain version's
-    times."""
+    small seeded cases, the default inputs and the kernel's edges
+    (tools' EDGES, each output on NaN-poisoned memory), and the plain
+    version's times."""
     rows, launches = run_tool(tcond, {"microbench_cond": len(tcond.RUNS)
                                       * (WARMUP_CALLS + tcond.ITERS)})
     err = {mode: 0.0 for mode, _ in tcond.RUNS}
@@ -4393,8 +4427,20 @@ def cond_phase(dev) -> tuple:
                 if steps == tcond.STEPS:
                     row = next(r for r in rows if r["variant"] == mode)
                     row["plain_ms"] = time_cuda(lambda: kcond.cond_steps_torch(mode, *c), iters=3)
+        for seed in EDGE_SEEDS:
+            for case in tcond.EDGES:
+                for mode, frac in tcond.RUNS:
+                    c = [t.to(dev) for t in tcond.edge_inputs(case, frac, seed=seed)]
+                    at = poison_block(c[0].shape[0] * 128, dev)
+                    got, want = kcond.cond_steps(mode, *c), kcond.cond_steps_torch(mode, *c)
+                    torch.cuda.synchronize()
+                    what = f"microbench_cond {mode} edge {case} seed={seed}"
+                    if got.data_ptr() != at:
+                        raise AssertionError(f"{what}: the output is not the poisoned block")
+                    err[mode] = max(err[mode], check_norm(got, want, what))
     for row in rows:
         row["max_abs_err"] = err[row["variant"]]
+        row["edges"] = sorted(tcond.EDGES)
     return rows, launches
 
 

@@ -52,6 +52,39 @@ def inputs(variant: str, C: int = C, T: int = T, K: int = K,
     return starts, w, tier
 
 
+# B's edges (seeded, beside the tool's inputs): every slot of a step in one
+# output row, rows that no slot names, K = 8 and 512, and an odd R (257
+# steps: a last wave of blocks that does not fill the card)
+B_EDGES = {"one_row": dict(R=64, K=256), "empty_rows": dict(R=64, K=256), "K8": dict(R=300, K=8),
+           "K512": dict(R=64, K=512), "R_odd": dict(R=257, K=256)}
+
+
+def b_edge_inputs(case: str, C: int = C,
+                  seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(starts, vals, tier) of the B edge ``case`` (a key of B_EDGES): the
+    tool's inputs at its R and K, with one_row's slots of step r all in
+    output row r % 8 and empty_rows' only in rows 0-2 of each step."""
+    R, K = B_EDGES[case]["R"], B_EDGES[case]["K"]
+    starts, vals, tier = inputs("B", C, R * K, K, seed)
+    if case in ("one_row", "empty_rows"):
+        rng = np.random.default_rng(seed + 1)
+        block = 8 * rng.integers(0, C // 8, starts.shape)
+        if case == "one_row":
+            row = np.broadcast_to((np.arange(R * 8) // 8 % 8)[:, None], starts.shape)
+        else:
+            row = rng.integers(0, 3, starts.shape)
+        starts = (block + row).astype(np.int32)
+    return starts, vals, tier
+
+
+def named_rows(starts: torch.Tensor) -> torch.Tensor:
+    """(8R,) bool: the output rows of B that some slot names (row 8r + c % 8
+    for each c in rows 8r to 8r + 7 of starts)."""
+    step = torch.arange(starts.shape[0], device=starts.device) // 8
+    rows = (step[:, None] * 8 + starts.long() % 8).reshape(-1)
+    return torch.bincount(rows, minlength=starts.shape[0]) > 0
+
+
 def run(variant: str, starts: torch.Tensor, w: torch.Tensor, tier: torch.Tensor) -> torch.Tensor:
     """The variant's output (float32 (8R, 128)) through its wrapper."""
     fn = kernels.blockfma_a if variant == "A" else kernels.blockfma_b

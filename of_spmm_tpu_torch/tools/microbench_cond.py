@@ -54,15 +54,41 @@ def inputs(frac: float, steps: Optional[int] = None,
             torch.from_numpy(win).to(torch.bfloat16))
 
 
+# the kernel's edges (seeded, beside the tool's inputs): G per case;
+# gcnt_mix runs one step per gcnt of GCNT_MIX in one launch
+EDGES = {"full_range": 32, "gcnt_mix": 32, "G4": 4, "G36": 36}
+GCNT_MIX = (0, 1, 5, 31, 32, -1, 40)
+
+
+def edge_inputs(case: str, frac: float = 1.0, steps: int = 8,
+                seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(gcnt, masks, win) of the edge ``case`` (a key of EDGES), on the CPU:
+    masks over the whole int32 range (bit 31 set in about half the words),
+    mask columns 0-7 all ones (-1) in every group, so that their counts
+    reach G; gcnt GCNT_MIX for gcnt_mix, else int(G frac) as the tool's."""
+    G = EDGES[case]
+    if case == "gcnt_mix":
+        steps = len(GCNT_MIX)
+    rng = np.random.default_rng(seed)
+    masks = rng.integers(-2**31, 2**31, (steps * G, 4, _L), dtype=np.int64).astype(np.int32)
+    masks[:, :, :8] = -1
+    win = rng.standard_normal((_L, 2 * _L)).astype(np.float32)
+    gcnt = (np.array(GCNT_MIX, np.int32) if case == "gcnt_mix"
+            else np.full(steps, int(G * frac), np.int32))
+    return (torch.from_numpy(gcnt), torch.from_numpy(masks),
+            torch.from_numpy(win).to(torch.bfloat16))
+
+
 def bench(mode: str, frac: float, device: torch.device, masks: torch.Tensor, win: torch.Tensor,
           iters: int = ITERS) -> Dict[str, object]:
     """Time one mode on placed masks and window; its row."""
     steps = masks.shape[0] // G
     gcnt = torch.full((steps,), int(G * frac), dtype=torch.int32, device=device)
     ms = time_ms(lambda: kernels.cond_steps(mode, gcnt, masks, win), device, iters)
-    groups = int(kernels.group_runs(mode, gcnt, G).sum())
+    runs = kernels.group_runs(mode, gcnt, G)
+    groups, steps_run = int(runs.sum()), int(runs.any(1).sum())
     row = {"tool": "microbench_cond", "variant": mode, "frac": frac, "steps": steps,
-           "groups_run": groups, **bound_fields(cond_work(groups, steps), ms, device)}
+           "groups_run": groups, **bound_fields(cond_work(groups, steps, steps_run), ms, device)}
     row["ns_per_slot"] = ms / steps / G * 1e6
     row["us_per_step"] = ms / steps * 1e3
     return row

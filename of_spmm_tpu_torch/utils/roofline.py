@@ -459,14 +459,16 @@ def mxu_work(variant: str, blk: torch.Tensor, lidx: torch.Tensor, lrow: torch.Te
     return KernelWork(nbytes, 2 * S * G * L * d)
 
 
-def cond_work(groups_run: int, steps: int) -> KernelWork:
-    """tools/microbench_cond.py: per group run, its 4 x 128 mask words and
-    the dense bf16 product bits^T @ win on the tensor cores (2 x 128 x 128
-    x 256 flops); the window once, gcnt, and every step's 128 x 128 float32
-    tile written."""
+def cond_work(groups_run: int, steps: int, steps_run: int) -> KernelWork:
+    """tools/microbench_cond.py: the 4 x 128 mask words of each group run,
+    the window once, gcnt, and every step's 128 x 128 float32 tile
+    written; per step that runs a group, one bf16 product on the tensor
+    cores, the count matrix (sum of the groups' bits)^T @ win, 2 x 128 x
+    128 x 256 flops. The TPU's product per group is its form, not work the
+    function needs: the window is the same for every group."""
     L = 128
     nbytes = groups_run * 4 * L * 4 + L * 2 * L * 2 + steps * 4 + steps * L * L * 4
-    return KernelWork(nbytes, groups_run * 2 * L * L * 2 * L, tensor_cores=True)
+    return KernelWork(nbytes, steps_run * 2 * L * L * 2 * L, tensor_cores=True)
 
 
 def proto_fused_rows(mode: str, scols: torch.Tensor, lidx: torch.Tensor, blk: torch.Tensor,

@@ -29,6 +29,10 @@ from of_spmm_tpu_torch.nn import MultiheadAttention, scaled_dot_product_attentio
 from of_spmm_tpu_torch.ops.flash_attention import flash_attention
 from tests.conftest import ATOL, RTOL
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 FLASH_TOL = 2e-5  # tests/test_flash_attention.py's bar
 GRAD_TOL = 2e-4
 

@@ -34,6 +34,10 @@ from of_spmm_tpu_torch.sparse.binned import bin_rows, bin_rows_relabeled
 from of_spmm_tpu_torch.sparse.formats import CSR
 from of_spmm_tpu_torch.sparse.tiled import bin_rows_tiered
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -156,6 +160,7 @@ def test_whole_plan_path_matches_jax_tiered_spmm(monkeypatch):
     """The tiered SpMM with every bucket through the unit version (one
     call for the whole plan, as the kernel's one launch) and the finish,
     against the JAX package's tiered SpMM on the same CSR (impl="xla")."""
+    import jax
     import jax.numpy as jnp
     from of_spmm_tpu.ops.autograd import make_operator as jmake_operator
     from of_spmm_tpu.ops.autograd import spmm as jspmm
@@ -167,7 +172,7 @@ def test_whole_plan_path_matches_jax_tiered_spmm(monkeypatch):
     got = ref.spmm_tiered(plan, torch.from_numpy(x),
                           buckets_fn=lambda p, xa: kernels.bucket_spmm_units_torch(p, xa, work))
     jop = jmake_operator(JCSR.from_dense(dense), layout="tiered", tier_size=128, place=False)
-    want = np.asarray(jspmm(jop, jnp.asarray(x), impl="xla"))
+    want = np.asarray(jax.jit(lambda xx: jspmm(jop, xx, impl="xla"))(jnp.asarray(x)))
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL * np.abs(want).max())
     np.testing.assert_allclose(got.numpy(), dense.astype(np.float64) @ x, rtol=RTOL,
                                atol=ATOL * np.abs(want).max())

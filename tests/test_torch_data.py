@@ -13,6 +13,10 @@ from of_spmm_tpu.data import dataset as jds
 from of_spmm_tpu_torch.data import (
     DataLoader, Dataset, ShardedDataset, TensorDataset, TokenDataset, shard_dataset)
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 
 def _same_batches(got, want):
     assert len(got) == len(want)

@@ -31,6 +31,10 @@ from of_spmm_tpu.utils import summary as jsum
 from of_spmm_tpu_torch.data import DataLoader, records, vision
 from of_spmm_tpu_torch.utils import SummaryWriter, profiler, read_events, summary
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 # -- records ------------------------------------------------------------------------
 
 EXAMPLES = [

@@ -32,6 +32,10 @@ from of_spmm_tpu_torch.sparse.formats import CSR
 from of_spmm_tpu_torch.train import make_dist_train_step
 from tests.conftest import ATOL, RTOL
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCH_TIMEOUT = 240
 

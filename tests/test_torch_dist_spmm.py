@@ -43,6 +43,10 @@ from of_spmm_tpu_torch.train import dist_gcn_apply, make_dist_train_step
 from tests.conftest import ATOL, RTOL
 from tests.test_torch_partition import _blocky, _hubby, _normalized, _wide
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 
 def _random_dense(n, m, density, seed=0):
     rng = np.random.default_rng(seed)

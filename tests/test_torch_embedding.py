@@ -31,6 +31,10 @@ from of_spmm_tpu_torch.interop import (
 from of_spmm_tpu_torch.models import Embedding, ShardedEmbedding
 from tests.conftest import ATOL, RTOL
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 
 def _close(got, want):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)

@@ -19,6 +19,10 @@ from of_spmm_tpu_torch.models import Embedding, ShardedEmbedding
 from of_spmm_tpu_torch.parallel import GlobalTensor, ShardMesh
 from of_spmm_tpu_torch.utils import profiler
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 
 def _close(got, want):
     """|k - p| <= 1e-5 + 1e-4 |p| (the card's index_add_ sums duplicates in

@@ -34,6 +34,10 @@ from of_spmm_tpu_torch.interop import gcn_params_from_numpy
 from tests.conftest import ATOL, RTOL
 from tests.test_torch_isolation import _PROBE, _REPO
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 NEW_MODULES = ["export", "autoprof", "testing", "testing.autotest", "entry", "ops.cuda.library"]
 
 

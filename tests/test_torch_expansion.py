@@ -50,6 +50,10 @@ from of_spmm_tpu_torch.ops.cuda.expansion import expansion_spmm, expansion_spmm_
 from of_spmm_tpu_torch.sparse import expansion as texp
 from of_spmm_tpu_torch.sparse.formats import CSR
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 JAX_RTOL, JAX_ATOL = 2e-4, 5e-4   # tests/test_expansion.py
 RTOL, ATOL = 1e-4, 1e-5           # against the float64 dense product
 BF16_NORMWISE = 0.03               # tests/test_expansion.py, bf16 fast mode

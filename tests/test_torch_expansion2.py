@@ -36,6 +36,10 @@ from of_spmm_tpu_torch.sparse import expansion2 as texp2
 from tests.test_torch_expansion import (
     JAX_ATOL, JAX_RTOL, _case, _cora, _dense, _jcsr, assert_groups_equal, close_to_float64)
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 BF16_RTOL, BF16_ATOL = 0.05, 0.02  # tests/test_expansion2.py, bf16 fast mode
 
 _SMALL = dict(R=64, G=2, stage_tier=128)

@@ -46,6 +46,10 @@ from of_spmm_tpu_torch.ops.flash_attention import flash_attention
 from of_spmm_tpu_torch.sparse.expansion2 import build_expansion2_plan
 from of_spmm_tpu_torch.sparse.formats import CSR
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6  # tests/test_export.py's bar
 LAYOUTS = ("tiered", "binned", "panels", "fused", "ranges", "expansion")
 N = 24

@@ -18,6 +18,10 @@ from of_spmm_tpu_torch.ops.cuda import flash_attention as fkernel
 from of_spmm_tpu_torch.utils.roofline import (
     AttentionTraffic, detect_peak_bw, detect_peak_fp32, detect_peak_tensor16, detect_peak_tf32)
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 H100 = "NVIDIA H100 80GB HBM3"
 
 

@@ -24,6 +24,10 @@ from of_spmm_tpu_torch.sparse import formats
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
 from tests.conftest import ATOL, RTOL
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 
 def _random_dense(n, m, density, seed, zero_rows=()):
     rng = np.random.default_rng(seed)

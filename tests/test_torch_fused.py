@@ -50,6 +50,10 @@ from of_spmm_tpu_torch.sparse.formats import CSR
 from of_spmm_tpu_torch.sparse.fused_sim import simulate
 from of_spmm_tpu_torch.utils.errors import CapacityError
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

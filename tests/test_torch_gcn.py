@@ -28,6 +28,10 @@ from of_spmm_tpu_torch.sparse.formats import COO, CSR
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
 from tests.conftest import ATOL, RTOL
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 
 def _cora():
     csr, cfg = load_graph("cora", symmetrize=True)
@@ -57,7 +61,8 @@ def test_gcn_logits_match_jax(case):
         assert isinstance(op.binned, TieredEll) and op.binned.tiers[0].tier == -1
     jmodel = JGCN(feature_dims=dims)
     params = jmodel.init(jax.random.key(0))
-    want = np.asarray(jmodel.apply(params, jop, jnp.asarray(x), impl="xla"))
+    want = np.asarray(jax.jit(lambda p, xx: jmodel.apply(p, jop, xx, impl="xla"))(
+        params, jnp.asarray(x)))
 
     model = GCN(dims, device="cpu")
     model.load_state_dict(gcn_params_from_numpy(jax.tree.map(np.asarray, params)))

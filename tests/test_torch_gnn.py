@@ -29,6 +29,10 @@ from of_spmm_tpu_torch.nn import GATConv, GCNConv, GINConv, SAGEConv
 from of_spmm_tpu_torch.ops import make_operator
 from tests.conftest import ATOL, RTOL
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 HIDDEN = 16
 
 

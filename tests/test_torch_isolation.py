@@ -20,6 +20,10 @@ from of_spmm_tpu_torch.parallel import (
     MoELayer, RingAttention, SequenceParallelAttention, default_mesh, init_tp_mlp)
 from of_spmm_tpu_torch.sparse.formats import CSR
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """

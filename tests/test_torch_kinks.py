@@ -37,6 +37,10 @@ from of_spmm_tpu_torch.nn import losses
 from of_spmm_tpu_torch.ops import make_operator
 from of_spmm_tpu_torch.sparse.formats import CSR
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 SLOPE = 0.01
 TARGET = np.array([1.0, 2.0, 0.0, 0.0], np.float32)  # l1_loss's targets
 # name -> (port f, JAX f, inputs (the kinks first), port grads, JAX grads)

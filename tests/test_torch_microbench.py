@@ -28,6 +28,10 @@ from of_spmm_tpu_torch.tools import microbench_cond as tcond
 from of_spmm_tpu_torch.tools import microbench_mxu as tmxu
 from of_spmm_tpu_torch.tools import proto_fused as tproto
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5  # the repository's parity bar (tests/conftest.py)
 PROTO_REL_TOL = 1e-5     # max-relative, the port against proto_fused's oracle
 # proto_fused at a small size: N, R, T, S, TILES, SPT

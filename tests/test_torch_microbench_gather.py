@@ -30,6 +30,10 @@ from of_spmm_tpu_torch.tools import microbench_gather as tgather
 from of_spmm_tpu_torch.tools import microbench_gather2 as tgather2
 from test_torch_microbench import _assert_same_inputs, _JaxProxy, _PallasProxy, _Stop
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5  # the repository's parity bar (tests/conftest.py)
 NORM_TOL = 1e-4          # twosided: max |k - p| <= 1e-4 max |p| (lanes summed in any order)
 C, T, TILE = 64, 2048, 1024

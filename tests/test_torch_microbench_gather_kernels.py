@@ -30,6 +30,10 @@ from of_spmm_tpu_torch.utils.roofline import (
     block_slice_work, ell_work, onehot_macs, onehot_work, row_gather_work, smem_cap_work,
     take_along_work, twosided_work)
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 C, T = 64, 2048
 ELEMENTWISE = (1e-4, 1e-5)  # sums of positive terms in another order
 NORMWISE = 1e-4             # twosided: lanes added with atomics in no fixed order

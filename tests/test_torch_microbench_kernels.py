@@ -29,6 +29,10 @@ from of_spmm_tpu_torch.tools import proto_fused as tproto
 from of_spmm_tpu_torch.utils.roofline import (
     blockfma_work, cond_work, mxu_work, proto_fused_work)
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 PROTO_SMALL = dict(N=4096, R=128, T=256, S=1600, TILES=2, SPT=25)
 # the redesign's edges: an R that no power-of-two slice divides, with a
 # few empty rows (3,200 lanes a tile), and mostly empty rows
@@ -193,6 +197,38 @@ def test_hilo_rounds_to_nearest_even_and_keeps_17_bits():
     assert float(((kproto.hilo(v) - v).abs() / v).max()) <= 2.0**-17
 
 
+@pytest.mark.parametrize("case", sorted(tcond.EDGES))
+def test_count_form_matches_the_plain_version(case):
+    """The kernel's form: per step the count matrix Cnt[k, c] of the groups
+    run (bits taken from the words as unsigned), Cnt^T @ win, the halves
+    added; against the plain version's product per group, normwise."""
+    for mode, frac in tcond.RUNS:
+        gcnt, masks, win = tcond.edge_inputs(case, frac, steps=3)
+        steps, G = gcnt.shape[0], masks.shape[0] // gcnt.shape[0]
+        words = masks.long() & 0xFFFFFFFF
+        bits = (words[:, :, None, :] >> torch.arange(32)[None, None, :, None]) & 1
+        runs = kcond.group_runs(mode, gcnt, G).long()
+        cnt = (bits.view(steps, G, 128, 128) * runs[:, :, None, None]).sum(1)
+        assert int(cnt.max()) == int(runs.sum(1).max())  # mask columns 0-7 are all ones
+        prod = cnt.to(torch.float32).transpose(1, 2) @ win.to(torch.float32)
+        want = kcond.cond_steps_torch(mode, gcnt, masks, win)
+        assert _normwise(prod[..., :128] + prod[..., 128:], want) <= NORMWISE, (case, mode)
+
+
+@pytest.mark.parametrize("case", sorted(tblockfma.B_EDGES))
+def test_blockfma_b_edges_hold_what_they_name(case):
+    """The B edges' shapes and rows, and the plain version's 0 on every row
+    no slot names."""
+    starts, vals, tier = (torch.from_numpy(a) for a in tblockfma.b_edge_inputs(case, C=256))
+    R, K = tblockfma.B_EDGES[case]["R"], tblockfma.B_EDGES[case]["K"]
+    assert tuple(starts.shape) == (8 * R, K // 8) and tuple(vals.shape) == tuple(starts.shape)
+    named = tblockfma.named_rows(starts)
+    per_step = {"one_row": 1, "empty_rows": 3}.get(case)
+    assert per_step is None or named.view(R, 8).sum(1).eq(per_step).all()
+    out = kblockfma.blockfma_b(starts, vals, tier)
+    assert not out[~named].any() and bool((out[named] > 0).all())
+
+
 def test_tool_inputs_follow_the_tpu_tools_generator():
     """The seeded generator's first draws decide the inputs: the same
     seed and calls give the same arrays, another seed others."""
@@ -255,10 +291,15 @@ def test_work_counts_at_the_tools_defaults():
     assert chain2.bytes == 8192 * 512 + 2 * 16000 * 128 * 4 + 2000 * 8 * 4 + 512 * 128 * 4
     assert chain2.flops == 2000 * 8 * 128 * 256
     assert mxu_work("winstat", *args[:3], 128).bytes == 8 * 128 * 512 + 128 * 128 * 4
-    full = cond_work(2048 * 32, 2048)
-    assert full.flops == 65536 * 2 * 128 * 128 * 256
-    assert full.bound(*peaks) == (pytest.approx(0.5558, abs=1e-4), "operations")
-    assert cond_work(2048 * 16, 2048).flops * 2 == full.flops
+    # one product a step of the count matrix, not one a group: the bytes bound
+    full = cond_work(2048 * 32, 2048, 2048)
+    assert full.flops == 2048 * 2 * 128 * 128 * 256
+    assert full.bytes == 2048 * 32 * 2048 + 128 * 512 + 2048 * 4 + 2048 * 128 * 128 * 4
+    assert full.bound(*peaks) == (pytest.approx(0.0802, abs=1e-4), "bytes")
+    half = cond_work(2048 * 16, 2048, 2048)
+    assert half.flops == full.flops
+    assert half.bound(*peaks) == (pytest.approx(0.0601, abs=1e-4), "bytes")
+    assert cond_work(0, 2048, 0).flops == 0
 
 
 def test_proto_fused_work_counts_what_the_lanes_reference():
@@ -330,3 +371,28 @@ def test_microbench_kernels_match_plain_versions_on_the_card():
     assert launched["microbench_blockfma_a"] == 2 and launched["microbench_blockfma_b"] == 2
     assert launched["microbench_mxu"] == 6 and launched["microbench_cond"] == 5
     assert launched["proto_fused"] == 15
+
+
+@pytest.mark.cuda
+def test_redesigned_kernels_at_their_edges_on_the_card():
+    """blockfma_b at its edges (one row a step, rows no slot names, K = 8
+    and 512, an odd R) and cond_steps at its (full-range masks with counts
+    at G, gcnt of 0, 1, 5, 31, 32, -1 and 40 in one launch, G = 4 and 36),
+    every output on NaN-poisoned memory, against the plain versions."""
+    dev = _card()
+    for seed in (0, 1):
+        for case in sorted(tblockfma.B_EDGES):
+            a = [torch.from_numpy(x).to(dev) for x in tblockfma.b_edge_inputs(case, seed=seed)]
+            at = _poison(a[0].shape[0], dev)
+            got = kblockfma.blockfma_b(*a)
+            assert got.data_ptr() == at
+            torch.testing.assert_close(got, kblockfma.blockfma_b_torch(*a), rtol=ELEMENTWISE[0],
+                                       atol=ELEMENTWISE[1])
+            assert not got[~tblockfma.named_rows(a[0])].any(), case
+        for case in sorted(tcond.EDGES):
+            for mode, frac in tcond.RUNS:
+                c = [t.to(dev) for t in tcond.edge_inputs(case, frac, seed=seed)]
+                at = _poison(c[0].shape[0] * 128, dev)
+                got = kcond.cond_steps(mode, *c)
+                assert got.data_ptr() == at
+                assert _normwise(got, kcond.cond_steps_torch(mode, *c)) <= NORMWISE, (case, mode)

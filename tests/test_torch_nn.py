@@ -44,6 +44,10 @@ from of_spmm_tpu_torch.nn import volumetric as ovol
 from of_spmm_tpu_torch.utils.tree import unnest
 from tests.conftest import ATOL, RTOL
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 
 def _close(got, want):
     np.testing.assert_allclose(np.asarray(got.detach() if isinstance(got, torch.Tensor) else got),

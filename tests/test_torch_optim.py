@@ -43,6 +43,10 @@ from of_spmm_tpu_torch.optim import indexed_slices as tis
 from of_spmm_tpu_torch.optim import lr_scheduler as tsched
 from tests.conftest import ATOL, RTOL
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 NAMES = ("w", "b")
 
 

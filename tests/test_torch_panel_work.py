@@ -27,6 +27,10 @@ from of_spmm_tpu_torch.ops.cuda.panels import (
 from of_spmm_tpu_torch.sparse import panels as tpanels
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

@@ -51,6 +51,10 @@ from of_spmm_tpu_torch.sparse.fused import device_hbm_bytes
 from of_spmm_tpu_torch.sparse.panels_sim import simulate
 from of_spmm_tpu_torch.utils.config import FLAGS
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

@@ -49,6 +49,10 @@ from of_spmm_tpu_torch.sparse import staged_windows
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
 from of_spmm_tpu_torch.sparse.ranges_sim import simulate
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

@@ -37,6 +37,10 @@ from of_spmm_tpu_torch.ops import make_operator, spmm
 from of_spmm_tpu_torch.sparse import reorder
 from of_spmm_tpu_torch.sparse.formats import CSR
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 REORDER_LAYOUTS = ("panels", "fused", "ranges")
 

@@ -13,6 +13,7 @@ one DMA per gathered slot and compiles once per bucket shape, so the
 Pallas cases keep bucket widths <= 8 and few buckets.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +31,10 @@ from of_spmm_tpu_torch.sparse.formats import CSR
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
 from of_spmm_tpu_torch.utils.config import FLAGS
 from tests.conftest import ATOL, RTOL
+
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
 
 
 def _dense(n, m, density, seed, heavy=(), empty=()):
@@ -223,7 +228,7 @@ _CASES = {"binned": _binned_case, "binned_rect": _rect_case, "tiered": _tiered_c
 def test_spmm_matches_jax(case, jimpl):
     dense, x, (op, jop) = _CASES[case]()
     assert isinstance(op.binned, TieredEll) == case.startswith("tiered")
-    want = np.asarray(jspmm(jop, jnp.asarray(x), impl=jimpl))
+    want = np.asarray(jax.jit(lambda xx: jspmm(jop, xx, impl=jimpl))(jnp.asarray(x)))
     for impl in ("torch", "cuda"):  # "cuda" on CPU tensors: the plain kernel versions
         with torch.no_grad():
             got = spmm(op, torch.from_numpy(x), impl=impl)
@@ -247,7 +252,7 @@ def test_tiered_empty_rows_match_xla(scatter_bytes):
     op, jop = _ops(dense, "tiered", tier_size=8)
     assert int(op.binned.finish.pos[7]) == op.binned.n_ell_rows
     x = np.random.default_rng(32).standard_normal((100, 9)).astype(np.float32)
-    want = np.asarray(jspmm(jop, jnp.asarray(x), impl="xla"))
+    want = np.asarray(jax.jit(lambda xx: jspmm(jop, xx, impl="xla"))(jnp.asarray(x)))
     FLAGS.override("OFS_TIERED_SCATTER_BYTES", scatter_bytes)
     try:
         for impl in ("torch", "cuda"):

@@ -24,6 +24,10 @@ from of_spmm_tpu_torch.ops.cuda import spmm as kernels
 from of_spmm_tpu_torch.sparse.formats import COO, CSR
 from of_spmm_tpu_torch.sparse.tiled import TieredEll
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 # the reference parity bar (tests/conftest.py; this file runs without it)
 RTOL, ATOL = 1e-4, 1e-5
 

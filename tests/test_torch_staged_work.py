@@ -38,6 +38,10 @@ from of_spmm_tpu_torch.sparse.formats import COO, CSR
 from of_spmm_tpu_torch.sparse.fused import build_fused_plan
 from of_spmm_tpu_torch.sparse.ranges import build_ranges_plan
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-4, 1e-5
 
 

@@ -30,6 +30,10 @@ from of_spmm_tpu_torch.testing import (
     ATOL, RTOL, autotest, check_grads_against_torch, check_module_against_torch,
     torch_equivalent)
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 # the module (``testing.autotest`` is also the decorator's name)
 port_autotest = importlib.import_module("of_spmm_tpu_torch.testing.autotest")
 

@@ -44,6 +44,10 @@ from of_spmm_tpu_torch.sparse.tiled import TieredEll
 from tests.conftest import ATOL, RTOL
 from tests.test_torch_gcn import _cora, _powerlaw
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))

@@ -37,6 +37,10 @@ from of_spmm_tpu_torch.models import GCN, normalized_adjacency
 from of_spmm_tpu_torch.parallel import ShardMesh, partition_rows
 from tests.conftest import ATOL, RTOL
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS, SHARDS = 3, 2
 

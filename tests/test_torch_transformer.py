@@ -26,6 +26,10 @@ from of_spmm_tpu_torch.interop import transformer_params_from_numpy
 from of_spmm_tpu_torch.models import TransformerEncoder, bert_tiny
 from tests.conftest import ATOL, RTOL
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 TINY2 = dict(vocab_size=1000, max_len=128, embed_dim=128, num_heads=4, num_layers=2,
              mlp_dim=512)
 
@@ -98,7 +102,7 @@ def test_encoder_matches_jax(case):
     tokens = rng.integers(0, cfg["vocab_size"], (B, T)).astype(np.int32)
     if case == "out_of_range":
         tokens[0, 3], tokens[1, 7], tokens[1, 9] = cfg["vocab_size"], cfg["vocab_size"] + 77, -2
-    want = np.asarray(jmodel.apply(params, jnp.asarray(tokens)))
+    want = np.asarray(jax.jit(jmodel.apply)(params, jnp.asarray(tokens)))
     with torch.no_grad():
         got = model(torch.from_numpy(tokens)).numpy()
     assert got.shape == want.shape

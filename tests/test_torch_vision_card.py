@@ -15,6 +15,10 @@ import torch
 from of_spmm_tpu_torch import nn as onn
 from of_spmm_tpu_torch.models import ResNet
 
+# six test workers share the host's cores: one intra-op thread each, so that
+# PyTorch's thread pools do not contend with one another and with XLA's
+torch.set_num_threads(1)
+
 TOL = 1e-4  # float32 max-relative, the main path's bar
 TOL64 = 1e-10  # float64 max-relative: the card and the CPU round apart only there
 
