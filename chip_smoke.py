@@ -139,9 +139,10 @@ loop (microbench_blockfma, microbench_mxu, microbench_cond, proto_fused)
 and the gathers (microbench_gather, microbench_gather2 with window and
 twosided, microbench_dyngather): each tool's entry point at its default
 size, the TPU tool's full width, then its kernels against their plain
-versions on two small seeded cases (onehot and twosided also at their
-edges) and the default inputs, beside the plain versions' and, for the
-gathers, one PyTorch call's times.
+versions on two small seeded cases (blockfma_b, mxu_step, cond_steps,
+onehot, twosided and take_along also at their edges) and the default
+inputs, beside the plain versions' and, where one exists, one PyTorch
+call's times.
 
 Each phase prints one JSON line. Before the last line come the
 ``{"kernels": [...]}`` summary and the card's name and power limit as
@@ -408,14 +409,17 @@ GRAD_TOL = 2e-4  # tests/test_flash_attention.py's bar for the flash gradients
 # the microbenchmark kernels against their plain versions: elementwise
 # 1e-5 + 1e-4|p| where every term is positive (blockfma, proto_fused);
 # normwise max |k - p| <= 1e-4 max |p| where long float32 sums of both
-# signs are taken in another order (mxu: up to 16,000 terms a row; cond:
-# the plain version's 4,096 terms a tile against the kernel's 256 count
-# times window terms)
+# signs are taken in another order (mxu: the kernels' count times window
+# products against the plain version's float64 sum of up to 2,048,000
+# lanes a row; cond: the plain version's 4,096 terms a tile against the
+# kernel's 256 count times window terms)
 MICROBENCH_NORM_TOL = 1e-4
 # two small seeded cases per tool, beside its default size (seed 0); then
-# blockfma_b's and cond_steps' edges (tools' B_EDGES and EDGES: one row a
-# step, rows no slot names, K 8 and 512, an odd R; full-range masks with
-# counts at G, mixed gcnt, G 4 and 36) on NaN-poisoned output memory
+# blockfma_b's, mxu_step's and cond_steps' edges (tools' B_EDGES and EDGES:
+# one row a step, rows no slot names, K 8 and 512, an odd R; a count at its
+# ceiling S G 128, R 500 and 300, a window of one block, one step;
+# full-range masks with counts at G, mixed gcnt, G 4 and 36) on
+# NaN-poisoned output memory
 BLOCKFMA_SMALL = ((64, 256, 32, 1), (1000, 8192, 64, 2))  # C, T, K, seed
 MXU_SMALL = ((3, 1), (50, 2))                            # S, seed
 COND_SMALL = ((3, 1), (40, 2))                           # steps, seed
@@ -443,8 +447,6 @@ MICROBENCH_MAIN = {"microbench_blockfma_a": "A", "microbench_blockfma_b": "B",
                    "dyngather_smem_cap": "largest that works"}
 # the microbenchmark kernels that no one PyTorch call computes: why
 LIBRARY_NONE = {
-    "microbench_mxu": "none: each variant folds a window read, a one-hot gather and a "
-                      "per-variant reduction of the lanes into one tile; no one call",
     "microbench_cond": "none: per step the count matrix of the groups run (each mask "
                        "word's bits unpacked and summed over the groups) times the window, "
                        "then the halves added; an unpack, a sum, a bmm and an add, not one "
@@ -462,7 +464,10 @@ GATHER_EXACT = ("gather_vmem_take", "gather_onehot", "gather2_onehot_pair",
                 "gather2_window_pair", "dyngather_take_along", "dyngather_smem_cap")
 # two small seeded cases per kernel (seeds 1 and 2), beside every row of
 # its tool's run at the default size (seed 0): odd widths, partial waves,
-# windows that are not a multiple of 128; onehot, onehot_pair, window_pair
+# windows that are not a multiple of 128; take_along also at its
+# redesign's edges (C 65,536: the direct L2 kernel; C 15,000: 3 lanes a
+# slice, the last of 2; C 5,000: 8; T 1,001 rows: a partial last block;
+# each output on NaN-poisoned memory); onehot, onehot_pair, window_pair
 # and twosided also at their redesign's edges (seeds 3 and 4,
 # outside=True: indices below 0 and at or past the window,
 # tools/microbench_gather.with_outside; for twosided R = 1000 and 1024,
@@ -491,7 +496,11 @@ GATHER_SMALL = {
                          dict(TILE=256, CW=200, R=1000, T=256 * 501, outside=True),
                          dict(TILE=1024, CW=256, R=1024, T=1024 * 75, outside=True)),
     "dyngather_take_along": (dict(C=64, T=32, shape="ne", steps=2),
-                             dict(C=5000, T=300, shape="bcast", steps=3)),
+                             dict(C=5000, T=300, shape="bcast", steps=3),
+                             dict(C=65536, T=300, shape="ne", steps=3),
+                             dict(C=15000, T=1000, shape="ne", steps=2),
+                             dict(C=5000, T=0, shape="eq", steps=4),
+                             dict(C=2048, T=1001, shape="ne", steps=5)),
     "dyngather_smem_cap": (dict(nbytes=4096), dict(nbytes=49168)),
 }
 
@@ -584,6 +593,36 @@ plan = place_plan(build_expansion{v}_plan(CSR.from_dense(dense)), "cuda")
 for g in plan.groups:
     g.stage_row.fill_(1 << 30)
 spmm_expansion{v}(plan, torch.zeros((1024, 8), device="cuda"))
+torch.cuda.synchronize()
+print("no error")
+"""
+
+
+# mxu_step with one index outside its range ({bad}: a window block past
+# the window, a lane index of 128, a tile row of R): the kernel must stop
+# with a device-side assertion (child process, as above).
+BAD_MXU_PROBE = """
+import torch
+from of_spmm_tpu_torch.ops.cuda import microbench_mxu as kmxu
+blk = torch.zeros((4, 1, 2), dtype=torch.int32, device="cuda")
+lidx = torch.zeros((8, 128), dtype=torch.int32, device="cuda")
+lrow = torch.zeros((8, 128), dtype=torch.int32, device="cuda")
+win = torch.zeros((256, 256), dtype=torch.bfloat16, device="cuda")
+{{"blk": blk, "lidx": lidx, "lrow": lrow}}["{bad}"].view(-1)[5] = {{"blk": 2, "lidx": 128, "lrow": 500}}["{bad}"]
+kmxu.mxu_step("chain2", blk, lidx, lrow, win, 500)
+torch.cuda.synchronize()
+print("no error")
+"""
+
+# take_along with an index one past the table ({C} rows: 64 stages a slice
+# in shared memory, 65,536 takes the direct L2 kernel): the kernel must stop
+# with a device-side assertion (child process, as above).
+BAD_TAKE_ALONG_PROBE = """
+import torch
+from of_spmm_tpu_torch.ops.cuda import microbench_dyngather as kdyn
+idx = torch.zeros((4, 128), dtype=torch.int32, device="cuda")
+idx[2, 77] = {C}
+kdyn.take_along(idx, torch.zeros(({C}, 128), device="cuda"), 3)
 torch.cuda.synchronize()
 print("no error")
 """
@@ -795,6 +834,14 @@ def expect_device_assert(code: str, what: str) -> None:
         raise AssertionError(f"{what} did not stop with a device-side assertion "
                              f"(rc {probe.returncode}):\n"
                              f"{probe.stdout[-2000:]}{probe.stderr[-2000:]}")
+
+
+def expect_device_asserts(probes: list) -> None:
+    """expect_device_assert for each (code, what) of ``probes``, the child
+    processes run at once."""
+    with ThreadPoolExecutor(len(probes)) as pool:
+        for f in [pool.submit(expect_device_assert, code, what) for code, what in probes]:
+            f.result()
 
 
 def rank1_graph(n: int, m: int, rng, per_row: float = 0.0, band: int = 0,
@@ -4386,21 +4433,54 @@ def blockfma_library(variant: str, starts: torch.Tensor, w: torch.Tensor, tier: 
 
 def mxu_phase(dev) -> tuple:
     """tools/microbench_mxu at its default size through its entry point,
-    then every variant against the plain version on two small seeded cases
-    and the default inputs, and the plain version's times."""
+    then every variant against the plain version on two small seeded cases,
+    the default inputs and the kernels' edges (tools' EDGES, EDGE_SEEDS),
+    each output on NaN-poisoned memory; the plain version's times, the
+    library call's (torch.sparse.mm of the count matrix's CSR, built
+    outside the timed call, times the window's halves added) and
+    device-assert probes (a block, a lane index, a tile row out of range)."""
     rows, launches = run_tool(tmxu, {"microbench_mxu": len(kmxu.VARIANTS)
                                      * (WARMUP_CALLS + tmxu.ITERS)})
     err = {v: 0.0 for v in kmxu.VARIANTS}
+    cases = [(f"S={S} seed={seed}", (*tmxu.inputs(S, seed=seed), tmxu.R))
+             for S, seed in MXU_SMALL]
+    cases += [(f"edge {case} seed={seed}", tmxu.edge_inputs(case, seed=seed))
+              for seed in EDGE_SEEDS for case in sorted(tmxu.EDGES)]
+    cases.append((f"S={tmxu.S} seed=0", (*tmxu.inputs(tmxu.S, seed=0), tmxu.R)))
     with torch.inference_mode():
-        for S, seed in MXU_SMALL + ((tmxu.S, 0),):
-            m = [t.to(dev) for t in tmxu.inputs(S, seed=seed)]
+        for what, (*m, R) in cases:
+            m = [t.to(dev) for t in m]
             for v in kmxu.VARIANTS:
-                got, want = kmxu.mxu_step(v, *m), kmxu.mxu_step_torch(v, *m)
+                at = poison_block(kmxu.tile_rows(v, R), dev)
+                got, want = kmxu.mxu_step(v, *m, R), kmxu.mxu_step_torch(v, *m, R)
                 torch.cuda.synchronize()
-                err[v] = max(err[v], check_norm(got, want, f"microbench_mxu {v} S={S}"))
+                if got.data_ptr() != at:
+                    raise AssertionError(f"microbench_mxu {v} {what}: the output is not the "
+                                         "poisoned block")
+                err[v] = max(err[v], check_norm(got, want, f"microbench_mxu {v} {what}"))
+            del got, want
+        # m: the default inputs (seed 0), as the tool's run
+        halves = m[3][:, :128].float() + m[3][:, 128:].float()
         for row in rows:
-            row["max_abs_err"] = err[row["variant"]]
-            row["plain_ms"] = time_cuda(lambda: kmxu.mxu_step_torch(row["variant"], *m), iters=3)
+            v = row["variant"]
+            row["max_abs_err"] = err[v]
+            row["edges"] = sorted(tmxu.EDGES)
+            row["count_plan"] = kmxu.count_plan(v, tmxu.S, tmxu.G, m[3].shape[0],
+                                                kmxu.tile_rows(v, tmxu.R),
+                                                torch.cuda.get_device_properties(
+                                                    dev).multi_processor_count)
+            row["plain_ms"] = time_cuda(lambda: kmxu.mxu_step_torch(v, *m), iters=3)
+            row["library"], row["library_ms"] = None, None
+            if v != "noop":
+                sp = kmxu.count_csr(v, *m[:3], m[3].shape[0])
+                check_norm(torch.sparse.mm(sp, halves), kmxu.mxu_step_torch(v, *m),
+                           f"torch.sparse.mm for microbench_mxu {v}")
+                row["library"], row["library_ms"] = "torch.sparse.mm", time_cuda(
+                    lambda: torch.sparse.mm(sp, halves), iters=10)
+                row["library_nnz"] = int(sp._nnz())
+                del sp
+    expect_device_asserts([(BAD_MXU_PROBE.format(bad=bad), f"mxu_step with {bad} out of range")
+                           for bad in ("blk", "lidx", "lrow")])
     return rows, launches
 
 
@@ -4665,8 +4745,14 @@ def gather_rows_check(dev, rows: list) -> None:
                 small_err[k] = 0.0
                 for seed, size in enumerate(GATHER_SMALL[k], start=1):
                     run, plain, _ = gather_case(k, dev, seed, **size)
-                    small_err[k] = max(small_err[k], gather_check(k, run(), plain(),
+                    at = poison_block(size["C"] if size.get("shape") == "eq" else size["T"],
+                                      dev) if k == "dyngather_take_along" else None
+                    got = run()
+                    if at is not None and got.data_ptr() != at:
+                        raise AssertionError(f"{k} {size}: the output is not the poisoned block")
+                    small_err[k] = max(small_err[k], gather_check(k, got, plain(),
                                                                   f"{k} {size} seed {seed}"))
+                    del got
     for row in rows:
         if row["kernel"] is not None:
             row["max_abs_err"] = max(row["max_abs_err"], small_err[row["kernel"]])
@@ -4717,6 +4803,18 @@ def dyngather_phase(dev) -> tuple:
     if cap["nbytes"] != limit or any(ok != (n <= limit) for n, ok in cap["tried"]):
         raise AssertionError(f"vmem_cap: sizes {cap['tried']} against the opt-in limit {limit}")
     gather_rows_check(dev, rows)
+    # take_along's two paths: shared-memory slices and, past one lane, L2
+    lanes = {size["C"]: kdyn.slice_lanes(size["C"], limit)
+             for size in GATHER_SMALL["dyngather_take_along"]}
+    if not (min(lanes.values()) == 0 < max(lanes.values())):
+        raise AssertionError(f"take_along's cases {lanes} do not run both paths")
+    for row in rows:
+        if row["kernel"] == "dyngather_take_along":
+            row["slice_lanes"] = kdyn.slice_lanes(row["C"], limit)
+            row["edge_slice_lanes"] = lanes
+    expect_device_asserts([(BAD_TAKE_ALONG_PROBE.format(C=C),
+                            f"take_along with an index past the table (C={C})")
+                           for C in (64, 65536)])
     return rows, launches
 
 
@@ -4737,8 +4835,13 @@ def microbench_entry(name: str, rows: list, launches: dict) -> dict:
                 else {"library": LIBRARY_NONE[name]} if name in LIBRARY_NONE else {}),
              **({"onehot_macs": main_row["onehot_macs"]} if "onehot_macs" in main_row else {}),
              "times_scope": f"variant {MICROBENCH_MAIN[name]} at the tool's default size"}
+    if "per_pass_ms" in main_row:  # take_along: the library call is one pass
+        entry["per_pass_ms"] = main_row["per_pass_ms"]
+        entry["library_scope"] = (f"one pass ({main_row['library']}); ms is "
+                                  f"{main_row['steps']} passes, per_pass_ms one")
     if "gather" not in tool_of(name):
         entry["variants"] = [{"variant": r["variant"], **{k: r[k] for k in keys},
+                              "library_ms": r.get("library_ms"),
                               "fraction_of_bound": r["fraction_of_bound"]} for r in rows]
     return entry
 

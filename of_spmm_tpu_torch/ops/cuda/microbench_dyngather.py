@@ -3,7 +3,11 @@ launchers (tools/microbench_dyngather.py).
 
 - ``take_along(idx, table, steps)``: out[t, l] = table[idx[t, l], l] for
   every lane l (take_along_axis on axis 0), computed ``steps`` times in one
-  launch as the TPU grid computes it;
+  launch as the TPU grid computes it: the passes are the work (the TPU
+  tool's rate counts each pass's gather out of VMEM). On the card each
+  block stages a slice of ``slice_lanes(C, optin)`` lanes of the table in
+  shared memory and runs the passes out of it; a table too tall for one
+  lane a slice takes the direct kernel, whose passes read L2;
 - ``smem_cap(x, nbytes)``: x (8, 128) float32 copied through a dynamic
   shared-memory buffer of ``nbytes`` and back; on the card a buffer above
   the opt-in limit (``smem_optin()``) raises, as cudaFuncSetAttribute
@@ -30,6 +34,17 @@ from of_spmm_tpu_torch.ops.cuda.microbench_gather import D, card, check_lanes, c
 
 SOURCE = "microbench_dyngather.cu"
 TILE_BYTES = 8 * D * 4  # x: one (8, 128) float32 tile
+MAX_SLICE_LANES = 16  # a warp's 32 threads on 2 rows of 16 lanes: at most 2-way bank conflicts
+_OPTIN: Dict[int, int] = {}  # the cards' opt-in shared memory per block, by device index
+
+
+def slice_lanes(C: int, optin: int) -> int:
+    """Lanes of the table a take_along block stages in shared memory: as
+    many as fit ``optin`` bytes (C x lanes x 4), at most 16, a multiple of
+    4 from 4 on (a row's lanes then stage as whole 16-byte copies); 0 where
+    not one lane fits (the direct kernel, whose passes read L2)."""
+    lanes = min(MAX_SLICE_LANES, optin // (4 * C))
+    return lanes - lanes % 4 if lanes >= 4 else lanes
 
 
 def build() -> Dict[str, object]:
@@ -39,7 +54,7 @@ def build() -> Dict[str, object]:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.ofs_take_along.argtypes = [p, p, p, i64, i64, i32, i32, p]
+    lib.ofs_take_along.argtypes = [p, p, p, i64, i64, i32, i32, i32, p]
     lib.ofs_take_along.restype = i32
     lib.ofs_smem_cap.argtypes = [p, p, i32, i32, p]
     lib.ofs_smem_cap.restype = i32
@@ -98,15 +113,20 @@ def smem_optin(device: torch.device) -> Optional[int]:
 
 def take_along(idx: torch.Tensor, table: torch.Tensor, steps: int = 1) -> torch.Tensor:
     """_run's function (float32, idx's shape), ``steps`` passes in one
-    launch: the kernel on the card, the plain version on the CPU."""
+    launch: the kernel on the card (out of shared memory, or out of L2
+    where ``slice_lanes`` gives 0), the plain version on the CPU."""
     if idx.device.type == "cpu":
         return take_along_torch(idx, table, steps)
     _check_take(idx, table, steps)
     card(idx.device, "take_along")
     lib, dev = _lib(), idx.device
+    index = dev.index or 0
+    if index not in _OPTIN:
+        _OPTIN[index] = smem_optin(dev)
     out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
     rc = lib.ofs_take_along(idx.data_ptr(), table.data_ptr(), out.data_ptr(), idx.numel(),
-                            table.shape[0], steps, dev.index or 0, stream(dev))
+                            table.shape[0], steps, slice_lanes(table.shape[0], _OPTIN[index]),
+                            index, stream(dev))
     raise_if(lib, rc, "dyngather_take_along")
     LAUNCHES["dyngather_take_along"] += 1
     return out

@@ -12,7 +12,8 @@ import torch
 
 from of_spmm_tpu_torch.utils.device import resolve_device
 from of_spmm_tpu_torch.utils.roofline import (
-    WARMUP_CALLS, KernelWork, detect_peak_bw, detect_peak_fp32, detect_peak_tensor16, time_cuda)
+    WARMUP_CALLS, KernelWork, detect_peak_bw, detect_peak_fp32, detect_peak_smem,
+    detect_peak_tensor16, time_cuda)
 
 
 def split_device(argv: Sequence[str]) -> Tuple[torch.device, List[str]]:
@@ -76,10 +77,11 @@ def bound_fields(work: KernelWork, ms: float, device: torch.device) -> Dict[str,
         return {"device": "cpu", "clock": "host", "ms": ms, "bytes": work.bytes,
                 "flops": work.flops}
     name = torch.cuda.get_device_name(device)
-    bound, by = work.bound(detect_peak_bw(name), detect_peak_fp32(name),
-                           detect_peak_tensor16(name))
+    peaks = (detect_peak_bw(name), detect_peak_fp32(name), detect_peak_tensor16(name),
+             detect_peak_smem(name) if work.smem_words else None)
+    bound, by = work.bound(*peaks)
     return {"device": name, "clock": "cuda events", "ms": ms, "bytes": work.bytes,
-            "flops": work.flops,
+            "flops": work.flops, **({"smem_words": work.smem_words} if work.smem_words else {}),
             "bound_ms": bound, "bound_by": by, "fraction_of_bound": bound / ms}
 
 

@@ -13,10 +13,16 @@ table (C, 128) float32 in L2, T gathered rows:
              around the card's opt-in limit, largest first, until one works
 
 take_along runs the TPU grid's 256 passes in one launch (ops/cuda/
-microbench_dyngather.py); each prints the time of a launch and Mrows/s of
-512-byte rows over all passes (T x 256 / t), beside the card's bound for
-one pass's bytes. vmem_cap prints OK or FAILED for each size, with the
-limit the card reports.
+microbench_dyngather.py). The passes are the work: the TPU tool's rate
+counts every pass's gather out of VMEM, and the kernel runs them out of
+shared memory, a slice of the table's lanes staged in each block (out of
+L2 where C is too tall for one lane a slice). Each prints the time of a
+launch and Mrows/s of 512-byte rows over all passes (T x 256 / t), beside
+the card's bound: the larger of one pass's bytes from device memory and
+the passes' words through shared memory (utils/roofline.take_along_work).
+Its row also carries the time of one pass (per_pass_ms), the yardstick for
+a one-pass library call. vmem_cap prints OK or FAILED for each size, with
+the limit the card reports.
 
     python -m of_spmm_tpu_torch.tools.microbench_dyngather [names] [--device cpu]
 """
@@ -69,7 +75,7 @@ def bench_take_along(device: torch.device, name: str, C: int, T: int, idx_shape:
     row = {"tool": "microbench_dyngather", "kernel": "dyngather_take_along",
            "variant": f"{name} C={C} T={Tn}", "C": C, "T": Tn, "shape": idx_shape,
            "steps": steps,
-           **bound_fields(take_along_work(idx, table), ms, device)}
+           **bound_fields(take_along_work(idx, table, steps), ms, device)}
     row["mrows_per_s"] = Tn * steps / ms / 1e3
     row["per_pass_ms"] = ms / steps
     print(describe(row, f"[{name}] C={C} T={Tn}: {ms * 1e3:8.1f} us -> "

@@ -13,10 +13,16 @@ S steps of G groups of 128 lanes on a window of 64 blocks of 128 bf16 rows
   chain2   each lane's gathered row is scattered to its own row (lrow) of
            a 512-row tile
 
-The variants run as the hand-written kernel of ops/cuda/microbench_mxu.py
+The variants run as the hand-written kernels of ops/cuda/microbench_mxu.py
 on the same seeded inputs as the TPU tool, and report us/step beside the
-card's bound for the same work (utils/roofline.mxu_work). rawdyn against
-winread is the cost of the gather; chain2 against rawdyn, the scatter.
+card's bound for the same work (utils/roofline.mxu_work). On the TPU rawdyn
+against winread is the cost of the gather, chain2 against rawdyn the
+scatter. On Hopper every variant but noop is one count of its lanes into a
+matrix Cnt[tile row, window row] and one product Cnt @ window on the
+tensor cores, so there the variants differ in how the counts fall (dense,
+one block's diagonal, one cell) and not in a gather or a scatter.
+EDGES and edge_inputs give the kernels' edge cases (a count at its
+ceiling S G 128, R = 500 and 300, a window of one block, one step).
 
     python -m of_spmm_tpu_torch.tools.microbench_mxu [S] [variants] [--device cpu]
 """
@@ -37,6 +43,12 @@ _L = 128
 S, G, R = 2000, 8, 512  # the TPU tool's defaults
 VARIANTS = kernels.VARIANTS
 ITERS = 20
+# the kernels' edges: every lane on tile row 0 and window row 0 (chain2's
+# one count at its ceiling S G 128, 3 base-256 digits), R = 500 (two tiles
+# of 256 rows, the last partial) and 300 (three of 128), a window of one
+# block (G = 1, so that winstat and rawstat stay inside it), one step
+EDGES = {"ceiling": dict(S=S), "R500": dict(S=50, R=500), "R300": dict(S=50, R=300),
+         "one_block": dict(S=50, G=1, blocks=1), "S1": dict(S=1)}
 
 
 def inputs(S: int = S, G: int = G, R: int = R,
@@ -50,6 +62,23 @@ def inputs(S: int = S, G: int = G, R: int = R,
     blk = rng.integers(0, 64, (S, 1, G)).astype(np.int32)
     return (torch.from_numpy(blk), torch.from_numpy(lidx), torch.from_numpy(lrow),
             torch.from_numpy(win).to(torch.bfloat16))
+
+
+def edge_inputs(case: str, seed: int = 0, S: Optional[int] = None):
+    """(blk, lidx, lrow, win, R) of the edge ``case`` (a key of EDGES), on
+    the CPU, drawn as ``inputs`` draws them; ``S`` overrides the case's
+    steps."""
+    e = EDGES[case]
+    steps, g, r, blocks = S or e["S"], e.get("G", G), e.get("R", R), e.get("blocks", 64)
+    rng = np.random.default_rng(seed)
+    win = rng.standard_normal((blocks * _L, 256)).astype(np.float32)
+    lidx = rng.integers(0, _L, (steps * g, _L)).astype(np.int32)
+    lrow = rng.integers(0, r, (steps * g, _L)).astype(np.int32)
+    blk = rng.integers(0, blocks, (steps, 1, g)).astype(np.int32)
+    if case == "ceiling":
+        lidx[:], lrow[:], blk[:] = 0, 0, 0
+    return (torch.from_numpy(blk), torch.from_numpy(lidx), torch.from_numpy(lrow),
+            torch.from_numpy(win).to(torch.bfloat16), r)
 
 
 def bench(variant: str, args, device: torch.device, R: int = R,

@@ -58,6 +58,18 @@ PEAK_TF32_FLOPS: Dict[str, float] = {
     "H100 NVL": 417.5e12,
 }
 
+# Peak shared-memory rate (4-byte words/s): 32 banks of 4 bytes a clock on
+# every SM, times the SMs, times the card's max SM clock. H100 80GB HBM3 /
+# SXM: 132 SMs at 1,980 MHz (`nvidia-smi --query-gpu=clocks.max.sm` on the
+# card); PCIe 114 SMs at 1,755 MHz and NVL 132 at 1,785 MHz (NVIDIA's data
+# sheets' boost clocks).
+PEAK_SMEM_WORDS_PER_S: Dict[str, float] = {
+    "H100 80GB HBM3": 132 * 32 * 1.98e9,
+    "H100 SXM": 132 * 32 * 1.98e9,
+    "H100 PCIe": 114 * 32 * 1.755e9,
+    "H100 NVL": 132 * 32 * 1.785e9,
+}
+
 # untimed calls before each measurement (build, caches, allocator)
 WARMUP_CALLS = 3
 
@@ -92,6 +104,11 @@ def detect_peak_fp32(device_name: Optional[str] = None) -> float:
 def detect_peak_tensor16(device_name: Optional[str] = None) -> float:
     """Dense bfloat16 / float16 tensor-core FLOP/s of the named card."""
     return _lookup(PEAK_TENSOR16_FLOPS, _card_name(device_name))
+
+
+def detect_peak_smem(device_name: Optional[str] = None) -> float:
+    """Shared-memory words/s of the current (or named) card."""
+    return _lookup(PEAK_SMEM_WORDS_PER_S, _card_name(device_name))
 
 
 def detect_peak_tf32(device_name: Optional[str] = None) -> float:
@@ -394,18 +411,27 @@ class KernelWork:
     (of_spmm_tpu_torch/tools/): ``bytes`` that it must move (each input
     it needs read once, each output written once) and ``flops`` that it
     must do, on the bf16 tensor cores when ``tensor_cores`` (else float32
-    on the CUDA cores). Where the work depends on the data, the count is
-    what these inputs need (the distinct rows they reference, the groups a
-    step runs)."""
+    on the CUDA cores), and ``smem_words``, 4-byte words it must move
+    through shared memory (an on-chip gather the function is made of).
+    Where the work depends on the data, the count is what these inputs need
+    (the distinct rows they reference, the groups a step runs)."""
 
     bytes: int
     flops: int
     tensor_cores: bool = False
+    smem_words: int = 0
 
-    def bound(self, peak_bw: float, peak_fp32: float, peak_t16: float):
-        """(least ms, "bytes" or "operations") at these peaks."""
+    def bound(self, peak_bw: float, peak_fp32: float, peak_t16: float,
+              peak_smem: Optional[float] = None):
+        """(least ms, "bytes" or "operations") at these peaks: the largest
+        of the device-memory bytes, the shared-memory words (bytes on the
+        chip; needs ``peak_smem`` where there are any) and the operations."""
         peak = peak_t16 if self.tensor_cores else peak_fp32
         t_bytes, t_ops = self.bytes / peak_bw * 1e3, self.flops / peak * 1e3
+        if self.smem_words:
+            if peak_smem is None:
+                raise ValueError("shared-memory words need the card's shared-memory rate")
+            t_bytes = max(t_bytes, self.smem_words / peak_smem * 1e3)
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -437,11 +463,17 @@ def blockfma_work(variant: str, starts: torch.Tensor, w: torch.Tensor,
 
 def mxu_work(variant: str, blk: torch.Tensor, lidx: torch.Tensor, lrow: torch.Tensor,
              rows_out: int) -> KernelWork:
-    """tools/microbench_mxu.py: the window rows the variant's lanes read
-    (512 bytes each; whole blocks for winread / winstat), the index arrays
-    it reads (blk for the dynamic variants, lidx for the gathers, lrow for
-    chain2; noop reads row 0 of each step's lidx) and the tile; 2 flops
-    per (lane, column): the two halves' add and the accumulation."""
+    """tools/microbench_mxu.py, in its product form out = Cnt @ win[:, :128]
+    + Cnt @ win[:, 128:] (Cnt[r, w]: the lanes that send window row w to
+    tile row r). Bytes: the window rows the variant's lanes read (512 bytes
+    each; whole blocks for winread / winstat), the index arrays it reads
+    (blk for the dynamic variants, lidx for the gathers, lrow for chain2;
+    noop reads row 0 of each step's lidx) and the tile. Operations: one
+    bf16 product on the tensor cores over those window rows, 2 x rows_out x
+    rows x 256 flops (noop: one add a lane of row 0). The lane form, 2
+    adds per (lane, column) on the CUDA cores (2 S G 128 x 128 flops:
+    0.0078 ms at the defaults), is how the TPU's steps add, not work the
+    function needs."""
     S, _, G = blk.shape
     L, d = 128, 128
     out_bytes = rows_out * d * 4
@@ -456,7 +488,7 @@ def mxu_work(variant: str, blk: torch.Tensor, lidx: torch.Tensor, lrow: torch.Te
     nbytes = rows * 2 * d * 2 + out_bytes + (blk.nbytes if dyn else 0)
     nbytes += 0 if variant in ("winread", "winstat") else lidx.nbytes
     nbytes += lrow.nbytes if variant == "chain2" else 0
-    return KernelWork(nbytes, 2 * S * G * L * d)
+    return KernelWork(nbytes, 2 * rows_out * rows * 2 * d, tensor_cores=True)
 
 
 def cond_work(groups_run: int, steps: int, steps_run: int) -> KernelWork:
@@ -594,15 +626,16 @@ def twosided_work(bases: torch.Tensor, lidx: torch.Tensor, rows: torch.Tensor,
     return KernelWork(nbytes, 2 * lidx.numel() * d)
 
 
-def take_along_work(idx: torch.Tensor, table: torch.Tensor) -> KernelWork:
-    """tools/microbench_dyngather.py _run: one pass of
-    out[t, l] = table[idx[t, l], l]; the distinct table elements it reads,
-    idx and the output. The TPU grid repeats the pass ``steps`` times on
-    the same blocks; inputs read once and the output written once is one
-    pass's bytes."""
+def take_along_work(idx: torch.Tensor, table: torch.Tensor, steps: int = 1) -> KernelWork:
+    """tools/microbench_dyngather.py _run: ``steps`` passes of
+    out[t, l] = table[idx[t, l], l]. Bytes from device memory: one pass's,
+    the distinct table elements it reads, idx and the output (inputs read
+    once, the output written once). The passes themselves are the work the
+    TPU tool measures (its rate counts every pass's gather out of VMEM):
+    steps x Tn x 128 words gathered out of shared memory, Hopper's VMEM."""
     d = table.shape[1]
     elems = _distinct(idx.long() * d + torch.arange(d, device=idx.device))
-    return KernelWork(elems * 4 + idx.nbytes + idx.numel() * 4, 0)
+    return KernelWork(elems * 4 + idx.nbytes + idx.numel() * 4, 0, smem_words=steps * idx.numel())
 
 
 def smem_cap_work(x: torch.Tensor) -> KernelWork:

@@ -38,6 +38,7 @@ C, T = 64, 2048
 ELEMENTWISE = (1e-4, 1e-5)  # sums of positive terms in another order
 NORMWISE = 1e-4             # twosided: lanes added with atomics in no fixed order
 PEAKS = (3.35e12, 67e12, 989e12)  # H100 SXM: bytes/s, fp32 and bf16 tensor FLOP/s
+SMEM = 132 * 32 * 1.98e9            # H100 SXM: shared-memory words/s
 
 
 def _cases(seed: int = 0, C: int = C, T: int = T):
@@ -337,7 +338,39 @@ def test_work_counts_at_the_tools_defaults():
     idx, table = tdyn.inputs(2048, 1024, "ne")
     ta = take_along_work(idx, table)
     assert ta.flops == 0 and idx.nbytes * 2 < ta.bytes <= idx.nbytes * 2 + table.nbytes
+    assert ta.smem_words == 1024 * 128
+    # tala_eq's 256 passes: words through shared memory at 132 SMs x 32 a
+    # clock x 1,980 MHz bound it, not one pass's bytes
+    eq = take_along_work(*tdyn.inputs(2048, 2048, "eq"), 256)
+    assert eq.smem_words == 256 * 2048 * 128
+    assert eq.bound(*PEAKS, SMEM) == (pytest.approx(0.0080, abs=1e-4), "bytes")
+    assert eq.bound(*PEAKS, SMEM)[0] > eq.bytes / PEAKS[0] * 1e3
     assert smem_cap_work(torch.ones((8, 128))).bytes == 8192
+
+
+def test_take_along_work_counts_both_terms_by_hand():
+    """Two rows of indices into a 4-row table, the two rows alike: 128
+    distinct elements a row's lanes read, idx, the output; and the passes'
+    words. One pass is bound by its bytes, 10,000 passes by shared memory."""
+    table = torch.arange(4 * 128, dtype=torch.float32).view(4, 128)
+    idx = torch.tensor([[1] * 128, [1] * 128], dtype=torch.int32)
+    one = take_along_work(idx, table)
+    assert (one.bytes, one.flops, one.smem_words) == (128 * 4 + 1024 + 1024, 0, 256)
+    many = take_along_work(idx, table, 10_000)
+    assert many.bytes == one.bytes and many.smem_words == 10_000 * 256
+    assert one.bound(*PEAKS, SMEM) == (pytest.approx(one.bytes / PEAKS[0] * 1e3), "bytes")
+    assert many.bound(*PEAKS, SMEM) == (pytest.approx(10_000 * 256 / SMEM * 1e3), "bytes")
+    with pytest.raises(ValueError, match="shared-memory rate"):
+        many.bound(*PEAKS)
+
+
+@pytest.mark.parametrize("C,lanes", [(512, 16), (2048, 16), (5000, 8), (8192, 4), (15000, 3),
+                                     (32768, 1), (58112, 1), (58113, 0), (65536, 0)])
+def test_slice_lanes_fit_the_opt_in_shared_memory(C, lanes):
+    """At the H100's 232,448 bytes: 16 lanes at most, multiples of 4 from 4
+    on, 0 (the direct L2 kernel) where one lane of C rows does not fit."""
+    got = kdyn.slice_lanes(C, tdyn.H100_OPTIN)
+    assert got == lanes and 4 * C * got <= tdyn.H100_OPTIN
 
 
 def _card():
@@ -373,3 +406,24 @@ def test_gather_kernels_match_plain_versions_on_the_card():
                                           "gather_block_slice", "gather_row_dma",
                                           "gather2_take_fused", "gather2_dma_deep",
                                           "dyngather_take_along"))
+
+
+@pytest.mark.cuda
+def test_take_along_at_its_edges_on_the_card():
+    """take_along bit-exact against the plain version on both of the
+    kernel's paths: C = 65,536 (the direct L2 kernel), C = 15,000 (3 lanes a
+    slice, the last slice of 2) and 5,000 (8), and T = 1,001 rows (not a
+    multiple of a block's rows), each output on NaN-poisoned memory."""
+    dev = _card()
+    optin = kdyn.smem_optin(dev)
+    paths = set()
+    for seed in (1, 2):
+        for C, T, shape, steps in ((65536, 300, "ne", 3), (15000, 1000, "ne", 2),
+                                   (5000, 1000, "eq", 4), (2048, 1001, "ne", 5)):
+            idx, table = (a.to(dev) for a in tdyn.inputs(C, T, shape, seed))
+            at = torch.full(tuple(idx.shape), float("nan"), device=dev).data_ptr()
+            got = kdyn.take_along(idx, table, steps)
+            assert got.data_ptr() == at
+            assert torch.equal(got, kdyn.take_along_torch(idx, table, steps)), (C, T)
+            paths.add(kdyn.slice_lanes(C, optin) > 0)
+    assert paths == {True, False}

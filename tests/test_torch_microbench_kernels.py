@@ -1,7 +1,9 @@
 """The microbenchmark kernels' wrappers (ops/cuda/{microbench_blockfma,
 microbench_mxu,microbench_cond,proto_fused}.py), their tools'
-command lines (of_spmm_tpu_torch/tools/) and their work counts
-(utils/roofline.py), without JAX, so that the file also runs on the card:
+command lines (of_spmm_tpu_torch/tools/), their work counts
+(utils/roofline.py) and mxu_step's count form (the count matrix, its
+sparse yardstick, its exact base-256 digits, the count plan), without
+JAX, so that the file also runs on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_microbench_kernels.py
 
@@ -287,9 +289,11 @@ def test_work_counts_at_the_tools_defaults():
     assert abs(b.bytes / 1e6 - 29.4) < 0.1 and b.bound(*peaks)[1] == "bytes"
     args = tmxu.inputs()
     chain2 = mxu_work("chain2", *args[:3], 512)
-    # every window row, lidx, lrow, blk and the 512-row tile
+    # every window row, lidx, lrow, blk and the 512-row tile; one bf16
+    # product of the 512 x 8,192 counts and the window on the tensor cores
     assert chain2.bytes == 8192 * 512 + 2 * 16000 * 128 * 4 + 2000 * 8 * 4 + 512 * 128 * 4
-    assert chain2.flops == 2000 * 8 * 128 * 256
+    assert chain2.flops == 2 * 512 * 8192 * 256 and chain2.tensor_cores
+    assert chain2.bound(*peaks) == (pytest.approx(0.0062, abs=1e-4), "bytes")
     assert mxu_work("winstat", *args[:3], 128).bytes == 8 * 128 * 512 + 128 * 128 * 4
     # one product a step of the count matrix, not one a group: the bytes bound
     full = cond_work(2048 * 32, 2048, 2048)
@@ -300,6 +304,109 @@ def test_work_counts_at_the_tools_defaults():
     assert half.flops == full.flops
     assert half.bound(*peaks) == (pytest.approx(0.0601, abs=1e-4), "bytes")
     assert cond_work(0, 2048, 0).flops == 0
+
+
+def test_mxu_work_counts_the_product_form_by_hand():
+    """Two steps of one group on a window of two blocks, every lane on
+    window row 3 of its step's block: the lanes read rows 3 and 131."""
+    blk = torch.tensor([[[0]], [[1]]], dtype=torch.int32)
+    lidx = torch.full((2, 128), 3, dtype=torch.int32)
+    lrow = torch.zeros((2, 128), dtype=torch.int32)
+    chain2 = mxu_work("chain2", blk, lidx, lrow, 200)
+    assert chain2.bytes == 2 * 512 + 1024 + 1024 + 8 + 200 * 512  # rows, lidx, lrow, blk, tile
+    assert chain2.flops == 2 * 200 * 2 * 256 and chain2.tensor_cores
+    rawstat = mxu_work("rawstat", blk, lidx, lrow, 128)  # block g = 0 only: row 3
+    assert rawstat.bytes == 512 + 1024 + 128 * 512 and rawstat.flops == 2 * 128 * 256
+    winread = mxu_work("winread", blk, lidx, lrow, 128)  # both blocks whole, blk read
+    assert winread.bytes == 256 * 512 + 8 + 128 * 512 and winread.flops == 2 * 128 * 256 * 256
+    noop = mxu_work("noop", blk, lidx, lrow, 128)
+    assert (noop.bytes, noop.flops, noop.tensor_cores) == (2 * 512 + 128 * 512, 256, False)
+    # the counts at 3.35 TB/s and 989 TFLOP/s: chain2's bytes bound it
+    assert chain2.bound(3.35e12, 67e12, 989e12)[1] == "bytes"
+
+
+@pytest.mark.parametrize("variant", kmxu.VARIANTS[1:])
+def test_sparse_yardstick_matches_the_plain_version(variant):
+    """torch.sparse.mm of the count matrix's CSR times the window's halves
+    added (chip_smoke.py's library call) is the variant's tile."""
+    blk, lidx, lrow, win = tmxu.inputs(6, seed=3)
+    sp = kmxu.count_csr(variant, blk, lidx, lrow, win.shape[0])
+    cnt = kmxu.count_matrix(variant, blk, lidx, lrow, win.shape[0])
+    assert sp.layout == torch.sparse_csr and int(cnt.sum()) == 6 * 8 * 128
+    halves = win[:, :128].float() + win[:, 128:].float()
+    want = kmxu.mxu_step_torch(variant, blk, lidx, lrow, win)
+    assert _normwise(torch.sparse.mm(sp, halves), want) <= NORMWISE
+
+
+@pytest.mark.parametrize("case", sorted(tmxu.EDGES))
+def test_mxu_edges_hold_what_they_name(case):
+    blk, lidx, lrow, win, R = tmxu.edge_inputs(case, S=3 if case == "ceiling" else None)
+    S, _, G = blk.shape
+    chain2 = kmxu.count_matrix("chain2", blk, lidx, lrow, win.shape[0], R)
+    assert int(chain2.sum()) == S * G * 128 and chain2.shape == (R, win.shape[0])
+    if case == "ceiling":  # one cell holds every lane
+        assert int(chain2[0, 0]) == S * G * 128
+    elif case in ("R500", "R300"):
+        assert R == int(case[1:]) and int(lrow.max()) < R
+    elif case == "one_block":
+        assert win.shape[0] == 128 and G == 1 and int(blk.max()) == 0
+    else:
+        assert S == 1
+
+
+def _digit_form(variant, blk, lidx, lrow, win, R):
+    """The kernels' arithmetic: each count cut into base-256 digits, digit d
+    as the bf16 value digit x 256^d, every digit's product with each window
+    half summed in float32."""
+    cnt = kmxu.count_matrix(variant, blk, lidx, lrow, win.shape[0], R)
+    digits = [(cnt >> (8 * d)) & 255 for d in range(4)]
+    assert torch.equal(sum(dg << (8 * d) for d, dg in enumerate(digits)), cnt)
+    out = torch.zeros((cnt.shape[0], 128))
+    wf = win.float()
+    for d, dg in enumerate(digits):
+        a = (dg.double() * 256.0**d).to(torch.bfloat16)
+        assert torch.equal(a.double(), dg.double() * 256.0**d)  # exact in bf16
+        out += a.float() @ wf[:, :128] + a.float() @ wf[:, 128:]
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(tmxu.EDGES))
+def test_digit_form_matches_the_plain_version(case):
+    """Counts of 1 to 3 digits (the ceiling's 3,072 here, 2,048,000 at the
+    tool's size) give the plain version's tile within the kernels' bar."""
+    *m, R = tmxu.edge_inputs(case, S=3 if case == "ceiling" else None)
+    for variant in kmxu.VARIANTS[1:]:
+        want = kmxu.mxu_step_torch(variant, *m, R)
+        assert _normwise(_digit_form(variant, *m, R), want) <= NORMWISE, variant
+
+
+def test_plain_version_sums_the_ceiling_exactly():
+    """Every lane into one cell: the plain version's float64 sum gives
+    S G 128 times the window row (a float32 sum of 2,048,000 terms would be
+    off by about 1e-2)."""
+    blk, lidx, lrow, win, R = tmxu.edge_inputs("ceiling", S=40)
+    got = kmxu.mxu_step_torch("chain2", blk, lidx, lrow, win, R)
+    row = win[0, :128].float() + win[0, 128:].float()
+    torch.testing.assert_close(got[0], (row.double() * 40 * 8 * 128).float(), rtol=0, atol=0)
+    assert not got[1:].any()
+
+
+@pytest.mark.parametrize("variant,R,plan", [
+    ("chain2", 512, (64, 1, 256)), ("chain2", 500, (64, 1, 256)), ("chain2", 200, (64, 2, 256)),
+    ("chain2", 300, (64, 1, 128)),
+    ("rawdyn", 512, (64, 2, 128)), ("rawstat", 512, (8, 16, 128)),
+    ("winread", 512, (64, 1, 128)), ("winstat", 512, (8, 1, 128)),
+])
+def test_count_plan_fills_the_sms(variant, R, plan):
+    """The count blocks of the tool's default size on 132 SMs: window blocks
+    x parts x tile rows; one part where a block's count is its item count."""
+    got = kmxu.count_plan(variant, tmxu.S, tmxu.G, 64 * 128, kmxu.tile_rows(variant, R), 132)
+    assert got == plan
+    nb, parts, rows_t = got
+    rows_pad = -(-kmxu.tile_rows(variant, R) // 128) * 128
+    tiles = rows_pad // rows_t
+    assert rows_pad % rows_t == 0 and nb * parts * tiles <= max(132, nb * tiles)
+    assert kmxu.count_plan("rawstat", 1, 8, 8192, 128, 132)[1] == 1  # no more parts than steps
 
 
 def test_proto_fused_work_counts_what_the_lanes_reference():
@@ -371,6 +478,24 @@ def test_microbench_kernels_match_plain_versions_on_the_card():
     assert launched["microbench_blockfma_a"] == 2 and launched["microbench_blockfma_b"] == 2
     assert launched["microbench_mxu"] == 6 and launched["microbench_cond"] == 5
     assert launched["proto_fused"] == 15
+
+
+@pytest.mark.cuda
+def test_mxu_at_its_edges_on_the_card():
+    """Every variant at the redesign's edges (a count at its ceiling S G
+    128 = 2,048,000, R = 500 and 300, a window of one block, one step) and
+    winstat at the default size (every count 2,000), each output on
+    NaN-poisoned memory, against the plain version."""
+    dev = _card()
+    cases = [(case, tmxu.edge_inputs(case)) for case in sorted(tmxu.EDGES)]
+    cases.append(("default", (*tmxu.inputs(), tmxu.R)))
+    for case, (*m, R) in cases:
+        m = [t.to(dev) for t in m]
+        for v in kmxu.VARIANTS:
+            at = _poison(kmxu.tile_rows(v, R), dev)
+            got = kmxu.mxu_step(v, *m, R)
+            assert got.data_ptr() == at
+            assert _normwise(got, kmxu.mxu_step_torch(v, *m, R)) <= NORMWISE, (case, v)
 
 
 @pytest.mark.cuda
