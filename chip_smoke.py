@@ -628,6 +628,22 @@ print("no error")
 """
 
 
+# blockfma_a's sliced kernel (a 4-column slice of the {C}-row tier in each
+# block's shared memory) with a start at C - 7, its last 8-row block past
+# the tier: it must stop with a device-side assertion (child process, as
+# above).
+BAD_SLICED_PROBE = """
+import torch
+from of_spmm_tpu_torch.ops.cuda import microbench_blockfma as kb
+starts = torch.zeros((64, 32), dtype=torch.int32, device="cuda")
+starts[37, 5] = {C} - 7
+assert kb.a_stages({C}, kb.smem_optin(starts.device)) > 0
+kb.blockfma_a(starts, torch.ones((64, 256), device="cuda"), torch.zeros(({C}, 128), device="cuda"))
+torch.cuda.synchronize()
+print("no error")
+"""
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -4377,12 +4393,48 @@ def blockfma_phase(dev) -> tuple:
                 err = max(err, check_close(got, want, f"blockfma {v} C={C} T={T} K={K}"))
             if v == "B":
                 err = max(err, blockfma_b_edges(dev, row))
+            else:
+                err = max(err, blockfma_a_edges(dev, row))
             row["max_abs_err"] = err
             row["plain_ms"] = time_cuda(lambda: plain(*a), iters=3)
             lib_name, lib = blockfma_library(v, *a)
             check_close(lib(), plain(*a), f"{lib_name} for blockfma {v}")
             row["library"], row["library_ms"] = lib_name, time_cuda(lib, iters=10)
+    expect_device_assert(BAD_SLICED_PROBE.format(C=8192),
+                         "blockfma_a's sliced kernel with a start past the tier")
     return rows, launches
+
+
+def blockfma_a_edges(dev, row: dict) -> float:
+    """blockfma_a on both of its paths at its edges (tools' A_EDGES: C on
+    each side of both switches of a_plan, R 257, K 40, a start at C - 8;
+    EDGE_SEEDS): the L2 kernel and, where a 4-column slice fits, the sliced
+    kernel, each output on NaN-poisoned memory, bit-equal to each other and
+    held to the plain version; the largest error. Records the stages of the
+    default size's path and of the edges' (0: the L2 kernel) into
+    ``row``."""
+    optin = kblockfma.smem_optin(dev)
+    err, stages = 0.0, {}
+    for seed in EDGE_SEEDS:
+        for case in tblockfma.A_EDGES:
+            a = [torch.from_numpy(x).to(dev) for x in tblockfma.a_edge_inputs(case, seed)]
+            what = f"blockfma A edge {case} seed={seed}"
+            stages[case] = kblockfma.a_plan(a[2].shape[0], optin)
+            outs = []
+            for sliced in (False, True) if kblockfma.a_stages(a[2].shape[0], optin) else (False,):
+                at = poison_block(a[0].shape[0], dev)
+                outs.append(kblockfma._launch(0, "microbench_blockfma_a", *a, sliced=sliced))
+                torch.cuda.synchronize()
+                if outs[-1].data_ptr() != at:
+                    raise AssertionError(f"{what}: the output is not the poisoned block")
+            if not torch.equal(outs[0], outs[-1]):
+                raise AssertionError(f"{what}: the sliced and L2 kernels differ")
+            err = max(err, check_close(outs[-1], kblockfma.blockfma_a_torch(*a), what))
+    if min(stages.values()) != 0 or max(stages.values()) < 2:
+        raise AssertionError(f"blockfma A edges {stages} do not run both paths")
+    row["stages"] = kblockfma.a_plan(tblockfma.C, optin)
+    row["edges"], row["edge_stages"] = sorted(tblockfma.A_EDGES), stages
+    return err
 
 
 def blockfma_b_edges(dev, row: dict) -> float:

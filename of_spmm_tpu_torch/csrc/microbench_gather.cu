@@ -9,7 +9,10 @@
 //                a shuffle, the sum in k order with fused multiply-adds, the
 //                tier read through L2. Exported as ofs_gather_ell_reduce,
 //                which also serves take_fused (csrc/microbench_gather2.cu's
-//                tool, K = 8).
+//                tool, K = 8). A form that kept a 4-column slice of the tier
+//                in each block's shared memory, cols and vals staged by TMA
+//                and multicast to a cluster, ran slower than this kernel at
+//                every C measured on an H100 (PERF.md).
 //   vmem_take    bench_vmem_take (:175): out[t] = tier[cols[t]].
 //   onehot       bench_onehot_mxu (:219): out[t] = sum_c [cols[t] == c] tier[c],
 //                that is f32(tier[cols[t]]), an index outside [0, C) giving a

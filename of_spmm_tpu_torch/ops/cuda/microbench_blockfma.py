@@ -7,15 +7,18 @@ compute the functions of the TPU kernels in tools/microbench_blockfma.py
 ``csrc/microbench_blockfma.cu``; design notes are there. On the CPU they
 run the plain versions; on the card they launch the kernel or raise, and
 never fall back. Each launch adds one to ``LAUNCHES["microbench_blockfma_a"]``
-or ``["microbench_blockfma_b"]`` (ops/cuda/build.py).
+or ``["microbench_blockfma_b"]`` (ops/cuda/build.py). A runs out of a column
+slice of the tier held in each block's shared memory where ``a_plan``
+takes it, else out of L2.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from of_spmm_tpu_torch.ops.cuda import build as _build
 from of_spmm_tpu_torch.ops.cuda.build import LAUNCHES, raise_if, require, same_device, stream
@@ -24,6 +27,49 @@ SOURCE = "microbench_blockfma.cu"
 D = 128     # tier and output width
 ROWS = 8    # output rows per step
 CHUNK_STEPS = 256  # steps per chunk of the plain versions (A: 268 MB at K = 256)
+# A's sliced kernel (csrc/microbench_blockfma.cu blockfma_a_sliced_kernel)
+SLICE_COLS = 4     # tier columns a block holds
+SMEM_FIXED = 1024 + 128  # alignment slack and the stages' mbarriers
+STAGE_STEPS = 32   # steps a stage holds: 256 rows of w, one consumer thread each
+STAGE_BYTES = STAGE_STEPS * ROWS * (32 * 4 + 16)  # 32 slots of w, then 4 start columns
+MIN_STAGES, MAX_STAGES = 2, 8
+TILES = 2 * STAGE_STEPS * ROWS * 16  # two output tiles of 256 rows, 16 bytes each
+# the least C at which the sliced kernel takes the path: below it the L2
+# kernel ran faster on an H100 (its tier of 1 MB or less stays in L1 and
+# L2; the crossover lay between C 2,048 and 2,560, PERF.md)
+A_SLICED_MIN_C = 2304
+
+
+def a_stages(C: int, optin: int) -> int:
+    """Stages of A's sliced kernel that fit ``optin`` bytes beside a
+    4-column slice of the C-row tier and the output tiles, at most
+    MAX_STAGES; 0 where fewer than MIN_STAGES fit."""
+    room = optin - SMEM_FIXED - TILES - C * SLICE_COLS * 4
+    n = min(MAX_STAGES, room // STAGE_BYTES)
+    return n if n >= MIN_STAGES else 0
+
+
+def a_plan(C: int, optin: int) -> int:
+    """Stages of A's path for a C-row tier at the card's ``optin`` bytes:
+    the sliced kernel's (a_stages) from A_SLICED_MIN_C rows to as many as
+    fit, 0 (the L2 kernel) elsewhere. A function of C and the card alone,
+    never of a failure."""
+    return a_stages(C, optin) if C >= A_SLICED_MIN_C else 0
+
+
+def smem_optin(device: torch.device) -> int:
+    """The card's opt-in shared memory per block in bytes."""
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def staged_rows(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(t, its row length) as a 2-D TMA copy takes a 2-D array of 4-byte
+    elements: rows a multiple of 16 bytes and a 16-byte aligned base; else
+    a zero-padded copy."""
+    if t.shape[1] % 4 == 0 and t.data_ptr() % 16 == 0:
+        return t, t.shape[1]
+    ld = -(-t.shape[1] // 4) * 4
+    return F.pad(t, (0, ld - t.shape[1])), ld
 
 
 def build() -> Dict[str, object]:
@@ -33,7 +79,7 @@ def build() -> Dict[str, object]:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.ofs_blockfma.argtypes = [i32, p, p, p, p, i64, i32, i64, i32, p]
+    lib.ofs_blockfma.argtypes = [i32, p, p, p, p, i64, i32, i64, i32, i32, i32, p]
     lib.ofs_blockfma.restype = i32
 
 
@@ -98,16 +144,29 @@ def blockfma_b_torch(starts: torch.Tensor, vals: torch.Tensor, tier: torch.Tenso
 
 
 def _launch(variant: int, name: str, starts: torch.Tensor, w: torch.Tensor,
-            tier: torch.Tensor) -> torch.Tensor:
+            tier: torch.Tensor, sliced: Optional[bool] = None) -> torch.Tensor:
+    """Launch variant 0 (A) or 1 (B), counted as ``name``; A on the path of
+    ``a_plan``, or, where a caller compares the paths, the one ``sliced``
+    names."""
     K = _check(starts, w, tier, variant == 0)
     dev = starts.device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {dev}")
     lib = _lib()
+    R, C = starts.shape[0] // ROWS, tier.shape[0]
+    ld, stages = K // ROWS, 0
+    if variant == 0 and sliced is not False:
+        optin = smem_optin(dev)
+        stages = a_stages(C, optin) if sliced else a_plan(C, optin)
+        if sliced and not stages:
+            raise ValueError(f"no 4-column slice of {C} rows fits {optin} bytes of shared memory")
+    # the output first: a padded copy must not take the block freed before the call
     out = torch.empty((starts.shape[0], D), dtype=torch.float32, device=dev)
+    if stages:
+        starts, ld = staged_rows(starts)
+        w, _ = staged_rows(w)
     rc = lib.ofs_blockfma(variant, starts.data_ptr(), w.data_ptr(), tier.data_ptr(),
-                          out.data_ptr(), starts.shape[0] // ROWS, K, tier.shape[0],
-                          dev.index or 0, stream(dev))
+                          out.data_ptr(), R, K, C, ld, stages, dev.index or 0, stream(dev))
     raise_if(lib, rc, name)
     LAUNCHES[name] += 1
     return out

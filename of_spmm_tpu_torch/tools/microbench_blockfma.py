@@ -77,6 +77,30 @@ def b_edge_inputs(case: str, C: int = C,
     return starts, vals, tier
 
 
+# A's edges (seeded, beside the tool's inputs): C on each side of both
+# switches of ops/cuda/microbench_blockfma.a_plan at the H100's 232,448
+# bytes (2,303: the L2 kernel; 2,304: the sliced kernel, 5 stages; 9,336: a
+# 4-column slice and 2 stages; 9,337: the L2 kernel), an odd R (257 steps:
+# a last stage of one step), K 40 (a last stage of 8 slots, starts rows of
+# 5 columns padded for the copy) and a start at C - 8 (the last its
+# assertion allows)
+A_EDGES = {"C2303": dict(C=2303, R=64, K=256), "C2304": dict(C=2304, R=64, K=256),
+           "C9336": dict(C=9336, R=64, K=256), "C9337": dict(C=9337, R=64, K=256),
+           "R257": dict(C=8192, R=257, K=256), "K40": dict(C=5000, R=100, K=40),
+           "last_start": dict(C=8192, R=64, K=256)}
+
+
+def a_edge_inputs(case: str, seed: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(starts, w, tier) of the A edge ``case`` (a key of A_EDGES): the
+    tool's inputs at its C, R and K; last_start's every seventh step starts
+    its last column's slots at C - 8."""
+    e = A_EDGES[case]
+    starts, w, tier = inputs("A", e["C"], e["R"] * e["K"], e["K"], seed)
+    if case == "last_start":
+        starts[::7, -1] = e["C"] - 8
+    return starts, w, tier
+
+
 def named_rows(starts: torch.Tensor) -> torch.Tensor:
     """(8R,) bool: the output rows of B that some slot names (row 8r + c % 8
     for each c in rows 8r to 8r + 7 of starts)."""

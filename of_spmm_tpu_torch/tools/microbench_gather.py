@@ -163,8 +163,8 @@ def bench_xla_take(device: torch.device, table_rows: int, n_idx: int,
 def bench_vmem_loop(device: torch.device, C: int, T: int, K: int = VMEM_K) -> Dict[str, object]:
     cols, vals, tier = (a.to(device) for a in inputs_vmem_loop(C, T, K))
     row = measure("microbench_gather", "gather_vmem_loop", f"C={C}",
-                  lambda: kernels.vmem_loop(cols, vals, tier), ell_work(cols, K, tier, vals),
-                  T, device, C=C, K=K)
+                  lambda: kernels.vmem_loop(cols, vals, tier),
+                  ell_work(cols, K, tier, vals, resident=True), T, device, C=C, K=K)
     show(row, "vmem loop", f"C={C} K={K}", " (L2-side)")
     return row
 

@@ -148,8 +148,8 @@ def bench_take_fused(device: torch.device, C: int, T: int = T,
     """The ELL inner loop: gather T rows, multiply by vals, reduce width K."""
     cols, vals, tier = (a.to(device) for a in inputs_take_fused(C, T, K))
     row = measure("microbench_gather2", "gather2_take_fused", f"C={C}",
-                  lambda: kernels.take_fused(cols, vals, tier), ell_work(cols, K, tier, vals), T,
-                  device, C=C, K=K)
+                  lambda: kernels.take_fused(cols, vals, tier),
+                  ell_work(cols, K, tier, vals, resident=True), T, device, C=C, K=K)
     show(row, "take fused", f"C={C} K={K}", " (take+mul+reduce)")
     return row
 

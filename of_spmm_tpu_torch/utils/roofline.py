@@ -443,9 +443,11 @@ def blockfma_work(variant: str, starts: torch.Tensor, w: torch.Tensor,
                   tier: torch.Tensor) -> KernelWork:
     """tools/microbench_blockfma.py: A reads starts, w, the tier rows of
     every 8-row block [s, s + 8) and writes out; 2 flops per (slot, row,
-    column). B reads starts, vals, the tier rows c and writes out; 2 flops
-    per (slot, column): one row per slot (the TPU's 7 zero rows per slot
-    are not work)."""
+    column); and per (slot, row, column) one tier word out of the tier the
+    TPU holds in VMEM, Hopper's shared memory (``smem_words``). B reads
+    starts, vals, the tier rows c and writes out; 2 flops per (slot,
+    column): one row per slot (the TPU's 7 zero rows per slot are not
+    work)."""
     rows_out, d = starts.shape[0], tier.shape[1]
     K = starts.shape[1] * 8
     slots = (rows_out // 8) * K
@@ -458,7 +460,7 @@ def blockfma_work(variant: str, starts: torch.Tensor, w: torch.Tensor,
     else:
         raise ValueError(f"variant must be 'A' or 'B', got {variant!r}")
     nbytes = starts.nbytes + w.nbytes + rows * d * 4 + rows_out * d * 4
-    return KernelWork(nbytes, flops)
+    return KernelWork(nbytes, flops, smem_words=slots * 8 * d if variant == "A" else 0)
 
 
 def mxu_work(variant: str, blk: torch.Tensor, lidx: torch.Tensor, lrow: torch.Tensor,
@@ -548,17 +550,22 @@ def row_gather_work(cols: torch.Tensor, table: torch.Tensor) -> KernelWork:
 
 
 def ell_work(cols: torch.Tensor, K: int, table: torch.Tensor,
-             vals: Optional[torch.Tensor] = None) -> KernelWork:
+             vals: Optional[torch.Tensor] = None, resident: bool = False) -> KernelWork:
     """An ELL gather-reduce, out[o] = sum over k < K of (vals[o, k] *)
     table[flat cols[K o + k]]: bench_vmem_loop and bench_take_fused
     (weighted), bench_row_dma and bench_dma_deep (unweighted). The
     distinct rows cols names, cols, vals and the output; per index and
-    column 2 flops weighted (the multiply-add), 1 unweighted (the add)."""
+    column 2 flops weighted (the multiply-add), 1 unweighted (the add).
+    ``resident``: the table is one the TPU holds in VMEM (vmem_loop,
+    take_fused), so each index's row is also read out of Hopper's shared
+    memory, cols.numel() x 128 words (``smem_words``); row_dma's and
+    dma_deep's table lies in device memory."""
     d = table.shape[1]
     n_out = cols.numel() // K
     nbytes = _distinct(cols) * d * table.element_size() + cols.nbytes + n_out * d * 4
     nbytes += 0 if vals is None else vals.nbytes
-    return KernelWork(nbytes, (1 if vals is None else 2) * cols.numel() * d)
+    return KernelWork(nbytes, (1 if vals is None else 2) * cols.numel() * d,
+                      smem_words=cols.numel() * d if resident else 0)
 
 
 def _window_rows(idx: torch.Tensor, window: int, bases: Optional[torch.Tensor],
@@ -603,11 +610,13 @@ def onehot_macs(cols: torch.Tensor, n_tables: int, window: int) -> int:
 def block_slice_work(starts: torch.Tensor, tier: torch.Tensor) -> KernelWork:
     """bench_block_slice: the distinct tier rows of every 8-row block
     [s, s + 8), starts and the output (8 rows per step of 8 x K starts);
-    one add per (start, block row, column)."""
+    one add per (start, block row, column); and per (start, block row,
+    column) one word out of the tier the TPU holds in VMEM, Hopper's shared
+    memory (``smem_words``), as blockfma_work counts A's."""
     d = tier.shape[1]
     rows = _distinct(starts.long()[..., None] + torch.arange(8, device=starts.device))
     return KernelWork(rows * d * 4 + starts.nbytes + starts.shape[0] * d * 4,
-                      starts.numel() * 8 * d)
+                      starts.numel() * 8 * d, smem_words=starts.numel() * 8 * d)
 
 
 def twosided_work(bases: torch.Tensor, lidx: torch.Tensor, rows: torch.Tensor,

@@ -299,7 +299,19 @@ def test_work_counts_at_the_tools_defaults():
     cols, vals, tier = tgather.inputs_vmem_loop(8192, tgather.T)
     loop = ell_work(cols, 128, tier, vals)
     assert loop.flops == 2 * 2**20 * 128 and loop.bytes == 8190 * 512 + 3 * 2**22
-    assert loop.bound(*PEAKS)[1] == "bytes"
+    assert loop.bound(*PEAKS)[1] == "bytes" and loop.smem_words == 0
+    # the tier the TPU holds in VMEM: each of the 1M indices' 128 words also
+    # out of shared memory, 0.016 ms at 132 SMs x 32 words x 1,980 MHz,
+    # above the 0.0050 ms of its bytes
+    resident = ell_work(cols, 128, tier, vals, resident=True)
+    assert resident.bytes == loop.bytes and resident.smem_words == 2**20 * 128
+    assert resident.bound(*PEAKS, SMEM) == (pytest.approx(0.0161, abs=1e-4), "bytes")
+    assert loop.bound(*PEAKS)[0] == pytest.approx(0.0050, abs=1e-4)
+    # take_fused: its 0.0238 ms of bytes stands above its 0.016 of words
+    fcols, fvals, ftier = tgather2.inputs_take_fused(8192)
+    fused = ell_work(fcols, 8, ftier, fvals, resident=True)
+    assert fused.smem_words == 2**20 * 128
+    assert fused.bound(*PEAKS, SMEM) == (pytest.approx(0.0238, abs=1e-4), "bytes")
     cols, tier = tgather.inputs_take(2048, tgather.T)
     take = row_gather_work(cols, tier)
     assert take.bytes == 2046 * 512 + 2**22 + 2**29
@@ -315,6 +327,10 @@ def test_work_counts_at_the_tools_defaults():
     blk = block_slice_work(starts, tier)
     assert starts.shape == (1024, 128) and blk.flops == 2**17 * 8 * 128
     assert blk.bytes == 8190 * 512 + 2**19 + 1024 * 512  # rows 0 .. C - 3 of 8-row blocks
+    # each start's 8 rows x 128 words out of the VMEM-resident tier: 0.016 ms
+    # of shared-memory words, above the 0.0020 ms of its adds
+    assert blk.smem_words == 2**17 * 8 * 128
+    assert blk.bound(*PEAKS, SMEM) == (pytest.approx(0.0161, abs=1e-4), "bytes")
 
     def first_draw(rows, n):
         return torch.from_numpy(np.random.default_rng(0).integers(0, rows - 2, n)
@@ -325,6 +341,8 @@ def test_work_counts_at_the_tools_defaults():
     rows = int(torch.unique(dcols).numel())
     assert ell_work(dcols, 16, table).bytes == rows * 512 + 2**20 + 2**14 * 512
     assert ell_work(dcols, 128, table).bytes == rows * 512 + 2**20 + 2**11 * 512
+    # row_dma's and dma_deep's table lies in device memory: no shared words
+    assert ell_work(dcols, 16, table).smem_words == ell_work(dcols, 128, table).smem_words == 0
     cols, hi, lo = tgather2.inputs_onehot_pair(128, tgather2.T)
     pair = onehot_work(cols, (hi, lo), 128)
     assert pair.flops == 2**20 * 128 and pair.bytes == 126 * 512 + 2**22 + 2**29
@@ -427,3 +445,4 @@ def test_take_along_at_its_edges_on_the_card():
             assert torch.equal(got, kdyn.take_along_torch(idx, table, steps)), (C, T)
             paths.add(kdyn.slice_lanes(C, optin) > 0)
     assert paths == {True, False}
+

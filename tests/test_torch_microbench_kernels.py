@@ -26,6 +26,7 @@ from of_spmm_tpu_torch.ops.cuda import microbench_mxu as kmxu
 from of_spmm_tpu_torch.ops.cuda import proto_fused as kproto
 from of_spmm_tpu_torch.tools import microbench_blockfma as tblockfma
 from of_spmm_tpu_torch.tools import microbench_cond as tcond
+from of_spmm_tpu_torch.tools.microbench_dyngather import H100_OPTIN
 from of_spmm_tpu_torch.tools import microbench_mxu as tmxu
 from of_spmm_tpu_torch.tools import proto_fused as tproto
 from of_spmm_tpu_torch.utils.roofline import (
@@ -282,10 +283,17 @@ def test_work_counts_at_the_tools_defaults():
     """The bounds of the kernels' notes: bytes and operations from the
     tools' default inputs, over 3.35 TB/s, 67 TFLOP/s fp32, 989 TFLOP/s."""
     peaks = (3.35e12, 67e12, 989e12)
+    smem = 132 * 32 * 1.98e9  # shared-memory words/s: 32 a clock on 132 SMs at 1,980 MHz
     a = blockfma_work("A", *(torch.from_numpy(x) for x in tblockfma.inputs("A")))
     assert a.flops == 2 * 4096 * 256 * 8 * 128 and abs(a.bytes / 1e6 - 58.7) < 0.1
-    assert a.bound(*peaks)[1] == "operations" and abs(a.bound(*peaks)[0] - 0.0321) < 1e-4
+    # each (slot, row, column) reads one word of the tier the TPU holds in
+    # VMEM, Hopper's shared memory: 1.07 G words, 0.128 ms, above the
+    # operations' 0.0321 ms
+    assert a.smem_words == 4096 * 256 * 8 * 128
+    assert a.bound(*peaks, smem) == (pytest.approx(0.1284, abs=1e-4), "bytes")
+    assert a.flops / peaks[1] * 1e3 == pytest.approx(0.0321, abs=1e-4)
     b = blockfma_work("B", *(torch.from_numpy(x) for x in tblockfma.inputs("B")))
+    assert b.smem_words == 0
     assert abs(b.bytes / 1e6 - 29.4) < 0.1 and b.bound(*peaks)[1] == "bytes"
     args = tmxu.inputs()
     chain2 = mxu_work("chain2", *args[:3], 512)
@@ -426,6 +434,81 @@ def test_proto_fused_work_counts_what_the_lanes_reference():
     assert dma.flops == 0 and dma.bytes > TILES * S * 512
 
 
+@pytest.mark.parametrize("C,stages,plan", [(64, 6, 0), (1000, 5, 0), (2303, 5, 0), (2304, 5, 5),
+                                           (5000, 3, 3), (8192, 2, 2), (9336, 2, 2), (9337, 0, 0),
+                                           (65536, 0, 0)])
+def test_a_stages_fit_the_opt_in_shared_memory(C, stages, plan):
+    """At the H100's 232,448 bytes A's sliced kernel holds a 4-column slice
+    of the C-row tier, two output tiles and 2 to 8 stages (32 steps x 32
+    slots of w and starts), 0 where 2 do not fit; its path takes it from
+    A_SLICED_MIN_C rows on, the L2 kernel elsewhere. The switches fall
+    where the tool's A_EDGES put their two sides."""
+    assert kblockfma.a_stages(C, H100_OPTIN) == stages
+    assert kblockfma.a_plan(C, H100_OPTIN) == plan
+    fixed, stage = kblockfma.SMEM_FIXED + kblockfma.TILES + C * 16, kblockfma.STAGE_BYTES
+    if stages:
+        assert fixed + stages * stage <= H100_OPTIN
+        assert stages == kblockfma.MAX_STAGES or fixed + (stages + 1) * stage > H100_OPTIN
+    sides = {case: kblockfma.a_plan(e["C"], H100_OPTIN) for case, e in tblockfma.A_EDGES.items()}
+    assert sides["C2303"] == 0 < sides["C2304"] and sides["C9336"] > 0 == sides["C9337"]
+
+
+def test_a_edges_hold_what_they_name():
+    for case, e in tblockfma.A_EDGES.items():
+        starts, w, tier = tblockfma.a_edge_inputs(case, seed=1)
+        assert starts.shape == (8 * e["R"], e["K"] // 8) and tier.shape == (e["C"], 128)
+        assert starts.min() >= 0 and starts.max() + 8 <= e["C"]
+        if case == "last_start":
+            assert (starts == e["C"] - 8).sum() > 0
+
+
+def _fma32(acc, w, x):
+    """fmaf(w, x, acc) in float32: w x is exact in float64 (24 + 24 bits),
+    the sum rounded to float64 and then to float32."""
+    return (w.double() * x.double() + acc.double()).float()
+
+
+def _a_parent_order(s, w3, tier):
+    """blockfma_a_kernel's sums: a block a step, a warp a row, all 128
+    columns, k in order. s (R, K) slot starts, w3 (R, 8, K)."""
+    j = torch.arange(8)
+    acc = torch.zeros((s.shape[0], 8, 128))
+    for k in range(s.shape[1]):
+        acc = _fma32(acc, w3[:, :, k:k + 1], tier[s[:, k:k + 1] + j])
+    return acc
+
+
+def _a_sliced_order(s, w3, tier, W=kblockfma.SLICE_COLS):
+    """blockfma_a_sliced_kernel's sums: a slice of W columns at a time, its
+    steps in stages of 32, each stage's 32 slots in order."""
+    R, K = s.shape
+    j = torch.arange(8)
+    out = torch.full((R, 8, 128), float("nan"))
+    for c0 in range(0, 128, W):
+        for r0 in range(0, R, kblockfma.STAGE_STEPS):
+            st = slice(r0, min(r0 + kblockfma.STAGE_STEPS, R))
+            acc = torch.zeros((st.stop - r0, 8, W))
+            for k0 in range(0, K, 32):
+                for k in range(k0, min(k0 + 32, K)):
+                    x = tier[s[st, k:k + 1] + j][..., c0:c0 + W]
+                    acc = _fma32(acc, w3[st, :, k:k + 1], x)
+            out[st, :, c0:c0 + W] = acc
+    return out
+
+
+def test_a_sliced_order_is_the_l2_kernels_bit_for_bit():
+    """A's sliced order of sums, a slice at a time in slot order (40 steps:
+    a last stage of 8; K 40: a last stage of 8 slots), equals the L2
+    kernel's bit for bit, and both the plain version within
+    1e-5 + 1e-4|p|."""
+    starts, w, tier = (torch.from_numpy(x) for x in tblockfma.inputs("A", 64, 40 * 40, 40, 3))
+    s, w3 = kblockfma._slots(starts, 40), w.view(40, 8, 40)
+    parent = _a_parent_order(s, w3, tier)
+    assert kblockfma.a_stages(64, H100_OPTIN) and torch.equal(_a_sliced_order(s, w3, tier), parent)
+    torch.testing.assert_close(parent.reshape(-1, 128), kblockfma.blockfma_a_torch(starts, w, tier),
+                               rtol=ELEMENTWISE[0], atol=ELEMENTWISE[1])
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
@@ -521,3 +604,30 @@ def test_redesigned_kernels_at_their_edges_on_the_card():
                 got = kcond.cond_steps(mode, *c)
                 assert got.data_ptr() == at
                 assert _normwise(got, kcond.cond_steps_torch(mode, *c)) <= NORMWISE, (case, mode)
+
+
+@pytest.mark.cuda
+def test_blockfma_a_paths_at_their_edges_on_the_card():
+    """A's L2 kernel and sliced kernel at the tool's A_EDGES (C on each
+    side of both switches, R 257, K 40, a start at C - 8), two seeds, each
+    output on NaN-poisoned memory: bit-equal to each other and within 1e-5 + 1e-4|p| of the plain
+    version; the wrapper's own path gives the same bits."""
+    dev = _card()
+    optin = kblockfma.smem_optin(dev)
+    sliced = set()
+    for seed in (1, 2):
+        for case in sorted(tblockfma.A_EDGES):
+            a = [torch.from_numpy(x).to(dev) for x in tblockfma.a_edge_inputs(case, seed)]
+            at = _poison(a[0].shape[0], dev)
+            ref = kblockfma._launch(0, "microbench_blockfma_a", *a, sliced=False)
+            assert ref.data_ptr() == at, case
+            torch.testing.assert_close(ref, kblockfma.blockfma_a_torch(*a), rtol=ELEMENTWISE[0],
+                                       atol=ELEMENTWISE[1])
+            fits = kblockfma.a_stages(a[2].shape[0], optin) > 0
+            sliced.add(fits)
+            if fits:
+                at = _poison(a[0].shape[0], dev)
+                got = kblockfma._launch(0, "microbench_blockfma_a", *a, sliced=True)
+                assert got.data_ptr() == at and torch.equal(got, ref), case
+            assert torch.equal(kblockfma.blockfma_a(*a), ref), case
+    assert sliced == {True, False}
