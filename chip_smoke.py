@@ -457,7 +457,8 @@ LIBRARY_NONE = {
 # the gather kernels against their plain versions: bit-exact where the
 # kernel moves values (row gathers, one-hot products: 1 x v plus zeros, the
 # hi + lo add in float32), elementwise 1e-5 + 1e-4|p| where it sums
-# positive terms in another order (the ELL forms, block_slice), normwise
+# positive terms in another order (the ELL forms, block_slice: its count
+# path sums exact products of count digits and tier pieces), normwise
 # 1e-4 max|p| for twosided (lanes and blocks' partials added with atomics
 # in no fixed order)
 GATHER_EXACT = ("gather_vmem_take", "gather_onehot", "gather2_onehot_pair",
@@ -472,7 +473,8 @@ GATHER_EXACT = ("gather_vmem_take", "gather_onehot", "gather2_onehot_pair",
 # outside=True: indices below 0 and at or past the window,
 # tools/microbench_gather.with_outside; for twosided R = 1000 and 1024,
 # whose (R, 128) partials exceed a block's shared memory and are sliced
-# unevenly, last blocks partial)
+# unevenly, last blocks partial); block_slice's outputs on NaN-poisoned
+# memory, and both of its paths at the tool's BLOCK_EDGES (block_slice_edges)
 GATHER_SMALL = {
     "gather_vmem_loop": (dict(C=64, T=2048, K=16), dict(C=1000, T=1 << 16, K=128)),
     "gather_vmem_take": (dict(C=64, T=2048), dict(C=5000, T=1 << 16)),
@@ -542,6 +544,20 @@ from of_spmm_tpu_torch.ops.cuda import microbench_gather as kgather
 cols = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
 cols[0, 77] = 64
 kgather.vmem_take(cols, torch.zeros((64, 128), device="cuda"))
+torch.cuda.synchronize()
+print("no error")
+"""
+
+# A block_slice start past C - 8 or below 0 on one of its paths (chunk rows
+# 0: the L2 kernel; else the count-matrix kernel, whose second launch checks
+# the starts): it must stop with a device-side assertion (child process, as
+# above).
+BAD_BLOCK_SLICE_PROBE = """
+import torch
+from of_spmm_tpu_torch.ops.cuda import microbench_gather as kgather
+starts = torch.zeros((128, 32), dtype=torch.int32, device="cuda")
+starts[77, 5] = {bad}
+kgather.block_slice_launch(starts, torch.zeros((1024, 128), device="cuda"), {rows})
 torch.cuda.synchronize()
 print("no error")
 """
@@ -4772,6 +4788,23 @@ def gather_check(kernel: str, got: torch.Tensor, want: torch.Tensor, what: str) 
     return check_close(got, want, what)
 
 
+def poisoned(kernel: str, size: dict, dev, run) -> torch.Tensor:
+    """run() with its output on NaN-poisoned memory where the kernel writes
+    a fresh (rows, 128) output whose every row it must set (take_along,
+    block_slice), checked to be that block; else run()."""
+    if kernel == "dyngather_take_along":
+        rows = size["C"] if size.get("shape") == "eq" else size["T"]
+    elif kernel == "gather_block_slice":
+        rows = size["T"] // (8 * size["K"])  # 8R
+    else:
+        return run()
+    at = poison_block(rows, dev)
+    got = run()
+    if got.data_ptr() != at:
+        raise AssertionError(f"{kernel} {size}: the output is not the poisoned block")
+    return got
+
+
 def gather_rows_check(dev, rows: list) -> None:
     """Every kernel row of a gather tool's run: the kernel against its plain
     version on the row's inputs (the default size, seed 0) and on
@@ -4783,9 +4816,11 @@ def gather_rows_check(dev, rows: list) -> None:
             k = row["kernel"]
             if k is None:
                 continue
-            run, plain, lib = gather_case(k, dev, 0, **{key: row[key] for key in GATHER_KEYS[k]})
+            size = {key: row[key] for key in GATHER_KEYS[k]}
+            run, plain, lib = gather_case(k, dev, 0, **size)
             want = plain()
-            row["max_abs_err"] = gather_check(k, run(), want, f"{k} {row['variant']}")
+            row["max_abs_err"] = gather_check(k, poisoned(k, size, dev, run), want,
+                                              f"{k} {row['variant']}")
             row["plain_ms"] = time_cuda(plain, iters=3)
             row["library"], row["library_ms"] = None, None
             if lib is not None:  # twosided: lanes summed in another order (normwise)
@@ -4797,11 +4832,7 @@ def gather_rows_check(dev, rows: list) -> None:
                 small_err[k] = 0.0
                 for seed, size in enumerate(GATHER_SMALL[k], start=1):
                     run, plain, _ = gather_case(k, dev, seed, **size)
-                    at = poison_block(size["C"] if size.get("shape") == "eq" else size["T"],
-                                      dev) if k == "dyngather_take_along" else None
-                    got = run()
-                    if at is not None and got.data_ptr() != at:
-                        raise AssertionError(f"{k} {size}: the output is not the poisoned block")
+                    got = poisoned(k, size, dev, run)
                     small_err[k] = max(small_err[k], gather_check(k, got, plain(),
                                                                   f"{k} {size} seed {seed}"))
                     del got
@@ -4820,8 +4851,75 @@ def gather_phase(dev) -> tuple:
                                         "gather_onehot": 2 * len(tgather.ONEHOT_C) * calls,
                                         "gather_block_slice": calls, "gather_row_dma": calls})
     gather_rows_check(dev, rows)
-    expect_device_assert(BAD_GATHER_PROBE, "vmem_take with a row outside the tier")
+    with torch.inference_mode():
+        for row in rows:
+            if row["kernel"] == "gather_block_slice":
+                row["max_abs_err"] = max(row["max_abs_err"], block_slice_edges(dev, row))
+    expect_device_asserts([(BAD_GATHER_PROBE, "vmem_take with a row outside the tier")]
+                          + [(BAD_BLOCK_SLICE_PROBE.format(bad=bad, rows=rows),
+                              f"block_slice with a start at {bad} of C 1024, chunk rows {rows}")
+                             for bad in (1024 - 7, -1) for rows in (64, 0)])
     return rows, launches
+
+
+def exact_check(got: torch.Tensor, want64: torch.Tensor, what: str) -> float:
+    """|k - p| <= BS_EXACT_RTOL |p| elementwise against a float64 result,
+    tight enough to fail a count path that dropped its lo piece; returns
+    max |k - p| / |p|."""
+    rel = (got.double() - want64).abs() / want64.abs()
+    if not torch.isfinite(got).all() or (rel > kgather.BS_EXACT_RTOL).any():
+        raise AssertionError(f"{what}: max rel err {float(rel.max())} against float64 "
+                             f"(limit {kgather.BS_EXACT_RTOL})")
+    return float(rel.max())
+
+
+def block_slice_edges(dev, row: dict) -> float:
+    """block_slice on both of its paths at its edges (the tool's
+    BLOCK_EDGES, EDGE_SEEDS): the count-matrix kernel on the chunks
+    block_slice_chunk_rows gives, and the L2 kernel, each output on
+    NaN-poisoned memory, against the plain version, and the count path's
+    also against the float64 sum (exact_check), as its output at the tool's
+    default; each path's time at the first seed; the largest error. Records
+    the path block_slice_plan takes at the default size and at each edge
+    (chunk rows; 0 the L2 kernel), and each path's largest error relative to
+    the float64 sum, into ``row``."""
+    optin, sms = kgather.card_shape(dev)
+    err, paths, ms, rel = 0.0, {}, {}, {"count": 0.0, "L2": 0.0}
+    if row["chunk_rows"]:
+        starts, tier = (t.to(dev) for t in tgather.inputs_block_slice(row["C"], tgather.T,
+                                                                      row["K"]))
+        rel["count"] = exact_check(kgather.block_slice(starts, tier),
+                                   kgather.block_slice_float64(starts, tier),
+                                   "block_slice at the tool's default")
+    for seed in EDGE_SEEDS:
+        for case, e in tgather.BLOCK_EDGES.items():
+            starts, tier = (t.to(dev) for t in tgather.block_edge_inputs(case, seed))
+            paths[case] = kgather.block_slice_plan(e["C"], e["K"], e["R"], optin, sms)
+            want, want64 = kgather.block_slice_torch(starts, tier), \
+                kgather.block_slice_float64(starts, tier)
+            for rows in (kgather.block_slice_chunk_rows(e["C"], e["R"], optin, sms), 0):
+                what = f"block_slice edge {case} seed={seed} chunk rows={rows}"
+                at = poison_block(starts.shape[0], dev)
+                got = kgather.block_slice_launch(starts, tier, rows)
+                torch.cuda.synchronize()
+                if got.data_ptr() != at:
+                    raise AssertionError(f"{what}: the output is not the poisoned block")
+                err = max(err, check_close(got, want, what))
+                if rows:
+                    rel["count"] = max(rel["count"], exact_check(got, want64, what))
+                else:  # the L2 kernel sums in float32 in its own order: recorded, not held
+                    rel["L2"] = max(rel["L2"], float(((got.double() - want64).abs()
+                                                      / want64.abs()).max()))
+                del got
+                if seed == EDGE_SEEDS[0]:
+                    ms[f"{case} rows={rows}"] = time_cuda(
+                        lambda: kgather.block_slice_launch(starts, tier, rows), iters=10)
+    if min(paths.values()) != 0 or max(paths.values()) == 0:
+        raise AssertionError(f"block_slice edges {paths} do not run both paths")
+    row["path"] = "count matrix" if row["chunk_rows"] else "L2"
+    row["edges"], row["edge_chunk_rows"], row["edge_ms"] = sorted(tgather.BLOCK_EDGES), paths, ms
+    row["rel_err_float64"] = rel
+    return err
 
 
 def gather2_phase(dev) -> tuple:
@@ -4855,6 +4953,9 @@ def dyngather_phase(dev) -> tuple:
     if cap["nbytes"] != limit or any(ok != (n <= limit) for n, ok in cap["tried"]):
         raise AssertionError(f"vmem_cap: sizes {cap['tried']} against the opt-in limit {limit}")
     gather_rows_check(dev, rows)
+    # smem_cap's launch floor: one empty warp through the same timer
+    cap["launch_floor_ms"] = time_cuda(lambda: kdyn.empty_launch(dev), iters=tdyn.ITERS)
+    cap["fraction_of_bytes_or_floor"] = max(cap["bound_ms"], cap["launch_floor_ms"]) / cap["ms"]
     # take_along's two paths: shared-memory slices and, past one lane, L2
     lanes = {size["C"]: kdyn.slice_lanes(size["C"], limit)
              for size in GATHER_SMALL["dyngather_take_along"]}
@@ -4885,7 +4986,10 @@ def microbench_entry(name: str, rows: list, launches: dict) -> dict:
              **{k: main_row[k] for k in keys}, "library_ms": main_row.get("library_ms"),
              **({"library": main_row["library"]} if main_row.get("library")
                 else {"library": LIBRARY_NONE[name]} if name in LIBRARY_NONE else {}),
-             **({"onehot_macs": main_row["onehot_macs"]} if "onehot_macs" in main_row else {}),
+             **{k: main_row[k] for k in ("onehot_macs", "count_macs", "chunk_rows", "path",
+                                         "edge_chunk_rows", "edge_ms", "rel_err_float64",
+                                         "launch_floor_ms",
+                                         "fraction_of_bytes_or_floor") if k in main_row},
              "times_scope": f"variant {MICROBENCH_MAIN[name]} at the tool's default size"}
     if "per_pass_ms" in main_row:  # take_along: the library call is one pass
         entry["per_pass_ms"] = main_row["per_pass_ms"]

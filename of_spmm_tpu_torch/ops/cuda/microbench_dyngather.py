@@ -58,6 +58,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ofs_take_along.restype = i32
     lib.ofs_smem_cap.argtypes = [p, p, i32, i32, p]
     lib.ofs_smem_cap.restype = i32
+    lib.ofs_empty_launch.argtypes = [i32, p]
+    lib.ofs_empty_launch.restype = i32
     lib.ofs_smem_optin.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     lib.ofs_smem_optin.restype = i32
 
@@ -146,3 +148,12 @@ def smem_cap(x: torch.Tensor, nbytes: int) -> torch.Tensor:
                                    stream(dev)), "dyngather_smem_cap")
     LAUNCHES["dyngather_smem_cap"] += 1
     return out
+
+
+def empty_launch(dev: torch.device) -> None:
+    """Launch one warp that does nothing on ``dev``'s current stream: the
+    launch floor under smem_cap, timed beside it. It replaces no TPU kernel
+    and counts in no LAUNCHES entry."""
+    card(dev, "empty_launch")
+    lib = _lib()
+    raise_if(lib, lib.ofs_empty_launch(dev.index or 0, stream(dev)), "empty_launch")

@@ -11,7 +11,9 @@ seeded inputs (numpy default_rng(0), the same calls in the same order):
   take    row gather (vmem_take)
   onehot  the one-hot product gather's function, float32 and bfloat16
           tiers (onehot: a row gather, zero rows outside [0, C))
-  block   unaligned 8-row block sums (block_slice)
+  block   unaligned 8-row block sums (block_slice: on the card the counts
+          of 16 steps' starts times the shifted tier on the tensor cores,
+          or the L2 kernel where block_slice_plan's models make it faster)
   dma     row gather from a 1 GiB table in device memory, groups of 16
           summed, W rows in flight per warp (row_dma)
 
@@ -23,6 +25,9 @@ of the timing loop (hence indices drawn below C - 2); here every timed call
 runs on the inputs as made.
 
     python -m of_spmm_tpu_torch.tools.microbench_gather [names] [--device cpu]
+
+``blockpaths``, run only when named, times block_slice on each of its
+paths apart across the path switch (card only).
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ D = 128
 ROW_BYTES = D * 4
 ITERS = 10
 NAMES = ("stream", "xla", "vmem", "take", "onehot", "block", "dma")
+# named only: block_slice's two paths timed apart across its path switch
+EXTRA = ("blockpaths",)
 # the TPU tool's sizes: gathered rows, the tables its main() sweeps
 T = 1024 * 1024
 STREAM_N = 16 * 1024 * 1024   # 64 MB float32
@@ -52,6 +59,27 @@ TAKE_C = (2048, 8192, 16384)
 ONEHOT_C = (512, 1024, 2048)
 BLOCK_C, BLOCK_K = 8192, 128
 DMA_ROWS, DMA_T, DMA_W = 2 * 1024 * 1024, 256 * 1024, 16
+# blockpaths: (C, K, R) on both sides of block_slice_plan's switch
+BLOCK_PATHS = (tuple((C, 128, 128) for C in (8192, 16384, 24576, 32768))
+               + tuple((C, 8, 128) for C in (1024, 4096))
+               + tuple((C, 16, 16) for C in (1024, 2048))
+               + tuple((C, 32, 16) for C in (1024, 4096, 8192))
+               + tuple((C, 64, 32) for C in (4096, 8192, 12288)))
+# block_slice's edges: one chunk and fewer than 16 steps; a ragged last
+# group (R 17) and a ragged last chunk; counts past 256 (whole steps of equal
+# starts, at 0, at C - 8 and across a chunk's edge: two base-256 digits);
+# at K 32, R 16 the largest C (a multiple of 64) on the count path on an
+# H100 and the next, on the L2 path; and K 16, whose steps' starts are too
+# few for the count path (block_slice_plan)
+H100 = (232448, 132)  # opt-in shared memory per block in bytes, SMs
+BLOCK_EDGE_K, BLOCK_EDGE_R = 32, 16
+BLOCK_EDGE_C = max(C for C in range(64, 1 << 15, 64)
+                   if kernels.block_slice_plan(C, BLOCK_EDGE_K, BLOCK_EDGE_R, *H100))
+BLOCK_EDGES = {"one_chunk": dict(C=64, K=8, R=4), "ragged": dict(C=3000, K=40, R=17),
+               "over_256": dict(C=1000, K=64, R=20),
+               "count_edge": dict(C=BLOCK_EDGE_C, K=BLOCK_EDGE_K, R=BLOCK_EDGE_R),
+               "l2_edge": dict(C=BLOCK_EDGE_C + 64, K=BLOCK_EDGE_K, R=BLOCK_EDGE_R),
+               "few_starts": dict(C=1024, K=16, R=BLOCK_EDGE_R)}
 
 
 def _t(*arrays) -> Tuple[torch.Tensor, ...]:
@@ -100,6 +128,18 @@ def inputs_block_slice(C: int, T: int, K: int = BLOCK_K, seed: int = 0):
     starts = rng.integers(0, C - 9, (R * 8, K)).astype(np.int32)
     tier = rng.random((C, D), np.float32)
     return _t(starts, tier)
+
+
+def block_edge_inputs(case: str, seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(starts, tier) of the block_slice edge ``case`` (a key of
+    BLOCK_EDGES) at its C, K and R; over_256's steps 0, 1 and 2 start all
+    their 8K blocks at 0, at C - 8 and at 509 (counts of 8K = 512), and step
+    3 its first 5 rows' at 700 (a count of 320: both digits)."""
+    e = BLOCK_EDGES[case]
+    starts, tier = inputs_block_slice(e["C"], e["R"] * 64 * e["K"], e["K"], seed)
+    if case == "over_256":
+        starts[0:8], starts[8:16], starts[16:24], starts[24:29] = 0, e["C"] - 8, 509, 700
+    return starts, tier
 
 
 def inputs_row_dma(table_rows: int, T: int, seed: int = 0):
@@ -200,8 +240,31 @@ def bench_block_slice(device: torch.device, C: int, T: int,
                   lambda: kernels.block_slice(starts, tier), block_slice_work(starts, tier), T,
                   device, C=C, K=K)
     row["mblocks_per_s"] = row["mrows_per_s"] / 8
+    if device.type == "cuda":  # the path the card takes: its chunk rows, 0 the L2 kernel
+        row["chunk_rows"] = kernels.plan_on(starts, tier)
+        row["count_macs"] = kernels.block_slice_macs(starts, C, row["chunk_rows"])
     show(row, "block slice", f"C={C}", f" ({row['mblocks_per_s']:6.0f} Mblocks/s)")
     return row
+
+
+def block_paths(device: torch.device) -> List[Dict[str, object]]:
+    """block_slice on each of its paths, named (block_slice_launch's
+    chunk_rows: 0 the L2 kernel, else the count-matrix kernel's chunks) at
+    BLOCK_PATHS; each row records the path block_slice_plan takes there."""
+    rows = []
+    optin, sms = kernels.card_shape(device)
+    for C, K, R in BLOCK_PATHS:
+        starts, tier = (a.to(device) for a in inputs_block_slice(C, R * 64 * K, K))
+        for chunk_rows in (0, kernels.block_slice_chunk_rows(C, R, optin, sms)):
+            row = measure("microbench_gather", "gather_block_slice",
+                          f"paths C={C} K={K} R={R} rows={chunk_rows}",
+                          lambda: kernels.block_slice_launch(starts, tier, chunk_rows),
+                          block_slice_work(starts, tier), R * 64 * K, device, C=C, K=K, R=R,
+                          chunk_rows=chunk_rows,
+                          plan=kernels.block_slice_plan(C, K, R, optin, sms))
+            show(row, "block paths", f"C={C} K={K} R={R} chunk rows={chunk_rows}")
+            rows.append(row)
+    return rows
 
 
 def bench_row_dma(device: torch.device, table_rows: int, T: int,
@@ -217,9 +280,9 @@ def bench_row_dma(device: torch.device, table_rows: int, T: int,
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
     device, rest = split_device(sys.argv[1:] if argv is None else argv)
     which = rest or list(NAMES)
-    unknown = sorted(set(which) - set(NAMES))
+    unknown = sorted(set(which) - set(NAMES) - set(EXTRA))
     if unknown:
-        raise SystemExit(f"unknown names {unknown}; known: {' '.join(NAMES)}")
+        raise SystemExit(f"unknown names {unknown}; known: {' '.join(NAMES + EXTRA)}")
     rows = []
     if "stream" in which:
         rows.append(bench_stream(device, STREAM_N))
@@ -241,6 +304,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, object]]:
         rows.append(bench_block_slice(device, BLOCK_C, T, BLOCK_K))
     if "dma" in which:
         rows.append(bench_row_dma(device, DMA_ROWS, DMA_T))
+    if "blockpaths" in which:
+        rows.extend(block_paths(device))
     print("done", flush=True)
     return rows
 

@@ -217,16 +217,19 @@ def time_cuda(fn: Callable[[], object], iters: int = 20) -> float:
     The stream first spins (``torch.cuda._sleep``) long enough for the
     host to enqueue every timed call, so the events measure the device's
     time for the work and not the host's time to issue it; ``wall_ms``
-    measures what a caller that launches and waits sees.
+    measures what a caller that launches and waits sees. The enqueue time
+    is the slowest of the warm-up calls after the first: the first may
+    build a kernel library or fill caches, which the timed calls do not.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("time_cuda measures the card; no CUDA device")
     enqueue_s = 0.0
-    for _ in range(WARMUP_CALLS):
+    for n in range(WARMUP_CALLS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
-        enqueue_s = max(enqueue_s, time.perf_counter() - t0)
+        if n:
+            enqueue_s = max(enqueue_s, time.perf_counter() - t0)
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
@@ -610,13 +613,15 @@ def onehot_macs(cols: torch.Tensor, n_tables: int, window: int) -> int:
 def block_slice_work(starts: torch.Tensor, tier: torch.Tensor) -> KernelWork:
     """bench_block_slice: the distinct tier rows of every 8-row block
     [s, s + 8), starts and the output (8 rows per step of 8 x K starts);
-    one add per (start, block row, column); and per (start, block row,
-    column) one word out of the tier the TPU holds in VMEM, Hopper's shared
-    memory (``smem_words``), as blockfma_work counts A's."""
+    one add per (start, block row, column). The function's own count: the
+    TPU's reads of each start's 8 rows x 128 words out of VMEM (0.016 ms as
+    Hopper shared-memory words at the tool's defaults) are how that kernel
+    works, not work the function needs, and the count-matrix kernel makes
+    none of them."""
     d = tier.shape[1]
     rows = _distinct(starts.long()[..., None] + torch.arange(8, device=starts.device))
     return KernelWork(rows * d * 4 + starts.nbytes + starts.shape[0] * d * 4,
-                      starts.numel() * 8 * d, smem_words=starts.numel() * 8 * d)
+                      starts.numel() * 8 * d)
 
 
 def twosided_work(bases: torch.Tensor, lidx: torch.Tensor, rows: torch.Tensor,

@@ -15,6 +15,8 @@ indices outside their window, twosided at R = 1000 and 1024 with lanes
 outside their window).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -327,10 +329,12 @@ def test_work_counts_at_the_tools_defaults():
     blk = block_slice_work(starts, tier)
     assert starts.shape == (1024, 128) and blk.flops == 2**17 * 8 * 128
     assert blk.bytes == 8190 * 512 + 2**19 + 1024 * 512  # rows 0 .. C - 3 of 8-row blocks
-    # each start's 8 rows x 128 words out of the VMEM-resident tier: 0.016 ms
-    # of shared-memory words, above the 0.0020 ms of its adds
-    assert blk.smem_words == 2**17 * 8 * 128
-    assert blk.bound(*PEAKS, SMEM) == (pytest.approx(0.0161, abs=1e-4), "bytes")
+    # the function's own count: 0.0020 ms of adds above 0.0015 of bytes; the
+    # TPU's reads of each start's 8 rows out of VMEM (0.016 ms as Hopper
+    # shared-memory words) are not work the function needs
+    assert blk.smem_words == 0
+    assert blk.bound(*PEAKS, SMEM) == (pytest.approx(0.0020, abs=1e-4), "operations")
+    assert blk.bytes / PEAKS[0] * 1e3 == pytest.approx(0.0015, abs=1e-4)
 
     def first_draw(rows, n):
         return torch.from_numpy(np.random.default_rng(0).integers(0, rows - 2, n)
@@ -391,6 +395,186 @@ def test_slice_lanes_fit_the_opt_in_shared_memory(C, lanes):
     assert got == lanes and 4 * C * got <= tdyn.H100_OPTIN
 
 
+def _split_cases():
+    """float32 values of both signs across the range where the split is
+    exact: 0, powers of two and their neighbours from 2^-110 to the largest
+    finite, and seeded random bits in that range."""
+    tiny = float(2.0 ** -110)
+    big = torch.finfo(torch.float32).max
+    fixed = torch.tensor([0.0, tiny, 1.0, 1.0 + 2 ** -23, 2 - 2 ** -23, 3.0, 1 / 3, big,
+                          torch.finfo(torch.float32).eps, 65504.0, 2.0 ** 100, 1e-20])
+    bits = torch.from_numpy(np.random.default_rng(0).integers(
+        np.float32(tiny).view(np.int32), np.float32(big).view(np.int32), 4096, dtype=np.int32))
+    x = torch.cat([fixed, bits.view(torch.float32)])
+    return torch.cat([x, -x])
+
+
+def test_three_piece_split_is_exact_across_the_float32_range():
+    """hi + mid + lo == x bit for bit, and each piece is a bfloat16 value
+    (its low 16 bits zero), for 0 and every finite |x| from 2^-110 up; below,
+    the error stays under 2^-133."""
+    x = _split_cases()
+    hi, mid, lo = kgather.split_bf16x3(x)
+    for p in (hi, mid, lo):
+        assert torch.equal(p.to(torch.bfloat16).float(), p)
+        assert not (p.view(torch.int32) & 0xFFFF).any()
+    assert torch.equal((hi + mid) + lo, x) and torch.equal(hi + (mid + lo), x)
+    assert torch.equal(torch.signbit(hi[hi != 0]), torch.signbit(x[hi != 0]))
+    small = torch.tensor([2.0 ** -120, -3 * 2.0 ** -126, 2.0 ** -140, 5e-42])
+    assert ((sum(kgather.split_bf16x3(small)) - small).abs() < 2.0 ** -133).all()
+
+
+COUNT_CASES = sorted(tgather.BLOCK_EDGES) + ["small", "default_16_steps"]
+
+
+def _count_case(case):
+    """(starts, tier, chunk rows) of a count-path case: an edge of the
+    tool's BLOCK_EDGES (seed 3), a small case or 16 steps of the tool's
+    default shape, on the chunks the H100's plan gives (64-row chunks where
+    the plan takes the L2 kernel)."""
+    if case == "small":
+        starts, tier = tgather.inputs_block_slice(C, T, 8, 1)
+    elif case == "default_16_steps":
+        starts, tier = tgather.inputs_block_slice(8192, 16 * 64 * 128, 128, 2)
+    else:
+        starts, tier = tgather.block_edge_inputs(case, 3)
+    R = starts.shape[0] // 8
+    return starts, tier, kgather.block_slice_chunk_rows(tier.shape[0], R, tdyn.H100_OPTIN, 132)
+
+
+@pytest.mark.parametrize("case", COUNT_CASES)
+def test_count_matrix_order_matches_the_plain_version(case):
+    """The count-matrix kernel's arithmetic in its order (base-256 digits
+    of the shifted counts times the three pieces, chunk by chunk, then the
+    chunks in order) against block_slice_torch at 1e-5 + 1e-4|p|: at the
+    edges (over_256's counts of 512 and 320 take two digits), a small case
+    and 16 steps of the tool's default shape, on the chunks the H100's plan
+    gives (and 64-row chunks where the plan takes the L2 kernel)."""
+    starts, tier, rows = _count_case(case)
+    got = kgather.block_slice_counts_torch(starts, tier, rows)
+    want = kgather.block_slice_torch(starts, tier)
+    torch.testing.assert_close(got, want, rtol=ELEMENTWISE[0], atol=ELEMENTWISE[1])
+    if case == "over_256":
+        n = kgather.step_counts(starts, tier.shape[0])
+        assert n.max() == 512 and (n == 320).any()
+
+
+@pytest.mark.parametrize("case", COUNT_CASES)
+def test_float64_check_holds_three_pieces_and_fails_two(case):
+    """The count path's check on the card, |k - p| <= BS_EXACT_RTOL |p|
+    against block_slice_float64: the three-piece arithmetic in the
+    kernel's order passes it; the same with the lo piece dropped (hi + mid,
+    16 significant bits, a one-sided error of ~5e-6 on these positive
+    tiers) fails it at every case. block_slice_float64 agrees with the plain
+    version at 1e-5 + 1e-4|p|."""
+    starts, tier, rows = _count_case(case)
+    want = kgather.block_slice_float64(starts, tier)
+    torch.testing.assert_close(want.float(), kgather.block_slice_torch(starts, tier),
+                               rtol=ELEMENTWISE[0], atol=ELEMENTWISE[1])
+
+    def rel(got):
+        return float(((got.double() - want).abs() / want.abs()).max())
+
+    hi, mid, _ = kgather.split_bf16x3(tier)
+    assert rel(kgather.block_slice_counts_torch(starts, tier, rows)) <= kgather.BS_EXACT_RTOL
+    assert rel(kgather.block_slice_counts_torch(starts, hi + mid, rows)) > kgather.BS_EXACT_RTOL
+
+
+def test_count_path_spreads_a_non_finite_tier_value_through_its_column():
+    """A departure from the TPU kernel and the L2 kernel, pinned: the count
+    path multiplies every tier row of a chunk by each shifted count, zeros
+    too, so one inf in the tier (its mid and lo pieces NaN) makes NaN in
+    that column of every output row whose block multiplies that chunk;
+    the plain version carries inf only to the rows that read it."""
+    starts, tier = tgather.inputs_block_slice(C, T, 8, 1)
+    tier[30, 5] = float("inf")
+    plain = kgather.block_slice_torch(starts, tier)
+    reads = (plain[:, 5] == float("inf"))
+    assert reads.any() and not reads.all() and torch.isfinite(plain[~reads]).all()
+    got = kgather.block_slice_counts_torch(starts, tier, 64)
+    assert torch.isnan(got[:, 5]).all()
+    others = torch.cat([got[:, :5], got[:, 6:]], 1)
+    want = torch.cat([plain[:, :5], plain[:, 6:]], 1)
+    torch.testing.assert_close(others, want, rtol=ELEMENTWISE[0], atol=ELEMENTWISE[1])
+
+
+@pytest.mark.parametrize("C,K,R,rows", [
+    (8192, 128, 128, 512),             # the tool's default: 8 groups x 16 chunks
+    (16384, 128, 128, 576),            # the count path, chunks capped at 576 rows
+    (32768, 128, 128, 0),              # the L2 kernel
+    (1024, 8, 128, 0),                 # too few starts a step: the L2 kernel
+    (1024, 32, 16, 64),                # one group: 16 chunks of 64 rows
+    (8192, 32, 16, 0),                 # 128 chunks to sum: the L2 kernel
+    (12288, 64, 32, 192),              # 2 groups x 64 chunks
+    (tgather.BLOCK_EDGE_C, tgather.BLOCK_EDGE_K, tgather.BLOCK_EDGE_R, 64),  # the edge
+    (tgather.BLOCK_EDGE_C + 64, tgather.BLOCK_EDGE_K, tgather.BLOCK_EDGE_R, 0),
+    (64, 8, 4, 0),                     # the small case: the L2 kernel
+    (8192, 128, 4096, 576),            # 256 groups: one chunk wanted, capped
+    (2 ** 20, 2 ** 14, 128, 576),      # 1,821 chunks of what 232,448 bytes hold
+])
+def test_block_slice_plan_picks_each_path_at_its_edges(C, K, R, rows):
+    """block_slice_plan on an H100 (232,448 bytes, 132 SMs): the count path
+    where its modelled time (block_slice_ms) is below the L2 kernel's, its
+    chunks about 132 / groups pieces of C in multiples of 64, at most what
+    the shared memory holds; 0 (the L2 kernel) elsewhere. The first seven
+    cases are sizes of the tool's path sweep, each on the path that ran
+    faster there on an H100."""
+    got = kgather.block_slice_plan(C, K, R, tdyn.H100_OPTIN, 132)
+    assert got == rows
+    if rows:
+        assert got % kgather.BS_SUB == 0 and kgather.block_slice_smem(got) <= tdyn.H100_OPTIN
+    assert kgather.block_slice_smem(576 + 64) > tdyn.H100_OPTIN
+    count, l2 = kgather.block_slice_ms(C, K, R, tdyn.H100_OPTIN, 132)
+    assert (count < l2) == (rows > 0)
+
+
+def test_count_macs_count_each_blocks_digits():
+    """block_slice_macs: 128 x chunk rows x 128 x 3 a block and digit; the
+    tool's default 3.2 G (8 groups x 16 chunks, one digit each); a step of
+    equal starts (a count of 1,024 = 4 x 256) adds a second digit to one
+    block; 0 on the L2 kernel."""
+    starts, tier = tgather.inputs_block_slice(8192, tgather.T)
+    per_block = 128 * 512 * 128 * 3
+    assert kgather.block_slice_macs(starts, 8192, 512) == 128 * per_block == 3_221_225_472
+    starts[:8] = 5
+    assert kgather.block_slice_macs(starts, 8192, 512) == 129 * per_block
+    assert kgather.block_slice_macs(starts, 8192, 0) == 0
+
+
+def test_time_cuda_leaves_the_first_warm_up_call_out_of_its_spin(monkeypatch):
+    """A first call that builds a library for 0.3 s sets no spin: the
+    stream spins for twice the slowest later warm-up call's enqueue time
+    times the timed calls, and fn runs WARMUP_CALLS + iters times."""
+    from of_spmm_tpu_torch.utils import roofline
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            pass
+
+        def record(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 1.0
+
+    spins, calls = [], []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "_sleep", spins.append)
+
+    def fn():
+        calls.append(1)
+        if len(calls) == 1:
+            time.sleep(0.3)
+
+    assert roofline.time_cuda(fn, iters=20) == 1.0
+    assert len(calls) == roofline.WARMUP_CALLS + 20 and len(spins) == 1
+    # 2e9 cycles/s x (2 x enqueue x 20 + 0.01 s): a 0.3 s first call would
+    # give 2.4e10 and more
+    assert 2e7 <= spins[0] < 2e9
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
@@ -446,3 +630,30 @@ def test_take_along_at_its_edges_on_the_card():
             paths.add(kdyn.slice_lanes(C, optin) > 0)
     assert paths == {True, False}
 
+
+@pytest.mark.cuda
+def test_block_slice_paths_at_their_edges_on_the_card():
+    """block_slice on both of its kernels (the count-matrix kernel on the
+    chunks block_slice_chunk_rows gives, and the L2 kernel) at the tool's
+    BLOCK_EDGES, two seeds, each output on NaN-poisoned memory, against the
+    plain version at 1e-5 + 1e-4|p|, the count path also against the float64
+    sum at BS_EXACT_RTOL|p|; the plan takes each path at some edge."""
+    dev = _card()
+    optin, sms = kgather.card_shape(dev)
+    paths = set()
+    for seed in (3, 4):
+        for case, e in tgather.BLOCK_EDGES.items():
+            starts, tier = (a.to(dev) for a in tgather.block_edge_inputs(case, seed))
+            want = kgather.block_slice_torch(starts, tier)
+            want64 = kgather.block_slice_float64(starts, tier)
+            for rows in (kgather.block_slice_chunk_rows(e["C"], e["R"], optin, sms), 0):
+                at = torch.full((starts.shape[0], 128), float("nan"), device=dev).data_ptr()
+                got = kgather.block_slice_launch(starts, tier, rows)
+                torch.cuda.synchronize()
+                assert got.data_ptr() == at, (case, rows)
+                torch.testing.assert_close(got, want, rtol=ELEMENTWISE[0], atol=ELEMENTWISE[1])
+                if rows:  # the three pieces: tight enough to fail a two-piece split
+                    rel = (got.double() - want64).abs() / want64.abs()
+                    assert float(rel.max()) <= kgather.BS_EXACT_RTOL, (case, seed)
+            paths.add(kgather.block_slice_plan(e["C"], e["K"], e["R"], optin, sms) > 0)
+    assert paths == {True, False}
